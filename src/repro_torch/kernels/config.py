@@ -1,0 +1,28 @@
+"""Kernel dispatch switch, default device and build directory.
+
+``use_kernels(True)`` routes the model's hot spots through the hand-written
+CUDA kernels (today: flash attention in prefill); the default False keeps the
+plain PyTorch path, as ``repro.kernels.use_pallas`` does for the JAX package.
+With kernels on, a tensor on the CPU takes the kernel's plain PyTorch version
+and a CUDA tensor takes the kernel; nothing falls back from one to the other.
+"""
+from __future__ import annotations
+
+from pathlib import Path
+
+DEFAULT_DEVICE = "cuda"
+
+# nvcc output (shared libraries keyed by a hash of their sources); listed in
+# .gitignore and made at first use
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+
+_USE_KERNELS = False
+
+
+def use_kernels(on: bool) -> None:
+    global _USE_KERNELS
+    _USE_KERNELS = bool(on)
+
+
+def kernels_enabled() -> bool:
+    return _USE_KERNELS

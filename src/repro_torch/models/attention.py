@@ -1,0 +1,278 @@
+"""Attention layers: GQA self-attention and decode against a KV cache.
+
+Ported from ``repro.models.attention`` (ATTN layers).  Heads stay in an
+explicit (groups, heads-per-group) layout so GQA never repeats K/V.
+Full-sequence attention switches to a KV-chunked online softmax above
+``CHUNK_THRESHOLD`` keys; with kernels on and Sq == Sk it goes to the flash
+kernel instead (the dispatch ``repro.models.attention.attend`` makes).
+Decode attention stays plain torch: the JAX package has no kernel for it.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.config import kernels_enabled
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.models.common import apply_rope, dense_init, dtype_of, softcap
+
+CHUNK_THRESHOLD = 2048  # switch to chunked attention above this many keys
+KV_CHUNK = 512
+
+NEG_INF = -2.3819763e38  # large negative for masking (fits f32)
+
+
+# --------------------------------------------------------------------------
+# Parameters.
+# --------------------------------------------------------------------------
+
+def attn_params(cfg: ModelConfig, gen: torch.Generator, lead: Tuple[int, ...] = ()) -> dict:
+    """QKV + output projection; ``lead`` prepends stacking axes."""
+    d, H, KV, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    dt = dtype_of(cfg)
+    return {
+        "wq": dense_init(gen, lead + (d, H, dh), dt, fan_in=d),
+        "wk": dense_init(gen, lead + (d, KV, dh), dt, fan_in=d),
+        "wv": dense_init(gen, lead + (d, KV, dh), dt, fan_in=d),
+        "wo": dense_init(gen, lead + (H, dh, d), dt, fan_in=H * dh),
+    }
+
+
+def _split_groups(cfg: ModelConfig, q: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, dh) -> (B, S, G, M, dh) with G = kv heads, M = H // G."""
+    B, S, H, dh = q.shape
+    G = cfg.n_kv_heads
+    return q.reshape(B, S, G, H // G, dh)
+
+
+def _scale(cfg: ModelConfig) -> float:
+    return cfg.head_dim_**-0.5
+
+
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(B, S, d) @ (d, N, k) -> (B, S, N, k), contiguous (the kernel reads
+    these buffers in place through strides)."""
+    d, n, k = w.shape
+    return (x @ w.reshape(d, n * k)).view(*x.shape[:-1], n, k)
+
+
+# --------------------------------------------------------------------------
+# Mask helpers.  Positions are absolute token indices; window==0 -> global.
+# --------------------------------------------------------------------------
+
+def _mask_bias(
+    q_pos: torch.Tensor, k_pos: torch.Tensor, window: int, causal: bool
+) -> torch.Tensor:
+    """(Sq, Sk) additive f32 bias: 0 where attendable, NEG_INF elsewhere."""
+    ok = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool, device=q_pos.device)
+    if causal:
+        ok &= k_pos[None, :] <= q_pos[:, None]
+    if window:
+        ok &= k_pos[None, :] > q_pos[:, None] - window
+    ok &= k_pos[None, :] >= 0  # invalid / unwritten cache slots carry pos -1
+    bias = torch.zeros(ok.shape, dtype=torch.float32, device=q_pos.device)
+    return bias.masked_fill_(~ok, NEG_INF)
+
+
+# --------------------------------------------------------------------------
+# Core attention on explicit K/V (dense and chunked paths).
+# q: (B, Sq, G, M, dh); k, v: (B, Sk, G, dh).
+# --------------------------------------------------------------------------
+
+def _attend_dense(
+    cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor
+) -> torch.Tensor:
+    logits = torch.einsum("bsgmd,btgd->bgmst", q.float(), k.float()) * _scale(cfg)
+    logits = softcap(logits, cfg.attn_softcap)
+    logits = logits + bias
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bgmst,btgd->bsgmd", probs.to(v.dtype), v)
+
+
+def _attend_chunked(
+    cfg: ModelConfig,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    q_pos: torch.Tensor,
+    k_pos: torch.Tensor,
+    window: int,
+    causal: bool,
+) -> torch.Tensor:
+    """Online softmax over KV chunks (the flash recurrence in plain torch)."""
+    B, Sq, G, M, dh = q.shape
+    Sk = k.shape[1]
+    n_chunks = -(-Sk // KV_CHUNK)
+    pad = n_chunks * KV_CHUNK - Sk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = torch.nn.functional.pad(k_pos, (0, pad), value=-1)
+    qf = q.float() * _scale(cfg)
+    m = torch.full((B, G, M, Sq), -torch.inf, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, G, M, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, G, M, Sq, dh), dtype=torch.float32, device=q.device)
+    for c in range(n_chunks):
+        sl = slice(c * KV_CHUNK, (c + 1) * KV_CHUNK)
+        logits = torch.einsum("bsgmd,btgd->bgmst", qf, k[:, sl].float())
+        logits = softcap(logits, cfg.attn_softcap)
+        logits = logits + _mask_bias(q_pos, k_pos[sl], window, causal)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        # guard fully-masked rows: keep m finite so exp() is well-defined
+        m_safe = torch.clamp(m_new, min=-1e30)
+        p = torch.exp(logits - m_safe[..., None])
+        scale_old = torch.exp(torch.clamp(m, min=-1e30) - m_safe)
+        l = l * scale_old + p.sum(dim=-1)
+        acc = acc * scale_old[..., None] + torch.einsum(
+            "bgmst,btgd->bgmsd", p, v[:, sl].float()
+        )
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.permute(0, 3, 1, 2, 4).to(v.dtype)  # (B, Sq, G, M, dh)
+
+
+# --------------------------------------------------------------------------
+# Public layer entry points.
+# --------------------------------------------------------------------------
+
+def qkv_proj(
+    cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Project + rope.  Returns q (B,S,H,dh), k, v (B,S,G,dh)."""
+    q = _project(x, p["wq"])
+    k = _project(x, p["wk"])
+    v = _project(x, p["wv"])
+    if cfg.pos == "rope":
+        q = apply_rope(q, positions[None], cfg.rope_theta)
+        k = apply_rope(k, positions[None], cfg.rope_theta)
+    return q, k, v
+
+
+def attend(
+    cfg: ModelConfig,
+    q: torch.Tensor,  # (B, Sq, H, dh)
+    k: torch.Tensor,  # (B, Sk, G, dh)
+    v: torch.Tensor,
+    q_pos: torch.Tensor,  # (Sq,)
+    k_pos: torch.Tensor,  # (Sk,)
+    *,
+    window: int = 0,
+    causal: bool = True,
+) -> torch.Tensor:
+    """Masked attention core; auto-chunks above CHUNK_THRESHOLD keys.
+    Returns (B, Sq, H, dh).  With kernels enabled and Sq == Sk (contiguous
+    positions from 0), dispatches to ``kernels.flash_attention.ops``."""
+    B, Sq = q.shape[:2]
+    if kernels_enabled() and Sq == k.shape[1]:
+        return fa_ops.attention(
+            q, k, v, causal=causal, window=window, softcap=cfg.attn_softcap
+        )
+    qg = _split_groups(cfg, q)
+    if k.shape[1] > CHUNK_THRESHOLD:
+        out = _attend_chunked(cfg, qg, k, v, q_pos, k_pos, window, causal)
+    else:
+        bias = _mask_bias(q_pos, k_pos, window, causal)
+        out = _attend_dense(cfg, qg, k, v, bias)
+    return out.reshape(B, Sq, cfg.n_heads, cfg.head_dim_)
+
+
+def out_proj(p: dict, o: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, dh) @ (H, dh, d) -> (B, S, d)."""
+    H, dh, d = p["wo"].shape
+    return o.reshape(*o.shape[:-2], H * dh) @ p["wo"].reshape(H * dh, d)
+
+
+def self_attention(
+    cfg: ModelConfig,
+    p: dict,
+    x: torch.Tensor,  # (B, S, d)
+    positions: torch.Tensor,  # (S,)
+    *,
+    window: int = 0,
+    causal: bool = True,
+) -> torch.Tensor:
+    """Full-sequence self-attention (prefill / training forward)."""
+    q, k, v = qkv_proj(cfg, p, x, positions)
+    out = attend(cfg, q, k, v, positions, positions, window=window, causal=causal)
+    return out_proj(p, out)
+
+
+# --------------------------------------------------------------------------
+# KV cache (decode), global layout: capacity S_max, written at the absolute
+# position.  ``pos`` entries are absolute key positions (-1 = unwritten).
+# --------------------------------------------------------------------------
+
+def init_kv_cache(
+    cfg: ModelConfig, batch: int, capacity: int, dtype=None, device=None
+) -> dict:
+    G, dh = cfg.n_kv_heads, cfg.head_dim_
+    dt = dtype or dtype_of(cfg)
+    return {
+        "k": torch.zeros((batch, capacity, G, dh), dtype=dt, device=device),
+        "v": torch.zeros((batch, capacity, G, dh), dtype=dt, device=device),
+        "pos": torch.full((capacity,), -1, dtype=torch.int32, device=device),
+    }
+
+
+def cache_capacity(window: int, seq_len: int) -> int:
+    return min(window, seq_len) if window else seq_len
+
+
+def cache_from_kv(
+    k: torch.Tensor,  # (B, S, G, dh) — rope already applied
+    v: torch.Tensor,
+    positions: torch.Tensor,  # (S,)
+    capacity: int,
+) -> dict:
+    """Build a decode cache from prefill K/V, padded to ``capacity``.  The
+    ring layout of sliding-window layers is not ported yet."""
+    B, S, G, dh = k.shape
+    if capacity < S:
+        raise NotImplementedError(
+            f"cache capacity {capacity} < prompt length {S} needs the ring layout"
+        )
+    cache = {
+        "k": torch.zeros((B, capacity, G, dh), dtype=k.dtype, device=k.device),
+        "v": torch.zeros((B, capacity, G, dh), dtype=v.dtype, device=v.device),
+        "pos": torch.full((capacity,), -1, dtype=torch.int32, device=k.device),
+    }
+    cache["k"][:, :S] = k
+    cache["v"][:, :S] = v
+    cache["pos"][:S] = positions
+    return cache
+
+
+def decode_attention(
+    cfg: ModelConfig,
+    p: dict,
+    x: torch.Tensor,  # (B, 1, d)
+    pos: int,  # absolute position of the new token
+    cache: dict,
+    *,
+    window: int = 0,
+) -> Tuple[torch.Tensor, dict]:
+    """One-token self-attention against the KV cache.  Unlike the JAX
+    package, which returns a new cache, this writes the new key, value and
+    position into ``cache`` in place and returns the same dict."""
+    B = x.shape[0]
+    q = _project(x, p["wq"])
+    k_new = _project(x, p["wk"])
+    v_new = _project(x, p["wv"])
+    pos_t = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
+    if cfg.pos == "rope":
+        q = apply_rope(q, pos_t, cfg.rope_theta)
+        k_new = apply_rope(k_new, pos_t, cfg.rope_theta)
+
+    capacity = cache["k"].shape[1]
+    slot = pos % capacity if window > 0 else min(pos, capacity - 1)
+    cache["k"][:, slot] = k_new[:, 0]
+    cache["v"][:, slot] = v_new[:, 0]
+    cache["pos"][slot] = pos
+
+    qg = _split_groups(cfg, q)  # (B, 1, G, M, dh)
+    bias = _mask_bias(pos_t[0], cache["pos"], window, causal=True)
+    out = _attend_dense(cfg, qg, cache["k"], cache["v"], bias)
+    out = out.reshape(B, 1, cfg.n_heads, cfg.head_dim_)
+    return out_proj(p, out), cache

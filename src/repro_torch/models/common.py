@@ -1,0 +1,154 @@
+"""Shared building blocks: norms, activations, RoPE, init, MLP, embeddings.
+
+Ported from ``repro.models.common``.  Norms compute in f32 and cast back to
+the input dtype, as the JAX package does.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+
+
+def dtype_of(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+# --------------------------------------------------------------------------
+# Norms.
+# --------------------------------------------------------------------------
+
+def rmsnorm(
+    x: torch.Tensor, scale: Optional[torch.Tensor], eps: float = 1e-6, plus_one: bool = False
+) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    if scale is not None:
+        s = scale.float()
+        y = y * (1.0 + s) if plus_one else y * s
+    return y.to(x.dtype)
+
+
+def layernorm(
+    x: torch.Tensor, scale: Optional[torch.Tensor], bias: Optional[torch.Tensor], eps: float = 1e-5
+) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    if scale is not None:
+        y = y * scale.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
+
+
+def apply_norm(cfg: ModelConfig, x: torch.Tensor, p: Optional[dict]) -> torch.Tensor:
+    """Dispatch on cfg.norm.  ``p`` holds {'scale': ..., 'bias': ...} or is
+    None for the non-parametric LN."""
+    if cfg.norm == "rmsnorm":
+        return rmsnorm(x, None if p is None else p.get("scale"))
+    if cfg.norm == "layernorm":
+        return layernorm(
+            x, None if p is None else p.get("scale"), None if p is None else p.get("bias")
+        )
+    if cfg.norm == "nonparam_ln":
+        return layernorm(x, None, None)
+    raise ValueError(cfg.norm)
+
+
+# --------------------------------------------------------------------------
+# Activations / softcap.
+# --------------------------------------------------------------------------
+
+def activation(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    if cfg.act == "silu":
+        return F.silu(x)
+    if cfg.act == "gelu":
+        return F.gelu(x, approximate="tanh")
+    raise ValueError(cfg.act)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """gemma2 logit soft-capping: cap * tanh(x / cap)."""
+    if not cap:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+# --------------------------------------------------------------------------
+# Rotary position embeddings (split-half layout).
+# --------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta**exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, dh); positions: broadcastable to (..., S)."""
+    freqs = rope_freqs(x.shape[-1], theta, device=x.device)  # (dh/2,)
+    ang = positions[..., None].float() * freqs  # (..., S, dh/2), in f32
+    cos = torch.cos(ang)[..., None, :]  # (..., S, 1, dh/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Init / MLP / embeddings.  Same shapes, dtypes and std as the JAX package;
+# the values come from a torch.Generator, so they differ from JAX's.
+# --------------------------------------------------------------------------
+
+def dense_init(
+    gen: torch.Generator, shape: Tuple[int, ...], dtype: torch.dtype, fan_in: int
+) -> torch.Tensor:
+    """Normal(0, 1/fan_in) in f32, cast to ``dtype``, on the generator's device."""
+    std = 1.0 / max(fan_in, 1) ** 0.5
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
+    return (w * std).to(dtype)
+
+
+def mlp_params(cfg: ModelConfig, gen: torch.Generator, lead: Tuple[int, ...] = ()) -> dict:
+    """``lead`` prepends stacking axes (a layer group's count)."""
+    d, ff = cfg.d_model, cfg.d_ff
+    dt = dtype_of(cfg)
+    w_in_cols = 2 * ff if cfg.gated else ff
+    return {
+        "w_in": dense_init(gen, lead + (d, w_in_cols), dt, fan_in=d),
+        "w_out": dense_init(gen, lead + (ff, d), dt, fan_in=ff),
+    }
+
+
+def mlp_apply(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    h = x @ p["w_in"]
+    if cfg.gated:
+        gate, up = h.chunk(2, dim=-1)
+        h = activation(cfg, gate) * up
+    else:
+        h = activation(cfg, h)
+    return h @ p["w_out"]
+
+
+def embed_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    dt = dtype_of(cfg)
+    p = {"tok": dense_init(gen, (cfg.vocab_padded, cfg.d_model), dt, fan_in=cfg.d_model)}
+    if not cfg.tie_embeddings:
+        p["head"] = dense_init(gen, (cfg.d_model, cfg.vocab_padded), dt, fan_in=cfg.d_model)
+    if cfg.pos == "learned":
+        p["pos"] = dense_init(gen, (65536, cfg.d_model), dt, fan_in=cfg.d_model)
+    return p
+
+
+def unembed(cfg: ModelConfig, embed: dict, x: torch.Tensor) -> torch.Tensor:
+    """Logits in f32 (tied head reads the embedding table)."""
+    if cfg.tie_embeddings:
+        logits = x @ embed["tok"].T
+    else:
+        logits = x @ embed["head"]
+    return softcap(logits.float(), cfg.logit_softcap)

@@ -1,0 +1,124 @@
+"""The model: layer groups applied over parameters stacked per group.
+
+Ported from ``repro.models.transformer`` for ATTN layers on one device
+(``dist=None``).  The parameter tree keeps the JAX package's keys and its
+stacking over a group's ``count`` (``_superblock_params``), so a JAX tree
+carried across by ``convert.params_from_jax`` runs here unchanged; the
+layer loop replaces ``lax.scan`` over the stack.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.configs.base import ATTN, LayerGroup, ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.common import (
+    apply_norm,
+    dtype_of,
+    embed_params,
+    mlp_apply,
+    mlp_params,
+    unembed,
+)
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """The port runs dense ATTN decoders so far."""
+    kinds = {k for g in cfg.groups for k in g.pattern}
+    if kinds != {ATTN} or cfg.is_moe or cfg.post_norms or cfg.encoder_layers:
+        raise NotImplementedError(f"{cfg.name}: only dense ATTN decoders are ported")
+
+
+# --------------------------------------------------------------------------
+# Parameter init: same keys, shapes, dtypes and std as the JAX package.
+# --------------------------------------------------------------------------
+
+def norm_params(cfg: ModelConfig, lead: Tuple[int, ...], device) -> dict:
+    if cfg.norm == "nonparam_ln":
+        return None
+    p = {"scale": torch.ones(lead + (cfg.d_model,), dtype=dtype_of(cfg), device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros(lead + (cfg.d_model,), dtype=dtype_of(cfg), device=device)
+    return p
+
+
+def _superblock_params(cfg: ModelConfig, group: LayerGroup, gen: torch.Generator) -> tuple:
+    """One dict per layer kind of the pattern, leaves stacked over ``count``."""
+    lead = (group.count,)
+    return tuple(
+        {
+            "ln1": norm_params(cfg, lead, gen.device),
+            "ln2": norm_params(cfg, lead, gen.device),
+            "attn": attn.attn_params(cfg, gen, lead),
+            "mlp": mlp_params(cfg, gen, lead),
+        }
+        for _ in group.pattern
+    )
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    """Random weights on ``gen``'s device."""
+    check_supported(cfg)
+    return {
+        "embed": embed_params(cfg, gen),
+        "groups": tuple(_superblock_params(cfg, g, gen) for g in cfg.groups),
+        "final_norm": norm_params(cfg, (), gen.device),
+    }
+
+
+def _take(tree, i: int):
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _take(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def layer_params(gp: tuple, i: int) -> tuple:
+    """Repetition ``i`` of a group's stacked parameters (or caches), as views:
+    one dict per layer kind of the pattern."""
+    return tuple(_take(p, i) for p in gp)
+
+
+# --------------------------------------------------------------------------
+# Forward (full sequence).
+# --------------------------------------------------------------------------
+
+def _embed_tokens(cfg: ModelConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    return params["embed"]["tok"][tokens]
+
+
+def _positions_embed(cfg: ModelConfig, params: dict, x: torch.Tensor, positions) -> torch.Tensor:
+    if cfg.pos == "learned":
+        x = x + params["embed"]["pos"][positions]
+    return x
+
+
+def _apply_layer_full(
+    cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor
+) -> torch.Tensor:
+    h = apply_norm(cfg, x, p["ln1"])
+    x = x + attn.self_attention(cfg, p["attn"], h, positions)
+    h = apply_norm(cfg, x, p["ln2"])
+    return x + mlp_apply(cfg, p["mlp"], h)
+
+
+def forward(
+    cfg: ModelConfig, params: dict, tokens: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits (B, S, V) f32, aux_loss scalar); the aux loss is the
+    MoE router's, zero for the dense layers ported so far."""
+    check_supported(cfg)
+    S = tokens.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+    x = _embed_tokens(cfg, params, tokens)
+    x = _positions_embed(cfg, params, x, positions)
+    for group, gp in zip(cfg.groups, params["groups"]):
+        for i in range(group.count):
+            for p in layer_params(gp, i):
+                x = _apply_layer_full(cfg, p, x, positions)
+    x = apply_norm(cfg, x, params["final_norm"])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return unembed(cfg, params["embed"], x), aux
