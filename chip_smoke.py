@@ -3,20 +3,25 @@
 
     python3 chip_smoke.py
 
-Phases, each printing its own lines, any failure ending the run non-zero:
+Two serving paths, each with its own kernel: llama3.2-1b (flash attention)
+and rwkv6-1.6b (the WKV6 scan).  Phases, each printing its own lines, any
+failure ending the run non-zero:
   1. device  — fail without CUDA; print the card's name and power limit;
                TF32 off for f32 matmuls and convolutions.
-  2. build   — compile every CUDA kernel from the repository's sources.
+  2. build   — compile every CUDA kernel from the repository's sources, all
+               nvcc processes at once.
   3. kernels — each kernel against its plain PyTorch version on the card.
-  4. parity  — the smoke-width model in f32: CPU (plain) against CUDA (kernel).
-  5. serve   — full-width llama3.2-1b through ``repro_torch.launch.serve``;
-               every kernel of the path must have launched.
-  6. breakdown — the same serve call again: every run's prefill and decode
+  4. parity  — each smoke-width model in f32: CPU (plain) against CUDA (kernel).
+  5. serve   — each full-width model through ``repro_torch.launch.serve``,
+               every launch count set to 0 just before and read just after:
+               its kernel launched once per layer, the other kernel never.
+  6. breakdown — the same serve calls again: every run's prefill and decode
                wall time, then one run under torch.profiler split by serve's
                own ``prefill`` / ``decode`` spans: device busy time, idle
                share, device operations and the largest kernels per phase.
-  7. timing  — each kernel at the serving path's shape, beside its plain
-               version, one PyTorch library call and the card's bound.
+  7. timing  — each kernel at its serving path's shape, beside its plain
+               version, one PyTorch library call where there is one, and the
+               card's bound.
 The second-to-last line is the card as nvidia-smi names it, the last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of ``repro``.
 """
@@ -47,9 +52,35 @@ MAIN_SHAPE = dict(B=4, H=32, G=8, S=512, dh=64, dtype=torch.bfloat16)
 # f32: the kernel sums in another order; bf16: well above the rounding of
 # bf16 outputs (about 4e-3 at these magnitudes), well below the outputs' size
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
-SERVE_ARGV = ["--arch", "llama3.2-1b", "--batch", "4", "--prompt-len", "512",
-              "--new-tokens", "32", "--device", "cuda"]
-WARM_RUNS = 5
+B_SERVE, P_SERVE, N_SERVE = 4, 512, 32
+ARCHS = ("llama3.2-1b", "rwkv6-1.6b")
+# each arch's prefill kernel: row name, kernel name in the profiler, and the
+# warm serve runs of the breakdown phase
+ARCH_KERNEL = {"llama3.2-1b": ("flash_attention", "flash_fwd", 5),
+               "rwkv6-1.6b": ("wkv6", "wkv6_kernel", 3)}
+
+
+WKV_SHAPE = dict(B=4, S=512, H=32, K=64, chunk=32, dtype=torch.bfloat16)
+# WKV6 against the token-by-token recurrence: f32 at 2e-4, the JAX package's
+# own tolerance for its kernel against the same oracle (the chunked algebra
+# sums in another order); bf16 y at 1e-2, above one rounding of a bf16
+# output, while the state stays f32 and keeps 2e-4.
+WKV_TOL = {torch.float32: 2e-4, torch.bfloat16: 1e-2}
+WKV_CASES = [
+    # (label, B, S, H, K, chunk, dtype, log_w draw); the first three replay the
+    # JAX package's kernel cases, the fourth its strong-decay case
+    ("wkv_case0", 1, 64, 2, 64, 16, torch.float32, "exp_normal"),
+    ("wkv_case1", 2, 128, 3, 64, 32, torch.float32, "exp_normal"),
+    ("wkv_case2", 1, 96, 1, 32, 32, torch.float32, "exp_normal"),
+    ("strong_decay", 1, 64, 1, 32, 16, torch.float32, "minus50"),
+    ("ragged_s70", 2, 70, 2, 64, 32, torch.float32, "exp_normal"),
+    ("ragged_s200", 2, 200, 4, 64, 32, torch.float32, "exp_normal"),
+    ("bf16", 2, 256, 4, 64, 32, torch.bfloat16, "exp_normal"),
+    ("strided_views", 2, 96, 4, 64, 32, torch.float32, "exp_normal"),
+    ("model_decay_clipped", 2, 256, 4, 64, 32, torch.float32, "model_clipped"),
+    ("main_path", 4, 512, 32, 64, 32, torch.bfloat16, "exp_normal"),
+    ("main_path_f32", 4, 512, 32, 64, 32, torch.float32, "model_clipped"),
+]
 
 FA_CASES = [
     # (label, B, H, G, Sq, Sk, dh, dtype, kwargs); the first seven replay the
@@ -73,6 +104,11 @@ FA_CASES = [
     ("q_offset_tail", 1, 2, 2, 64, 256, 64, torch.float32, {"q_offset": 192}),
     ("q_offset_ragged", 2, 4, 1, 37, 301, 64, torch.float32, {"q_offset": 264}),
 ]
+
+
+def serve_argv(arch: str) -> list:
+    return ["--arch", arch, "--batch", str(B_SERVE), "--prompt-len", str(P_SERVE),
+            "--new-tokens", str(N_SERVE), "--device", "cuda"]
 
 
 def say(phase: str, msg: str) -> None:
@@ -115,6 +151,61 @@ def model_layout(rng, B, H, G, Sq, Sk, dh, dtype, device="cuda"):
     return mk(B, Sq, H, dh), mk(B, Sk, G, dh), mk(B, Sk, G, dh)
 
 
+def wkv_inputs(rng, B, S, H, K, dtype, draw, strided=False, device="cuda"):
+    """r, k, v (B, S, H, K) in ``dtype``, log_w in f32 and u (H, K) in f32,
+    as the model passes them.  log_w is -exp(N(0, 1)) as the JAX package's
+    kernel tests draw it ("exp_normal"), -50 with u = 0 as its strong-decay
+    test ("minus50"), or as the model makes it, -exp(clip(w0 + z, -8, 8))
+    with w0 = -1 and z spread wide enough that both clips are reached
+    ("model_clipped": steps of -e^8 = -2981 beside steps of -3.4e-4).
+    ``strided`` hands the kernel views: r, k, v cut from wider rows, log_w a
+    transposed (B, H, S, K) buffer."""
+    def mk(scale=1.0):
+        a = rng.standard_normal((B, S, H, K), dtype=np.float32) * scale
+        return torch.from_numpy(a).to(device)
+
+    r, k, v = mk(), mk(0.5), mk()
+    u = torch.from_numpy(rng.standard_normal((H, K), dtype=np.float32) * 0.1).to(device)
+    if draw == "exp_normal":
+        log_w = -torch.exp(mk())
+    elif draw == "minus50":
+        log_w, u = torch.full((B, S, H, K), -50.0, device=device), torch.zeros_like(u)
+    else:
+        log_w = -torch.exp(torch.clamp(-1.0 + mk(4.0), -8.0, 8.0))
+    r, k, v = (t.to(dtype) for t in (r, k, v))
+    if strided:
+        def widen(t):
+            buf = torch.zeros((B, S, H, 2 * K), dtype=t.dtype, device=device)
+            buf[..., :K] = t
+            return buf[..., :K]
+
+        r, k, v = map(widen, (r, k, v))
+        log_w = log_w.transpose(1, 2).contiguous().transpose(1, 2)
+    return r, k, v, log_w, u
+
+
+def kernel_modules() -> dict:
+    """Row name -> (kernel wrapper module, ops module) of every kernel."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+
+    return {"flash_attention": (fa_kernel, fa_ops), "wkv6": (wkv_kernel, wkv_ops)}
+
+
+def zero_counts() -> None:
+    for kern, ops in kernel_modules().values():
+        kern.launches = 0
+        ops.plain_calls = 0
+
+
+def read_counts() -> dict:
+    """Row name -> (kernel launches, plain-version calls)."""
+    return {name: (kern.launches, ops.plain_calls)
+            for name, (kern, ops) in kernel_modules().items()}
+
+
 # -- phases --------------------------------------------------------------------
 
 def phase_device() -> str:
@@ -146,8 +237,8 @@ def phase_build() -> None:
 
 
 def phase_kernel_cases() -> float:
-    """Kernel against attention_ref on the same CUDA tensors; returns the
-    max abs error at the serving path's shape."""
+    """Flash kernel against attention_ref on the same CUDA tensors; returns
+    the max abs error at the serving path's shape."""
     from repro_torch.kernels.flash_attention import kernel, ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -177,17 +268,72 @@ def phase_kernel_cases() -> float:
     return main_err
 
 
-def phase_parity() -> None:
-    """Smoke-width llama in f32, one set of weights: prefill + decode on the
-    CPU (plain attention) against CUDA (the kernel)."""
+def phase_wkv_cases() -> float:
+    """WKV6 kernel against wkv6_ref (the token-by-token recurrence) on the
+    same CUDA tensors, y and the final state; returns y's max abs error at
+    the serving path's shape."""
+    from repro_torch.kernels.rwkv6 import kernel, ops
+    from repro_torch.kernels.rwkv6.ref import wkv6_ref
+    from repro_torch.models.rwkv import wkv_chunked
+
+    rng = np.random.default_rng(0)
+    main_err = None
+    for label, B, S, H, K, chunk, dtype, draw in WKV_CASES:
+        r, k, v, log_w, u = wkv_inputs(rng, B, S, H, K, dtype, draw,
+                                       strided=label == "strided_views")
+        y, state = kernel.wkv6(r, k, v, log_w, u, chunk=chunk)
+        y_ref, state_ref = wkv6_ref(r, k, v, log_w, u)
+        torch.cuda.synchronize()
+        ok, errs = True, {}
+        for name, got, want, tol in (("y", y, y_ref, WKV_TOL[dtype]),
+                                     ("state", state, state_ref, WKV_TOL[torch.float32])):
+            diff = (got.float() - want.float()).abs()
+            errs[name] = diff.max().item()
+            ok = (ok and not bool((diff > tol + tol * want.float().abs()).any())
+                  and bool(torch.isfinite(got).all()))
+        say("kernels", f"wkv6 {label}: B={B} S={S} H={H} K={K} chunk={chunk} "
+                       f"{str(dtype)[6:]} log_w {draw} ({log_w.min().item():.4g} .. "
+                       f"{log_w.max().item():.3g}): y max_abs_err={errs['y']:.3e} "
+                       f"tol={WKV_TOL[dtype]:g}, state max_abs_err={errs['state']:.3e} "
+                       f"tol={WKV_TOL[torch.float32]:g} (|state| <= "
+                       f"{state_ref.abs().max().item():.3g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"wkv6 disagrees with wkv6_ref in {label}")
+        if draw == "model_clipped" and S <= 256:
+            # the reference's chunked algebra (f32 cumulative sums, as in the
+            # Pallas body) at the same draw, for comparison only
+            yc, state_c = wkv_chunked(r.float(), k.float(), v.float(), log_w, u, chunk=chunk)
+            say("kernels", f"wkv6 {label}: wkv_chunked (plain f32 cumulative sums) at the "
+                           f"same draw: y max_abs_err={(yc - y_ref).abs().max().item():.3e}, "
+                           f"state max_abs_err={(state_c - state_ref).abs().max().item():.3e}")
+        if label == "main_path":
+            main_err = errs["y"]
+            y2, state2 = ops.wkv(r, k, v, log_w, u, chunk=chunk)  # the model's entry point
+            if not (torch.equal(y2, y) and torch.equal(state2, state)):
+                raise AssertionError("ops.wkv differs from the kernel it wraps")
+    return main_err
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for key in sorted(tree) for x in _leaves(tree[key])]
+    if isinstance(tree, (tuple, list)):
+        return [x for t in tree for x in _leaves(t)]
+    return [tree]
+
+
+def phase_parity(arch: str) -> None:
+    """Smoke-width model in f32, one set of weights: prefill + decode on the
+    CPU (plain versions) against CUDA (the kernel); logits and caches."""
     from repro_torch.configs import smoke_config
     from repro_torch.kernels import use_kernels
-    from repro_torch.kernels.flash_attention import kernel
     from repro_torch.models import decode as dec
     from repro_torch.models.convert import tree_map
     from repro_torch.models.transformer import init_params
 
-    cfg = dataclasses.replace(smoke_config("llama3.2-1b"), dtype="float32")
+    name = ARCH_KERNEL[arch][0]
+    kern = kernel_modules()[name][0]
+    cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
     params = init_params(cfg, torch.Generator().manual_seed(0))
     params_gpu = tree_map(lambda t: t.to("cuda"), params)
     B, P, N = 2, 40, 6
@@ -195,10 +341,10 @@ def phase_parity() -> None:
     use_kernels(True)
     try:
         tok_cpu = torch.from_numpy(prompts)
-        launches0 = kernel.launches
+        launches0 = kern.launches
         lg_c, cache_c = dec.prefill(cfg, params, tok_cpu, capacity=P + N)
         lg_g, cache_g = dec.prefill(cfg, params_gpu, tok_cpu.cuda(), capacity=P + N)
-        launched = kernel.launches - launches0
+        launched = kern.launches - launches0
         worst = (lg_g.cpu() - lg_c).abs().max().item()
         torch.testing.assert_close(lg_g.cpu(), lg_c, atol=1e-4, rtol=1e-4)
         for i in range(N):
@@ -207,82 +353,86 @@ def phase_parity() -> None:
             lg_g, cache_g = dec.decode_step(cfg, params_gpu, cache_g, tok.cuda(), P + i)
             worst = max(worst, (lg_g.cpu() - lg_c).abs().max().item())
             torch.testing.assert_close(lg_g.cpu(), lg_c, atol=1e-4, rtol=1e-4)
+        cache_worst = 0.0
+        for c, g in zip(_leaves(cache_c), _leaves(cache_g)):
+            torch.testing.assert_close(g.cpu(), c, atol=1e-4, rtol=1e-4)
+            cache_worst = max(cache_worst, (g.cpu().double() - c.double()).abs().max().item())
     finally:
         use_kernels(False)
     if launched != cfg.n_layers:
-        raise AssertionError(f"CUDA prefill launched the kernel {launched} times, "
+        raise AssertionError(f"CUDA prefill launched {name} {launched} times, "
                              f"expected {cfg.n_layers}")
     say("parity", f"{cfg.name} f32 B={B} prompt={P}: prefill + {N} decode steps, "
-                  f"CUDA vs CPU logits max abs diff {worst:.3e} (tol 1e-4), "
-                  f"{launched} kernel launches in the CUDA prefill")
+                  f"CUDA vs CPU logits max abs diff {worst:.3e}, caches {cache_worst:.3e} "
+                  f"(tol 1e-4), {launched} {name} launches in the CUDA prefill")
 
 
-def phase_serve(gpu: str) -> dict:
-    from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import kernel, ops
-    from repro_torch.launch import serve
-    from repro_torch.obs import metrics
-
-    cfg = get_config("llama3.2-1b")
-    B, P, N = 4, 512, 32
-    kernel.launches = 0
-    ops.plain_calls = 0
-    torch.cuda.reset_peak_memory_stats()
-    gen = serve.main(SERVE_ARGV)
-    launches = {"flash_attention": kernel.launches}
-    plain = ops.plain_calls
-    peak = torch.cuda.max_memory_allocated()
-    if gen.shape != (B, N) or gen.min() < 0 or gen.max() >= cfg.vocab_size:
-        raise AssertionError(f"generations {gen.shape} out of range")
-    if launches["flash_attention"] != cfg.n_layers:
-        raise AssertionError(f"flash_attention launched {launches['flash_attention']} "
-                             f"times in serve, expected {cfg.n_layers} (one per layer)")
-    if plain:
-        raise AssertionError(f"{plain} attention calls took the plain version on the card")
-    reg = metrics.registry()
-    t_pre = reg.histograms["serve.prefill.seconds"].total
-    t_dec = reg.histograms["serve.decode.seconds"].total
-    say("serve", f"{cfg.name} bf16 B={B} prompt={P} new={N}, first full-width run in this "
-                 f"process: prefill {B * P / t_pre:.1f} tok/s "
-                 f"({t_pre * 1e3:.2f} ms), decode {B * N / t_dec:.2f} tok/s "
-                 f"({t_dec / N * 1e3:.3f} ms/step), peak memory {peak / 2**30:.3f} GiB, "
-                 f"flash_attention launches {launches['flash_attention']}, "
-                 f"plain attention calls on the card {plain} | {gpu}")
-    return launches
-
-
-def serve_quietly() -> tuple:
-    """One more ``serve.main(SERVE_ARGV)`` with its printing held back: the
-    (prefill, decode) wall seconds its metrics recorded."""
+def serve_once(arch: str, quiet: bool) -> tuple:
+    """One ``serve.main`` of ``arch`` at full width: (generations, prefill and
+    decode wall seconds from serve's own metrics)."""
     from repro_torch.launch import serve
     from repro_torch.obs import metrics
 
     hist = [metrics.registry().histogram(f"serve.{k}.seconds") for k in ("prefill", "decode")]
     before = [h.total for h in hist]
-    with contextlib.redirect_stdout(io.StringIO()):
-        serve.main(SERVE_ARGV)
-    return tuple(h.total - b for h, b in zip(hist, before))
+    with contextlib.redirect_stdout(io.StringIO()) if quiet else contextlib.nullcontext():
+        gen = serve.main(serve_argv(arch))
+    return (gen, *(h.total - b for h, b in zip(hist, before)))
 
 
-def phase_breakdown(gpu: str) -> None:
-    """Where serve's time goes.  Wall times come from ``WARM_RUNS`` runs
-    without the profiler; device busy time (the sum of the device operations'
-    times, one stream, so they do not overlap) from one run under
-    torch.profiler, each operation assigned to the serve span (``prefill``,
-    ``decode``) its start falls in.  Both spans end in a synchronise, so
-    every operation of a phase starts inside its span."""
+def phase_serve(gpu: str, arch: str) -> dict:
+    """Full-width serve of ``arch``: every launch count is 0 just before and
+    read just after; the arch's kernel launched once per layer, every other
+    kernel never, and no call took a plain version on the card."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    mine = ARCH_KERNEL[arch][0]
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    gen, t_pre, t_dec = serve_once(arch, quiet=False)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if gen.shape != (B_SERVE, N_SERVE) or gen.min() < 0 or gen.max() >= cfg.vocab_size:
+        raise AssertionError(f"generations {gen.shape} out of range")
+    for name, (launched, plain) in counts.items():
+        want = cfg.n_layers if name == mine else 0
+        if launched != want:
+            raise AssertionError(f"{arch} serve launched {name} {launched} times, "
+                                 f"expected {want}")
+        if plain:
+            raise AssertionError(f"{arch} serve: {plain} {name} calls took the plain "
+                                 "version on the card")
+    B, P, N = B_SERVE, P_SERVE, N_SERVE
+    say("serve", f"{cfg.name} bf16 B={B} prompt={P} new={N}, first full-width run of it in "
+                 f"this process: prefill {B * P / t_pre:.1f} tok/s "
+                 f"({t_pre * 1e3:.2f} ms), decode {B * N / t_dec:.2f} tok/s "
+                 f"({t_dec / N * 1e3:.3f} ms/step), peak memory {peak / 2**30:.3f} GiB, "
+                 f"launches {({n: c[0] for n, c in counts.items()})}, plain calls on the card "
+                 f"{({n: c[1] for n, c in counts.items()})} | {gpu}")
+    return {mine: counts[mine][0]}
+
+
+def phase_breakdown(gpu: str, arch: str) -> None:
+    """Where serve's time goes.  Wall times come from a few runs without the
+    profiler; device busy time (the sum of the device operations' times, one
+    stream, so they do not overlap) from one run under torch.profiler, each
+    operation assigned to the serve span (``prefill``, ``decode``) its start
+    falls in.  Both spans end in a synchronise, so every operation of a
+    phase starts inside its span."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
 
-    n_layers, N = get_config("llama3.2-1b").n_layers, 32
-    walls = [serve_quietly() for _ in range(WARM_RUNS)]
+    n_layers, N = get_config(arch).n_layers, N_SERVE
+    _, kname, warm_runs = ARCH_KERNEL[arch]
+    walls = [serve_once(arch, quiet=True)[1:] for _ in range(warm_runs)]
     for r, (t_pre, t_dec) in enumerate(walls, 1):
-        say("breakdown", f"run {r}: prefill {t_pre * 1e3:.3f} ms, "
+        say("breakdown", f"{arch} run {r}: prefill {t_pre * 1e3:.3f} ms, "
                          f"decode {t_dec / N * 1e3:.3f} ms/step")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        serve_quietly()
+        serve_once(arch, quiet=True)
     events = prof.events()
     spans = {e.name: e.time_range for e in events
              if e.device_type == DeviceType.CPU and e.name in ("prefill", "decode")}
@@ -292,25 +442,26 @@ def phase_breakdown(gpu: str) -> None:
         span = spans[phase]
         ops = [e for e in device_ops if span.start <= e.time_range.start < span.end]
         busy_us = sum(e.time_range.elapsed_us() for e in ops)
-        flash = sum("flash_fwd" in e.name for e in ops)
-        if not ops or flash != (n_layers if phase == "prefill" else 0):
-            raise AssertionError(f"profile of {phase}: {len(ops)} device operations, "
-                                 f"{flash} flash kernels")
+        n_kernel = sum(kname in e.name for e in ops)
+        if not ops or n_kernel != (n_layers if phase == "prefill" else 0):
+            raise AssertionError(f"{arch} profile of {phase}: {len(ops)} device operations, "
+                                 f"{n_kernel} {kname} kernels")
         wall_us = sorted(w[i] * 1e6 / per for w in walls)
         idle = [1 - busy_us / per / w for w in wall_us]
         unit = "step" if per > 1 else "call"
-        say("breakdown", f"{phase} per {unit}: wall without profiler {wall_us[0]:.1f} .. "
+        say("breakdown", f"{arch} {phase} per {unit}: wall without profiler {wall_us[0]:.1f} .. "
                          f"{statistics.median(wall_us):.1f} .. {wall_us[-1]:.1f} us "
                          f"(min .. median .. max of {len(walls)}), under the profiler "
                          f"{span.elapsed_us() / per:.1f} us, device busy {busy_us / per:.1f} us, "
                          f"idle share {idle[0]:.3f} .. {idle[-1]:.3f}, "
-                         f"{len(ops) / per:.0f} device operations, {flash} flash kernels | {gpu}")
+                         f"{len(ops) / per:.0f} device operations, {n_kernel} {kname} kernels"
+                         f" | {gpu}")
         by_name = {}
         for e in ops:
             t, c = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
         for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
-            say("breakdown", f"  {phase}: {t / per:9.1f} us {100 * t / busy_us:5.1f}% "
+            say("breakdown", f"  {arch} {phase}: {t / per:9.1f} us {100 * t / busy_us:5.1f}% "
                              f"x{c / per:<6g} {name[:90]}")
 
 
@@ -355,15 +506,82 @@ def phase_timing(gpu: str, launches: dict, main_err: float) -> dict:
     return row
 
 
+def wkv6_work(B, S, H, K, chunk, el) -> tuple:
+    """(bytes, f32 operations, exponentials) that WKV6 needs at this shape:
+    r, k, v and y read or written once in ``el`` bytes each, log_w once in
+    f32, the final state once in f32.  Operations per (b, h), per chunk of n
+    tokens: the cumulative sum (n K adds); for each of the n(n-1)/2 pairs
+    s < t and each k, the decay difference, two products and a sum (4);
+    att @ v over the pairs (2 V each); the bonus term (3 K + 2 V per token);
+    the decayed r and its product with the state (K + 2 K V per token); the
+    decayed k and its outer products with v (K + 2 K V per token) and the
+    state's own decay (K V per chunk).  Exponentials: one per pair and k,
+    two per token and k, one per chunk and k."""
+    V = K
+    nbytes = (4 * el + 4) * B * S * H * K + 4 * B * H * K * V + 4 * H * K
+    flops = exps = 0
+    for c0 in range(0, S, chunk):
+        n = min(chunk, S - c0)
+        pairs = n * (n - 1) // 2
+        flops += (n * K + pairs * (4 * K + 2 * V) + n * (3 * K + 2 * V)
+                  + n * (2 * K + 4 * K * V) + K * V)
+        exps += pairs * K + 2 * n * K + K
+    return nbytes, flops * B * H, exps * B * H
+
+
+def phase_wkv_timing(gpu: str, launches: dict, main_err: float) -> dict:
+    from repro_torch.kernels.rwkv6 import kernel
+    from repro_torch.kernels.rwkv6.ref import wkv6_ref
+
+    s = WKV_SHAPE
+    B, S, H, K, chunk, dtype = s["B"], s["S"], s["H"], s["K"], s["chunk"], s["dtype"]
+    r, k, v, log_w, u = wkv_inputs(np.random.default_rng(1), B, S, H, K, dtype, "model_clipped")
+    n_launch = kernel.launches
+    ms = time_ms(lambda: kernel.wkv6(r, k, v, log_w, u, chunk=chunk))
+    plain_ms = time_ms(lambda: wkv6_ref(r, k, v, log_w, u), reps=5, iters=2, warmup=1)
+    kernel.launches = n_launch  # timing launches are not the main path's
+
+    el = torch.tensor([], dtype=dtype).element_size()
+    nbytes, flops, exps = wkv6_work(B, S, H, K, chunk, el)
+    bw = next((p[0] for n, p in PEAKS.items() if n in gpu), PEAKS["H100"][0])
+    t_bytes, t_ops = nbytes / bw * 1e3, flops / F32_FLOPS * 1e3
+    row = {
+        "name": "wkv6",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
+        "replaces": "src/repro/kernels/rwkv6/kernel.py:81",
+        "launches": launches["wkv6"],
+        "max_abs_err": main_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+    }
+    say("timing", f"wkv6 B={B} S={S} H={H} K={K} chunk={chunk} bf16 r/k/v, f32 log_w: "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                  f"({row['bound_by']}: {nbytes / 1e6:.2f} MB = {t_bytes:.4f} ms, "
+                  f"{flops / 1e9:.3f} GFLOP f32 = {t_ops:.4f} ms; {exps / 1e6:.1f} M exponentials "
+                  f"besides) | {gpu}")
+    say("timing", "wkv6 library: none; no single PyTorch call computes WKV6 "
+                  "(library_ms null)")
+    return row
+
+
 def main() -> int:
     gpu = phase_device()
     phase_build()
-    main_err = phase_kernel_cases()
-    phase_parity()
-    launches = phase_serve(gpu)
-    phase_breakdown(gpu)
-    row = phase_timing(gpu, launches, main_err)
-    print(json.dumps({"kernels": [row]}))
+    fa_err = phase_kernel_cases()
+    wkv_err = phase_wkv_cases()
+    for arch in ARCHS:
+        phase_parity(arch)
+    launches = {}
+    for arch in ARCHS:
+        launches.update(phase_serve(gpu, arch))
+    for arch in ARCHS:
+        phase_breakdown(gpu, arch)
+    rows = [phase_timing(gpu, launches, fa_err), phase_wkv_timing(gpu, launches, wkv_err)]
+    print(json.dumps({"kernels": rows}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,6 +4,7 @@ Each kernel lives in ``kernels/<name>/csrc/*.cu`` behind a plain C
 interface.  Its sources compile with one nvcc call into
 ``BUILD_DIR/lib<name>-<hash>.so``, where the hash covers the sources and the
 flags, so an edited source builds anew and an unchanged one loads at once.
+``build()`` starts the nvcc calls of all kernels together and waits for all.
 The build happens at first use.  There is no fallback: without nvcc, or
 when nvcc fails, the call raises.
 """
@@ -21,7 +22,7 @@ from typing import Dict, Sequence
 from repro_torch.kernels.config import BUILD_DIR
 
 KERNELS_DIR = Path(__file__).resolve().parent
-KERNELS = ("flash_attention",)
+KERNELS = ("flash_attention", "rwkv6")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -59,27 +60,35 @@ def nvcc() -> str:
 
 
 def build(names: Sequence[str] = KERNELS) -> Dict[str, float]:
-    """Compile every kernel in ``names`` that is not built yet, one after
-    another.  Returns the build seconds per kernel (0.0 when the library was
-    already there); raises if a build fails."""
+    """Compile every kernel in ``names`` that is not built yet, all at once
+    (one nvcc process each).  Returns the wall seconds from the start of the
+    builds to the end of each kernel's (0.0 when the library was already
+    there); raises if a build fails, after every nvcc has exited."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    seconds = {}
+    seconds, jobs, running = {}, {}, {}
     for name in names:
         out = library_path(name)
         if out.exists():
             seconds[name] = 0.0
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        log = out.with_suffix(".log")
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources(name))]
-        t0 = time.perf_counter()
+        jobs[name] = (cmd, tmp, out, out.with_suffix(".log"))
+    t0 = time.perf_counter()
+    for name, (cmd, tmp, out, log) in jobs.items():
         with open(log, "w") as f:
-            rc = subprocess.run(cmd, stdout=f, stderr=subprocess.STDOUT).returncode
+            running[name] = (subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT), tmp, out, log)
+    failed = []
+    for name, (proc, tmp, out, log) in running.items():
+        rc = proc.wait()
         seconds[name] = time.perf_counter() - t0
         if rc != 0:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"kernel build failed: {name} (nvcc exit {rc}):\n{log.read_text()}")
-        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+            failed.append(f"kernel build failed: {name} (nvcc exit {rc}):\n{log.read_text()}")
+        else:
+            os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return seconds
 
 

@@ -1,6 +1,7 @@
 """Serving driver: batched prefill + greedy decode on one device.
 
     python -m repro_torch.launch.serve --arch llama3.2-1b --batch 4 --prompt-len 512
+    python -m repro_torch.launch.serve --arch rwkv6-1.6b --smoke --device cpu
 
 Ported from ``repro.launch.serve``: the same flags (plus ``--device``, which
 defaults to ``cuda``), the same prompts from ``--seed``, the same

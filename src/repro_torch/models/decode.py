@@ -1,11 +1,13 @@
 """Serving entry points: cache init, prefill and single-token decode.
 
-Ported from ``repro.models.decode`` for ATTN layers.  Caches mirror the
-parameter structure: one tuple per layer group, one dict per layer kind of
-the group's pattern, leaves stacked over the group's ``count``.  A Python
-loop over the stack replaces ``lax.scan``.  Decode writes each new key and
-value into the stacked cache in place (through per-layer views) and hands
-back the same cache object; the JAX package returns a new one.
+Ported from ``repro.models.decode`` for ATTN and RWKV layers.  Caches
+mirror the parameter structure: one tuple per layer group, one dict per
+layer kind of the group's pattern, leaves stacked over the group's
+``count``: a KV cache for ATTN, the O(1) recurrent state and the two token
+shifts for RWKV.  A Python loop over the stack replaces ``lax.scan``.
+Decode writes each new key and value, or the new state and shifts, into the
+stacked cache in place (through per-layer views) and hands back the same
+cache object; the JAX package returns a new one.
 """
 from __future__ import annotations
 
@@ -13,8 +15,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ATTN, RWKV, ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import rwkv
 from repro_torch.models.common import apply_norm, mlp_apply, unembed
 from repro_torch.models.transformer import (
     _embed_tokens,
@@ -24,12 +27,20 @@ from repro_torch.models.transformer import (
 )
 
 
+def _layer_cache(cfg: ModelConfig, kind: str, batch: int, capacity: int, device) -> dict:
+    if kind == ATTN:
+        return attn.init_kv_cache(cfg, batch, capacity, device=device)
+    if kind == RWKV:
+        return rwkv.init_rwkv_cache(cfg, batch, device=device)
+    raise ValueError(kind)
+
+
 def init_caches(cfg: ModelConfig, batch: int, capacity: int, device=None) -> tuple:
     """Empty caches for every group, stacked over the group's count."""
     check_supported(cfg)
     groups = []
     for g in cfg.groups:
-        single = [attn.init_kv_cache(cfg, batch, capacity, device=device) for _ in g.pattern]
+        single = [_layer_cache(cfg, kind, batch, capacity, device) for kind in g.pattern]
         groups.append(tuple(
             {k: t.unsqueeze(0).repeat(g.count, *([1] * t.dim())) for k, t in c.items()}
             for c in single
@@ -46,15 +57,26 @@ def _stack(per_rep: list) -> tuple:
 
 
 def _prefill_layer(
-    cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor, capacity: int
+    cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, positions: torch.Tensor,
+    capacity: int,
 ) -> Tuple[torch.Tensor, dict]:
-    h = apply_norm(cfg, x, p["ln1"])
-    q, k, v = attn.qkv_proj(cfg, p["attn"], h, positions)
-    cache = attn.cache_from_kv(k, v, positions, capacity)
-    o = attn.attend(cfg, q, k, v, positions, positions)
-    x = x + attn.out_proj(p["attn"], o)
-    h = apply_norm(cfg, x, p["ln2"])
-    return x + mlp_apply(cfg, p["mlp"], h), cache
+    if kind == ATTN:
+        h = apply_norm(cfg, x, p["ln1"])
+        q, k, v = attn.qkv_proj(cfg, p["attn"], h, positions)
+        cache = attn.cache_from_kv(k, v, positions, capacity)
+        o = attn.attend(cfg, q, k, v, positions, positions)
+        x = x + attn.out_proj(p["attn"], o)
+        h = apply_norm(cfg, x, p["ln2"])
+        return x + mlp_apply(cfg, p["mlp"], h), cache
+    if kind == RWKV:
+        h = apply_norm(cfg, x, p["ln1"])
+        y, state = rwkv.rwkv_time_mix_prefill(cfg, p["tm_cm"], h)
+        x = x + y
+        h2 = apply_norm(cfg, x, p["ln2"])
+        x = x + rwkv.rwkv_channel_mix(cfg, p["tm_cm"], h2)
+        # the shifts are the last position's normed inputs, not x
+        return x, {"state": state, "tm_shift": h[:, -1], "cm_shift": h2[:, -1]}
+    raise ValueError(kind)
 
 
 def prefill(
@@ -77,8 +99,8 @@ def prefill(
         per_rep = []
         for i in range(group.count):
             outs = []
-            for p in layer_params(gp, i):
-                x, c = _prefill_layer(cfg, p, x, positions, capacity)
+            for kind, p in zip(group.pattern, layer_params(gp, i)):
+                x, c = _prefill_layer(cfg, kind, p, x, positions, capacity)
                 outs.append(c)
             per_rep.append(outs)
         caches.append(_stack(per_rep))
@@ -88,13 +110,22 @@ def prefill(
 
 
 def _decode_layer(
-    cfg: ModelConfig, p: dict, x: torch.Tensor, pos: int, cache: dict
+    cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, pos: int, cache: dict
 ) -> torch.Tensor:
-    h = apply_norm(cfg, x, p["ln1"])
-    a, _ = attn.decode_attention(cfg, p["attn"], h, pos, cache)
-    x = x + a
-    h = apply_norm(cfg, x, p["ln2"])
-    return x + mlp_apply(cfg, p["mlp"], h)
+    if kind == ATTN:
+        h = apply_norm(cfg, x, p["ln1"])
+        a, _ = attn.decode_attention(cfg, p["attn"], h, pos, cache)
+        x = x + a
+        h = apply_norm(cfg, x, p["ln2"])
+        return x + mlp_apply(cfg, p["mlp"], h)
+    if kind == RWKV:
+        h = apply_norm(cfg, x, p["ln1"])
+        y, _ = rwkv.rwkv_time_mix_decode(cfg, p["tm_cm"], h, cache)
+        x = x + y
+        h2 = apply_norm(cfg, x, p["ln2"])
+        y2, _ = rwkv.rwkv_channel_mix_decode(cfg, p["tm_cm"], h2, cache)
+        return x + y2
+    raise ValueError(kind)
 
 
 def decode_step(
@@ -111,7 +142,7 @@ def decode_step(
         x = _positions_embed(cfg, params, x, torch.tensor([pos], device=token.device))
     for group, gp, gc in zip(cfg.groups, params["groups"], caches):
         for i in range(group.count):
-            for p, c in zip(layer_params(gp, i), layer_params(gc, i)):
-                x = _decode_layer(cfg, p, x, pos, c)
+            for kind, p, c in zip(group.pattern, layer_params(gp, i), layer_params(gc, i)):
+                x = _decode_layer(cfg, kind, p, x, pos, c)
     x = apply_norm(cfg, x, params["final_norm"])
     return unembed(cfg, params["embed"], x[:, -1]), caches

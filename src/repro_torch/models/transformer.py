@@ -1,7 +1,7 @@
 """The model: layer groups applied over parameters stacked per group.
 
-Ported from ``repro.models.transformer`` for ATTN layers on one device
-(``dist=None``).  The parameter tree keeps the JAX package's keys and its
+Ported from ``repro.models.transformer`` for ATTN and RWKV layers on one
+device (``dist=None``).  The parameter tree keeps the JAX package's keys and its
 stacking over a group's ``count`` (``_superblock_params``), so a JAX tree
 carried across by ``convert.params_from_jax`` runs here unchanged; the
 layer loop replaces ``lax.scan`` over the stack.
@@ -12,8 +12,9 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.configs.base import ATTN, LayerGroup, ModelConfig
+from repro_torch.configs.base import ATTN, RWKV, LayerGroup, ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import rwkv
 from repro_torch.models.common import (
     apply_norm,
     dtype_of,
@@ -24,11 +25,17 @@ from repro_torch.models.common import (
 )
 
 
+PORTED_KINDS = (ATTN, RWKV)
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """The port runs dense ATTN decoders so far."""
+    """The port runs decoders whose layers are all dense ATTN or all RWKV."""
     kinds = {k for g in cfg.groups for k in g.pattern}
-    if kinds != {ATTN} or cfg.is_moe or cfg.post_norms or cfg.encoder_layers:
-        raise NotImplementedError(f"{cfg.name}: only dense ATTN decoders are ported")
+    if (len(kinds) != 1 or not kinds <= set(PORTED_KINDS)
+            or cfg.is_moe or cfg.post_norms or cfg.encoder_layers):
+        raise NotImplementedError(
+            f"{cfg.name}: layer kinds {sorted(kinds)}; the port runs decoders whose "
+            f"layers are all one of {PORTED_KINDS} (dense, no post-norms, no encoder)")
 
 
 # --------------------------------------------------------------------------
@@ -44,18 +51,21 @@ def norm_params(cfg: ModelConfig, lead: Tuple[int, ...], device) -> dict:
     return p
 
 
+def _layer_params(cfg: ModelConfig, kind: str, gen: torch.Generator, lead: Tuple[int, ...]) -> dict:
+    p = {"ln1": norm_params(cfg, lead, gen.device), "ln2": norm_params(cfg, lead, gen.device)}
+    if kind == ATTN:
+        p["attn"] = attn.attn_params(cfg, gen, lead)
+        p["mlp"] = mlp_params(cfg, gen, lead)
+    elif kind == RWKV:
+        p["tm_cm"] = rwkv.rwkv_params(cfg, gen, lead)
+    else:
+        raise ValueError(kind)
+    return p
+
+
 def _superblock_params(cfg: ModelConfig, group: LayerGroup, gen: torch.Generator) -> tuple:
     """One dict per layer kind of the pattern, leaves stacked over ``count``."""
-    lead = (group.count,)
-    return tuple(
-        {
-            "ln1": norm_params(cfg, lead, gen.device),
-            "ln2": norm_params(cfg, lead, gen.device),
-            "attn": attn.attn_params(cfg, gen, lead),
-            "mlp": mlp_params(cfg, gen, lead),
-        }
-        for _ in group.pattern
-    )
+    return tuple(_layer_params(cfg, kind, gen, (group.count,)) for kind in group.pattern)
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
@@ -97,12 +107,19 @@ def _positions_embed(cfg: ModelConfig, params: dict, x: torch.Tensor, positions)
 
 
 def _apply_layer_full(
-    cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor
+    cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, positions: torch.Tensor
 ) -> torch.Tensor:
-    h = apply_norm(cfg, x, p["ln1"])
-    x = x + attn.self_attention(cfg, p["attn"], h, positions)
-    h = apply_norm(cfg, x, p["ln2"])
-    return x + mlp_apply(cfg, p["mlp"], h)
+    if kind == ATTN:
+        h = apply_norm(cfg, x, p["ln1"])
+        x = x + attn.self_attention(cfg, p["attn"], h, positions)
+        h = apply_norm(cfg, x, p["ln2"])
+        return x + mlp_apply(cfg, p["mlp"], h)
+    if kind == RWKV:
+        h = apply_norm(cfg, x, p["ln1"])
+        x = x + rwkv.rwkv_time_mix(cfg, p["tm_cm"], h)
+        h = apply_norm(cfg, x, p["ln2"])
+        return x + rwkv.rwkv_channel_mix(cfg, p["tm_cm"], h)
+    raise ValueError(kind)
 
 
 def forward(
@@ -117,8 +134,8 @@ def forward(
     x = _positions_embed(cfg, params, x, positions)
     for group, gp in zip(cfg.groups, params["groups"]):
         for i in range(group.count):
-            for p in layer_params(gp, i):
-                x = _apply_layer_full(cfg, p, x, positions)
+            for kind, p in zip(group.pattern, layer_params(gp, i)):
+                x = _apply_layer_full(cfg, kind, p, x, positions)
     x = apply_norm(cfg, x, params["final_norm"])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return unembed(cfg, params["embed"], x), aux

@@ -15,6 +15,9 @@ from repro_torch.configs import smoke_config
 from repro_torch.kernels import use_kernels
 from repro_torch.kernels.flash_attention import kernel, ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
+from repro_torch.kernels.rwkv6 import ops as wkv_ops
+from repro_torch.kernels.rwkv6.ref import wkv6_ref
 from repro_torch.models import decode as dec
 from repro_torch.models.convert import tree_map
 from repro_torch.models.transformer import init_params
@@ -58,6 +61,68 @@ def test_kernel_rejects_unsupported_head_dim(cuda_device):
     q = torch.zeros(1, 2, 8, 48, device=cuda_device)
     with pytest.raises(ValueError, match="head dim 48"):
         kernel.flash_attention(q, q, q)
+
+
+def _wkv_inputs(device, B, S, H, K, dtype, log_w_scale=1.0, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def mk(scale=1.0):
+        return torch.from_numpy(rng.standard_normal((B, S, H, K), dtype=np.float32) * scale).to(device)
+
+    r, k, v = mk().to(dtype), mk(0.5).to(dtype), mk().to(dtype)
+    log_w = -torch.exp(torch.clamp(-1.0 + mk(log_w_scale), -8.0, 8.0))
+    u = torch.from_numpy(rng.standard_normal((H, K), dtype=np.float32) * 0.1).to(device)
+    return r, k, v, log_w, u
+
+
+@pytest.mark.parametrize("B,S,H,K,chunk,dtype,log_w_scale", [
+    (1, 64, 2, 64, 16, torch.float32, 1.0),
+    (2, 128, 3, 64, 32, torch.float32, 1.0),
+    (1, 96, 1, 32, 32, torch.float32, 1.0),
+    (2, 70, 2, 64, 32, torch.float32, 1.0),  # ragged: a partial last chunk
+    (2, 256, 4, 64, 32, torch.float32, 4.0),  # steps down to the clip, -e^8
+    (2, 200, 4, 64, 32, torch.bfloat16, 1.0),
+])
+def test_wkv6_kernel_matches_plain_version(cuda_device, B, S, H, K, chunk, dtype, log_w_scale):
+    """f32 at 2e-4, the JAX package's tolerance for its kernel against the
+    recurrence; bf16 y at 1e-2, above one rounding of a bf16 output (the
+    state stays f32)."""
+    r, k, v, log_w, u = _wkv_inputs(cuda_device, B, S, H, K, dtype, log_w_scale)
+    before = wkv_kernel.launches
+    y, state = wkv_ops.wkv(r, k, v, log_w, u, chunk=chunk)
+    assert wkv_kernel.launches == before + 1
+    y_ref, state_ref = wkv6_ref(r, k, v, log_w, u)
+    tol = 2e-4 if dtype == torch.float32 else 1e-2
+    assert y.dtype == dtype and state.dtype == torch.float32
+    torch.testing.assert_close(y.float(), y_ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(state, state_ref, atol=2e-4, rtol=2e-4)
+
+
+def test_wkv6_kernel_rejects_bf16_log_w(cuda_device):
+    r, k, v, log_w, u = _wkv_inputs(cuda_device, 1, 32, 2, 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="log_w must be float32"):
+        wkv_kernel.wkv6(r, k, v, log_w.bfloat16(), u)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b"])
+def test_smoke_prefill_on_card_matches_cpu_rwkv(cuda_device, arch):
+    """The WKV6 kernel launches once per layer; the prompt of 40 ends in a
+    partial chunk; the state cache agrees too."""
+    cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(2, cfg.vocab_size, size=(2, 40)))
+    use_kernels(True)
+    try:
+        before = wkv_kernel.launches
+        want, want_cache = dec.prefill(cfg, params, tokens)
+        got, got_cache = dec.prefill(cfg, tree_map(lambda t: t.to(cuda_device), params),
+                                     tokens.to(cuda_device))
+        assert wkv_kernel.launches == before + cfg.n_layers
+    finally:
+        use_kernels(False)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got_cache[0][0]["state"].cpu(), want_cache[0][0]["state"],
+                               atol=1e-4, rtol=1e-4)
 
 
 def test_smoke_prefill_on_card_matches_cpu(cuda_device):
