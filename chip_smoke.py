@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Two serving paths, each with its own kernel: llama3.2-1b (flash attention)
-and rwkv6-1.6b (the WKV6 scan).  Phases, each printing its own lines, any
-failure ending the run non-zero:
+Three serving paths and their kernels: llama3.2-1b (flash attention),
+rwkv6-1.6b (the WKV6 scan) and recurrentgemma-9b (flash attention with a
+sliding window on its LOCAL layers, the RG-LRU scan on its RGLRU layers).
+Phases, each printing its own lines, any failure ending the run non-zero:
   1. device  — fail without CUDA; print the card's name and power limit;
                TF32 off for f32 matmuls and convolutions.
   2. build   — compile every CUDA kernel from the repository's sources, all
@@ -14,7 +15,10 @@ failure ending the run non-zero:
   4. parity  — each smoke-width model in f32: CPU (plain) against CUDA (kernel).
   5. serve   — each full-width model through ``repro_torch.launch.serve``,
                every launch count set to 0 just before and read just after:
-               its kernel launched once per layer, the other kernel never.
+               each layer's kernel launched once, no other kernel, no plain
+               version on the card.  Then recurrentgemma-9b once more at a
+               prompt of 2560, so that its 2048 window binds and every LOCAL
+               layer's cache is a ring.
   6. breakdown — the same serve calls again: every run's prefill and decode
                wall time, then one run under torch.profiler split by serve's
                own ``prefill`` / ``decode`` spans: device busy time, idle
@@ -48,16 +52,24 @@ sys.path.insert(0, str(ROOT / "src"))
 # CUDA cores.
 PEAKS = {"H200": (4.8e12, 989e12), "H100": (3.35e12, 989e12)}
 F32_FLOPS = 67e12
+# about 10 ms of the card's clock: time for the host to enqueue a timing's calls
+HOST_LEAD_CYCLES = 20_000_000
 MAIN_SHAPE = dict(B=4, H=32, G=8, S=512, dh=64, dtype=torch.bfloat16)
 # f32: the kernel sums in another order; bf16: well above the rounding of
 # bf16 outputs (about 4e-3 at these magnitudes), well below the outputs' size
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 B_SERVE, P_SERVE, N_SERVE = 4, 512, 32
-ARCHS = ("llama3.2-1b", "rwkv6-1.6b")
-# each arch's prefill kernel: row name, kernel name in the profiler, and the
+ARCHS = ("llama3.2-1b", "rwkv6-1.6b", "recurrentgemma-9b")
+# each layer kind's prefill kernel (row name); decode launches none
+KIND_KERNEL = {"attn": "flash_attention", "local": "flash_attention",
+               "rwkv": "wkv6", "rglru": "rglru_scan"}
+# each kernel's name in the profiler: the CUDA kernel that runs once a launch
+PROFILER_NAME = {"flash_attention": "flash_fwd", "wkv6": "wkv6_kernel",
+                 "rglru_scan": "rglru_scan_kernel"}
 # warm serve runs of the breakdown phase
-ARCH_KERNEL = {"llama3.2-1b": ("flash_attention", "flash_fwd", 5),
-               "rwkv6-1.6b": ("wkv6", "wkv6_kernel", 3)}
+WARM_RUNS = {"llama3.2-1b": 5, "rwkv6-1.6b": 3, "recurrentgemma-9b": 2}
+# the ring run: one sequence whose prompt overruns recurrentgemma's window
+RING_ARCH, P_RING, N_RING = "recurrentgemma-9b", 2560, 16
 
 
 WKV_SHAPE = dict(B=4, S=512, H=32, K=64, chunk=32, dtype=torch.bfloat16)
@@ -103,6 +115,31 @@ FA_CASES = [
     ("ragged_bf16_window", 2, 4, 2, 333, 333, 64, torch.bfloat16, {"window": 50}),
     ("q_offset_tail", 1, 2, 2, 64, 256, 64, torch.float32, {"q_offset": 192}),
     ("q_offset_ragged", 2, 4, 1, 37, 301, 64, torch.float32, {"q_offset": 264}),
+    # recurrentgemma's LOCAL layers: 16 query heads over 1 KV head of 256
+    ("gemma_main_path", 4, 16, 1, 512, 512, 256, torch.bfloat16, {"window": 2048}),
+    ("gemma_window_binds", 1, 16, 1, 700, 700, 256, torch.bfloat16, {"window": 256}),
+    ("gemma_window_binds_f32", 2, 4, 1, 300, 300, 256, torch.float32, {"window": 64}),
+    ("gemma_ring_prompt", 1, 16, 1, 2560, 2560, 256, torch.bfloat16, {"window": 2048}),
+]
+GEMMA_FA_SHAPE = dict(B=4, H=16, G=1, S=512, dh=256, dtype=torch.bfloat16, window=2048)
+
+LRU_SHAPE = dict(B=4, S=512, W=4096, dtype=torch.float32)
+# the JAX package's own tolerances for its kernel against the same oracle
+LRU_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-4), torch.bfloat16: dict(atol=0.15, rtol=0.1)}
+LRU_CASES = [
+    # (label, B, S, W, dtype, draw); the first four replay the JAX package's
+    # kernel cases: a uniform in [0.3, 0.999) (bf16: [0.5, 0.99)), b normal
+    ("lru_case0", 1, 128, 128, torch.float32, "uniform"),
+    ("lru_case1", 2, 256, 256, torch.float32, "uniform"),
+    ("lru_case2", 1, 64, 512, torch.float32, "uniform"),
+    ("lru_bf16", 1, 128, 128, torch.bfloat16, "uniform_bf16"),
+    ("ragged_s200_w96", 2, 200, 96, torch.float32, "uniform"),
+    ("ragged_s70_w4100", 1, 70, 4100, torch.float32, "uniform"),
+    ("strided_views", 2, 96, 256, torch.float32, "uniform"),
+    ("bf16_model", 2, 512, 4096, torch.bfloat16, "model"),
+    ("model_draw", 2, 300, 4096, torch.float32, "model"),
+    ("main_path", 4, 512, 4096, torch.float32, "model"),
+    ("ring_prompt", 1, 2560, 4096, torch.float32, "model"),
 ]
 
 
@@ -125,9 +162,11 @@ def gpu_line() -> str:
 
 def time_ms(fn, reps: int = 21, iters: int = 10, warmup: int = 5) -> float:
     """Device ms per call: median over ``reps`` CUDA-event timings of
-    ``iters`` back-to-back calls each, after a warm-up.  Back to back, the
-    queue stays full, so host-side work between launches is not counted
-    as long as it is shorter than the device work."""
+    ``iters`` back-to-back calls each, after a warm-up.  Before each timing
+    the stream first sleeps for HOST_LEAD_CYCLES, so that the host enqueues
+    the ``iters`` calls while the device waits, and the events time the
+    device work alone even where a call's host work (a wrapper's checks,
+    allocations and ctypes call) is longer than its kernels."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -135,6 +174,7 @@ def time_ms(fn, reps: int = 21, iters: int = 10, warmup: int = 5) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(HOST_LEAD_CYCLES)
         start.record()
         for _ in range(iters):
             fn()
@@ -184,14 +224,58 @@ def wkv_inputs(rng, B, S, H, K, dtype, draw, strided=False, device="cuda"):
     return r, k, v, log_w, u
 
 
+def lru_inputs(rng, B, S, W, dtype, draw, strided=False, device="cuda"):
+    """a, b (B, S, W) in ``dtype``.  "uniform": a in [0.3, 0.999) and b normal,
+    as the JAX package's kernel tests draw them ("uniform_bf16": a in [0.5,
+    0.99)); "model": a and b from the port's ``griffin._gates`` on normal u,
+    with gate weights drawn at the model's std and Lambda from 2 to 6, so the
+    decays reach about e^-48.  ``strided`` hands the kernel views cut from
+    wider rows and from a batch-major buffer with a gap between sequences."""
+    from repro_torch.models import griffin
+
+    def mk(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device)
+
+    b = mk(B, S, W)
+    if draw == "model":
+        bw = W // griffin.N_BLOCKS
+        p = {"gate_a": mk(griffin.N_BLOCKS, bw, bw) / bw ** 0.5,
+             "gate_x": mk(griffin.N_BLOCKS, bw, bw) / bw ** 0.5,
+             "lam": torch.linspace(2.0, 6.0, W, device=device)}
+        a, b = griffin._gates(p, b)
+    else:
+        lo, hi = (0.5, 0.99) if draw == "uniform_bf16" else (0.3, 0.999)
+        a = torch.from_numpy(rng.uniform(lo, hi, (B, S, W)).astype(np.float32)).to(device)
+    a, b = a.to(dtype), b.to(dtype)
+    if strided:
+        wide = torch.ones((B, S + 3, 2 * W), dtype=dtype, device=device)
+        wide[:, :S, :W] = a
+        a = wide[:, :S, :W]
+        b = b.transpose(0, 1).contiguous().transpose(0, 1)
+    return a, b
+
+
 def kernel_modules() -> dict:
     """Row name -> (kernel wrapper module, ops module) of every kernel."""
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rglru import kernel as lru_kernel
+    from repro_torch.kernels.rglru import ops as lru_ops
     from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
     from repro_torch.kernels.rwkv6 import ops as wkv_ops
 
-    return {"flash_attention": (fa_kernel, fa_ops), "wkv6": (wkv_kernel, wkv_ops)}
+    return {"flash_attention": (fa_kernel, fa_ops), "wkv6": (wkv_kernel, wkv_ops),
+            "rglru_scan": (lru_kernel, lru_ops)}
+
+
+def prefill_launches(cfg) -> dict:
+    """Row name -> launches of that kernel in one prefill of ``cfg``: one for
+    each layer whose kind it serves."""
+    want = {name: 0 for name in kernel_modules()}
+    for g in cfg.groups:
+        for kind in g.pattern:
+            want[KIND_KERNEL[kind]] += g.count
+    return want
 
 
 def zero_counts() -> None:
@@ -236,14 +320,14 @@ def phase_build() -> None:
                 say("build", f"{name}: {ln.strip()}")
 
 
-def phase_kernel_cases() -> float:
+def phase_kernel_cases() -> dict:
     """Flash kernel against attention_ref on the same CUDA tensors; returns
-    the max abs error at the serving path's shape."""
+    the max abs error at each serving path's shape (by case label)."""
     from repro_torch.kernels.flash_attention import kernel, ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     rng = np.random.default_rng(0)
-    main_err = None
+    errs = {}
     for label, B, H, G, Sq, Sk, dh, dtype, kw in FA_CASES:
         q, k, v = model_layout(rng, B, H, G, Sq, Sk, dh, dtype)
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -259,13 +343,13 @@ def phase_kernel_cases() -> float:
                        f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"flash_attention disagrees with attention_ref in {label}")
-        if label == "main_path":
-            main_err = err
+        if label in ("main_path", "gemma_main_path"):
+            errs[label] = err
             # the model-layout entry point the serve path calls
             o2 = ops.attention(q, k, v, **kw)
             if not torch.equal(o2, out.transpose(1, 2)):
                 raise AssertionError("ops.attention differs from the kernel it wraps")
-    return main_err
+    return errs
 
 
 def phase_wkv_cases() -> float:
@@ -314,6 +398,39 @@ def phase_wkv_cases() -> float:
     return main_err
 
 
+def phase_lru_cases() -> float:
+    """RG-LRU kernel against rglru_ref (the sequential recurrence) on the
+    same CUDA tensors; returns the max abs error at the serving path's
+    shape."""
+    from repro_torch.kernels.rglru import kernel, ops
+    from repro_torch.kernels.rglru.ref import rglru_ref
+
+    rng = np.random.default_rng(0)
+    main_err = None
+    for label, B, S, W, dtype, draw in LRU_CASES:
+        a, b = lru_inputs(rng, B, S, W, dtype, draw, strided=label == "strided_views")
+        y = kernel.rglru_scan(a, b)
+        ref, _ = rglru_ref(a, b)
+        torch.cuda.synchronize()
+        tol = LRU_TOL[dtype]
+        diff = (y.float() - ref.float()).abs()
+        err = diff.max().item()
+        bad = diff > tol["atol"] + tol["rtol"] * ref.float().abs()
+        ok = y.dtype == dtype and not bool(bad.any()) and bool(torch.isfinite(y).all())
+        L, C = kernel.chunking(S)
+        say("kernels", f"rglru_scan {label}: B={B} S={S} W={W} {str(dtype)[6:]} a {draw} "
+                       f"({a.float().min().item():.3g} .. {a.float().max().item():.4g}), chunks "
+                       f"{C} x {L}: max_abs_err={err:.3e} tol={tol} (|h| <= "
+                       f"{ref.float().abs().max().item():.3g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"rglru_scan disagrees with rglru_ref in {label}")
+        if label == "main_path":
+            main_err = err
+            if not torch.equal(ops.scan(a, b), y):  # the model's entry point
+                raise AssertionError("ops.scan differs from the kernel it wraps")
+    return main_err
+
+
 def _leaves(tree) -> list:
     if isinstance(tree, dict):
         return [x for key in sorted(tree) for x in _leaves(tree[key])]
@@ -324,16 +441,17 @@ def _leaves(tree) -> list:
 
 def phase_parity(arch: str) -> None:
     """Smoke-width model in f32, one set of weights: prefill + decode on the
-    CPU (plain versions) against CUDA (the kernel); logits and caches."""
+    CPU (plain versions) against CUDA (the kernels); logits and caches.  The
+    prompt of 40 is longer than recurrentgemma's smoke window of 32, so the
+    window binds in the flash kernel and each LOCAL layer's cache is a ring."""
     from repro_torch.configs import smoke_config
     from repro_torch.kernels import use_kernels
     from repro_torch.models import decode as dec
     from repro_torch.models.convert import tree_map
     from repro_torch.models.transformer import init_params
 
-    name = ARCH_KERNEL[arch][0]
-    kern = kernel_modules()[name][0]
     cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+    want = prefill_launches(cfg)
     params = init_params(cfg, torch.Generator().manual_seed(0))
     params_gpu = tree_map(lambda t: t.to("cuda"), params)
     B, P, N = 2, 40, 6
@@ -341,10 +459,10 @@ def phase_parity(arch: str) -> None:
     use_kernels(True)
     try:
         tok_cpu = torch.from_numpy(prompts)
-        launches0 = kern.launches
         lg_c, cache_c = dec.prefill(cfg, params, tok_cpu, capacity=P + N)
+        before = read_counts()
         lg_g, cache_g = dec.prefill(cfg, params_gpu, tok_cpu.cuda(), capacity=P + N)
-        launched = kern.launches - launches0
+        launched = {name: c[0] - before[name][0] for name, c in read_counts().items()}
         worst = (lg_g.cpu() - lg_c).abs().max().item()
         torch.testing.assert_close(lg_g.cpu(), lg_c, atol=1e-4, rtol=1e-4)
         for i in range(N):
@@ -359,12 +477,11 @@ def phase_parity(arch: str) -> None:
             cache_worst = max(cache_worst, (g.cpu().double() - c.double()).abs().max().item())
     finally:
         use_kernels(False)
-    if launched != cfg.n_layers:
-        raise AssertionError(f"CUDA prefill launched {name} {launched} times, "
-                             f"expected {cfg.n_layers}")
+    if launched != want:
+        raise AssertionError(f"CUDA prefill launched {launched}, expected {want}")
     say("parity", f"{cfg.name} f32 B={B} prompt={P}: prefill + {N} decode steps, "
                   f"CUDA vs CPU logits max abs diff {worst:.3e}, caches {cache_worst:.3e} "
-                  f"(tol 1e-4), {launched} {name} launches in the CUDA prefill")
+                  f"(tol 1e-4), launches in the CUDA prefill {launched}")
 
 
 def serve_once(arch: str, quiet: bool) -> tuple:
@@ -380,14 +497,27 @@ def serve_once(arch: str, quiet: bool) -> tuple:
     return (gen, *(h.total - b for h, b in zip(hist, before)))
 
 
+def check_counts(what: str, counts: dict, want: dict) -> None:
+    """Every kernel launched as often as ``want`` says and no call took a
+    plain version on the card."""
+    for name, (launched, plain) in counts.items():
+        if launched != want[name]:
+            raise AssertionError(f"{what} launched {name} {launched} times, "
+                                 f"expected {want[name]}")
+        if plain:
+            raise AssertionError(f"{what}: {plain} {name} calls took the plain "
+                                 "version on the card")
+
+
 def phase_serve(gpu: str, arch: str) -> dict:
     """Full-width serve of ``arch``: every launch count is 0 just before and
-    read just after; the arch's kernel launched once per layer, every other
-    kernel never, and no call took a plain version on the card."""
+    read just after; each layer's kernel launched once, every other kernel
+    never, and no call took a plain version on the card.  Returns the
+    launches of the kernels this path runs."""
     from repro_torch.configs import get_config
 
     cfg = get_config(arch)
-    mine = ARCH_KERNEL[arch][0]
+    want = prefill_launches(cfg)
     zero_counts()
     torch.cuda.reset_peak_memory_stats()
     gen, t_pre, t_dec = serve_once(arch, quiet=False)
@@ -395,14 +525,7 @@ def phase_serve(gpu: str, arch: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
     if gen.shape != (B_SERVE, N_SERVE) or gen.min() < 0 or gen.max() >= cfg.vocab_size:
         raise AssertionError(f"generations {gen.shape} out of range")
-    for name, (launched, plain) in counts.items():
-        want = cfg.n_layers if name == mine else 0
-        if launched != want:
-            raise AssertionError(f"{arch} serve launched {name} {launched} times, "
-                                 f"expected {want}")
-        if plain:
-            raise AssertionError(f"{arch} serve: {plain} {name} calls took the plain "
-                                 "version on the card")
+    check_counts(f"{arch} serve", counts, want)
     B, P, N = B_SERVE, P_SERVE, N_SERVE
     say("serve", f"{cfg.name} bf16 B={B} prompt={P} new={N}, first full-width run of it in "
                  f"this process: prefill {B * P / t_pre:.1f} tok/s "
@@ -410,7 +533,65 @@ def phase_serve(gpu: str, arch: str) -> dict:
                  f"({t_dec / N * 1e3:.3f} ms/step), peak memory {peak / 2**30:.3f} GiB, "
                  f"launches {({n: c[0] for n, c in counts.items()})}, plain calls on the card "
                  f"{({n: c[1] for n, c in counts.items()})} | {gpu}")
-    return {mine: counts[mine][0]}
+    return {name: counts[name][0] for name, n in want.items() if n}
+
+
+def phase_ring(gpu: str) -> None:
+    """recurrentgemma-9b at full width, one sequence whose prompt of 2560
+    overruns the 2048 window: prefill and greedy decode through the entry
+    points serve calls (``models.decode``), with the caches in hand.  The
+    same launches as the serve run, finite logits, and after decode every
+    LOCAL layer's ring holds exactly the last 2048 positions."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import use_kernels
+    from repro_torch.models import decode as dec
+    from repro_torch.models.transformer import init_params
+
+    cfg = get_config(RING_ARCH)
+    want = prefill_launches(cfg)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(1))
+    prompts = np.random.default_rng(1).integers(2, cfg.vocab_size, size=(1, P_RING))
+    tokens = torch.from_numpy(prompts).cuda()
+    use_kernels(True)
+    try:
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = dec.prefill(cfg, params, tokens, capacity=P_RING + N_RING)
+        finite = bool(torch.isfinite(logits).all())
+        t_pre = time.perf_counter() - t0
+        counts = read_counts()
+        t0 = time.perf_counter()
+        for i in range(N_RING):
+            tok = logits.argmax(-1)[:, None]
+            logits, caches = dec.decode_step(cfg, params, caches, tok, P_RING + i)
+            finite = finite and bool(torch.isfinite(logits).all())
+        t_dec = time.perf_counter() - t0
+    finally:
+        use_kernels(False)
+    check_counts("ring run prefill", counts, want)
+    if read_counts() != counts:
+        raise AssertionError(f"ring run decode launched a kernel: {read_counts()}")
+    if not finite:
+        raise AssertionError("ring run: non-finite logits")
+    last = list(range(P_RING + N_RING - cfg.window, P_RING + N_RING))
+    n_local = 0
+    for group, gc in zip(cfg.groups, caches):
+        for kind, c in zip(group.pattern, gc):
+            if kind != "local":
+                continue
+            for rep in range(group.count):
+                n_local += 1
+                if sorted(c["pos"][rep].tolist()) != last:
+                    raise AssertionError(f"ring run: a LOCAL cache holds positions other than "
+                                         f"{last[0]} .. {last[-1]}")
+    if n_local != sum(g.pattern.count("local") * g.count for g in cfg.groups):
+        raise AssertionError(f"ring run: {n_local} LOCAL caches checked")
+    say("serve", f"{cfg.name} bf16 B=1 prompt={P_RING} new={N_RING} (window {cfg.window} "
+                 f"binds): prefill {t_pre * 1e3:.2f} ms, decode {t_dec / N_RING * 1e3:.3f} "
+                 f"ms/step, launches {({n: c[0] for n, c in counts.items()})}, plain calls on "
+                 f"the card {({n: c[1] for n, c in counts.items()})}, logits finite, each of "
+                 f"the {n_local} LOCAL rings holds positions {last[0]} .. {last[-1]} | {gpu}")
 
 
 def phase_breakdown(gpu: str, arch: str) -> None:
@@ -425,9 +606,9 @@ def phase_breakdown(gpu: str, arch: str) -> None:
 
     from repro_torch.configs import get_config
 
-    n_layers, N = get_config(arch).n_layers, N_SERVE
-    _, kname, warm_runs = ARCH_KERNEL[arch]
-    walls = [serve_once(arch, quiet=True)[1:] for _ in range(warm_runs)]
+    N = N_SERVE
+    want = {PROFILER_NAME[name]: n for name, n in prefill_launches(get_config(arch)).items()}
+    walls = [serve_once(arch, quiet=True)[1:] for _ in range(WARM_RUNS[arch])]
     for r, (t_pre, t_dec) in enumerate(walls, 1):
         say("breakdown", f"{arch} run {r}: prefill {t_pre * 1e3:.3f} ms, "
                          f"decode {t_dec / N * 1e3:.3f} ms/step")
@@ -442,10 +623,10 @@ def phase_breakdown(gpu: str, arch: str) -> None:
         span = spans[phase]
         ops = [e for e in device_ops if span.start <= e.time_range.start < span.end]
         busy_us = sum(e.time_range.elapsed_us() for e in ops)
-        n_kernel = sum(kname in e.name for e in ops)
-        if not ops or n_kernel != (n_layers if phase == "prefill" else 0):
+        n_kernel = {kname: sum(kname in e.name for e in ops) for kname in want}
+        if not ops or n_kernel != (want if phase == "prefill" else dict.fromkeys(want, 0)):
             raise AssertionError(f"{arch} profile of {phase}: {len(ops)} device operations, "
-                                 f"{n_kernel} {kname} kernels")
+                                 f"kernels {n_kernel}")
         wall_us = sorted(w[i] * 1e6 / per for w in walls)
         idle = [1 - busy_us / per / w for w in wall_us]
         unit = "step" if per > 1 else "call"
@@ -454,7 +635,7 @@ def phase_breakdown(gpu: str, arch: str) -> None:
                          f"(min .. median .. max of {len(walls)}), under the profiler "
                          f"{span.elapsed_us() / per:.1f} us, device busy {busy_us / per:.1f} us, "
                          f"idle share {idle[0]:.3f} .. {idle[-1]:.3f}, "
-                         f"{len(ops) / per:.0f} device operations, {n_kernel} {kname} kernels"
+                         f"{len(ops) / per:.0f} device operations, kernels {n_kernel}"
                          f" | {gpu}")
         by_name = {}
         for e in ops:
@@ -465,17 +646,24 @@ def phase_breakdown(gpu: str, arch: str) -> None:
                              f"x{c / per:<6g} {name[:90]}")
 
 
-def phase_timing(gpu: str, launches: dict, main_err: float) -> dict:
+def launches_of(launches: dict, name: str) -> int:
+    """A kernel's launches over the serve runs of every path (arch -> row name
+    -> launches), each read with the counts set to 0 just before it."""
+    return sum(per_arch.get(name, 0) for per_arch in launches.values())
+
+
+def flash_timing(gpu: str, B, H, G, S, dh, dtype, window=0) -> dict:
+    """The flash kernel, its plain version and SDPA on one causal input in the
+    model's layout, and the card's bound.  ``window`` must not bind at S:
+    SDPA, the library yardstick, has no sliding window."""
     from repro_torch.kernels.flash_attention import kernel
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
-    s = MAIN_SHAPE
-    B, H, G, S, dh, dtype = s["B"], s["H"], s["G"], s["S"], s["dh"], s["dtype"]
     q, k, v = model_layout(np.random.default_rng(1), B, H, G, S, S, dh, dtype)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     n_launch = kernel.launches
-    ms = time_ms(lambda: kernel.flash_attention(qt, kt, vt, causal=True))
-    plain_ms = time_ms(lambda: attention_ref(qt, kt, vt, causal=True))
+    ms = time_ms(lambda: kernel.flash_attention(qt, kt, vt, causal=True, window=window))
+    plain_ms = time_ms(lambda: attention_ref(qt, kt, vt, causal=True, window=window))
     lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True))
     kernel.launches = n_launch  # timing launches are not the main path's
@@ -486,24 +674,41 @@ def phase_timing(gpu: str, launches: dict, main_err: float) -> dict:
     bw, peak = next((p for n, p in PEAKS.items() if n in gpu), PEAKS["H100"])
     peak = peak if dtype == torch.bfloat16 else F32_FLOPS
     t_bytes, t_ops = nbytes / bw * 1e3, flops / peak * 1e3
-    row = {
+    out = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": lib_ms}
+    say("timing", f"flash_attention B={B} H={H} G={G} S={S} dh={dh} {str(dtype)[6:]} causal "
+                  f"window={window}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"sdpa {lib_ms:.4f} ms, bound "
+                  f"{out['bound_ms']:.4f} ms ({out['bound_by']}: {nbytes / 1e6:.2f} MB = "
+                  f"{t_bytes:.4f} ms, {flops / 1e9:.3f} GFLOP = {t_ops:.4f} ms) | {gpu}")
+    return out
+
+
+def phase_timing(gpu: str, launches: dict, errs: dict) -> dict:
+    """The flash row at llama3.2-1b's prefill shape, with each path's own
+    shape and launches under ``paths``."""
+    s, g = MAIN_SHAPE, GEMMA_FA_SHAPE
+    llama = flash_timing(gpu, s["B"], s["H"], s["G"], s["S"], s["dh"], s["dtype"])
+    gemma = flash_timing(gpu, g["B"], g["H"], g["G"], g["S"], g["dh"], g["dtype"], g["window"])
+    paths = [
+        dict(arch="llama3.2-1b", shape=f"B={s['B']} H={s['H']} G={s['G']} S={s['S']} "
+             f"dh={s['dh']} bf16 causal", launches=launches["llama3.2-1b"]["flash_attention"],
+             max_abs_err=errs["main_path"], **llama),
+        dict(arch="recurrentgemma-9b", shape=f"B={g['B']} H={g['H']} G={g['G']} S={g['S']} "
+             f"dh={g['dh']} bf16 causal window={g['window']}",
+             launches=launches["recurrentgemma-9b"]["flash_attention"],
+             max_abs_err=errs["gemma_main_path"], **gemma),
+    ]
+    return {
         "name": "flash_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:101",
-        "launches": launches["flash_attention"],
-        "max_abs_err": main_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": lib_ms,
+        "launches": launches_of(launches, "flash_attention"),
+        "max_abs_err": errs["main_path"],
+        **llama,
+        "paths": paths,
     }
-    say("timing", f"flash_attention B={B} H={H} G={G} S={S} dh={dh} bf16 causal: "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"sdpa {lib_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
-                  f"({row['bound_by']}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP) | {gpu}")
-    return row
 
 
 def wkv6_work(B, S, H, K, chunk, el) -> tuple:
@@ -550,7 +755,7 @@ def phase_wkv_timing(gpu: str, launches: dict, main_err: float) -> dict:
         "route": "cuda",
         "source": "src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
         "replaces": "src/repro/kernels/rwkv6/kernel.py:81",
-        "launches": launches["wkv6"],
+        "launches": launches_of(launches, "wkv6"),
         "max_abs_err": main_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -568,19 +773,68 @@ def phase_wkv_timing(gpu: str, launches: dict, main_err: float) -> dict:
     return row
 
 
+def lru_work(B, S, W, el) -> tuple:
+    """(bytes, f32 operations) that the RG-LRU scan needs at this shape: a and
+    b read once and y written once in ``el`` bytes each; one multiply and
+    one add per element."""
+    n = B * S * W
+    return 3 * n * el, 2 * n
+
+
+def phase_lru_timing(gpu: str, launches: dict, main_err: float) -> dict:
+    from repro_torch.kernels.rglru import kernel
+    from repro_torch.kernels.rglru.ref import rglru_ref
+
+    s = LRU_SHAPE
+    B, S, W, dtype = s["B"], s["S"], s["W"], s["dtype"]
+    a, b = lru_inputs(np.random.default_rng(1), B, S, W, dtype, "model")
+    n_launch = kernel.launches
+    ms = time_ms(lambda: kernel.rglru_scan(a, b))
+    plain_ms = time_ms(lambda: rglru_ref(a, b), reps=5, iters=2, warmup=1)
+    kernel.launches = n_launch  # timing launches are not the main path's
+
+    el = torch.tensor([], dtype=dtype).element_size()
+    nbytes, flops = lru_work(B, S, W, el)
+    bw = next((p[0] for n, p in PEAKS.items() if n in gpu), PEAKS["H100"][0])
+    t_bytes, t_ops = nbytes / bw * 1e3, flops / F32_FLOPS * 1e3
+    L, C = kernel.chunking(S)
+    row = {
+        "name": "rglru_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/rglru/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru/kernel.py:52",
+        "launches": launches_of(launches, "rglru_scan"),
+        "max_abs_err": main_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+    }
+    say("timing", f"rglru_scan B={B} S={S} W={W} {str(dtype)[6:]} (model draw, {C} chunks of "
+                  f"{L}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {nbytes / 1e6:.2f} MB = "
+                  f"{t_bytes:.4f} ms, {flops / 1e6:.1f} MFLOP f32 = {t_ops:.5f} ms), kernel at "
+                  f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s of the bound's bytes | {gpu}")
+    say("timing", "rglru_scan library: none; no single PyTorch call computes a first-order "
+                  "linear recurrence (library_ms null)")
+    return row
+
+
 def main() -> int:
     gpu = phase_device()
     phase_build()
-    fa_err = phase_kernel_cases()
+    fa_errs = phase_kernel_cases()
     wkv_err = phase_wkv_cases()
+    lru_err = phase_lru_cases()
     for arch in ARCHS:
         phase_parity(arch)
-    launches = {}
-    for arch in ARCHS:
-        launches.update(phase_serve(gpu, arch))
+    launches = {arch: phase_serve(gpu, arch) for arch in ARCHS}
+    phase_ring(gpu)
     for arch in ARCHS:
         phase_breakdown(gpu, arch)
-    rows = [phase_timing(gpu, launches, fa_err), phase_wkv_timing(gpu, launches, wkv_err)]
+    rows = [phase_timing(gpu, launches, fa_errs), phase_wkv_timing(gpu, launches, wkv_err),
+            phase_lru_timing(gpu, launches, lru_err)]
     print(json.dumps({"kernels": rows}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -22,7 +22,7 @@ from typing import Dict, Sequence
 from repro_torch.kernels.config import BUILD_DIR
 
 KERNELS_DIR = Path(__file__).resolve().parent
-KERNELS = ("flash_attention", "rwkv6")
+KERNELS = ("flash_attention", "rwkv6", "rglru")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,9 +1,10 @@
 """Kernel dispatch switch, default device and build directory.
 
 ``use_kernels(True)`` routes the model's hot spots through the hand-written
-CUDA kernels (today, in prefill: flash attention for ATTN layers and the WKV6
-scan for RWKV layers); the default False keeps the
-plain PyTorch path, as ``repro.kernels.use_pallas`` does for the JAX package.
+CUDA kernels (today, in prefill: flash attention for ATTN and LOCAL layers,
+the WKV6 scan for RWKV layers and the RG-LRU scan for RGLRU layers); the
+default False keeps the plain PyTorch path, as ``repro.kernels.use_pallas``
+does for the JAX package.
 With kernels on, a tensor on the CPU takes the kernel's plain PyTorch version
 and a CUDA tensor takes the kernel; nothing falls back from one to the other.
 """

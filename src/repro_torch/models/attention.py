@@ -1,7 +1,7 @@
 """Attention layers: GQA self-attention and decode against a KV cache.
 
-Ported from ``repro.models.attention`` (ATTN layers).  Heads stay in an
-explicit (groups, heads-per-group) layout so GQA never repeats K/V.
+Ported from ``repro.models.attention`` (ATTN and LOCAL layers).  Heads stay
+in an explicit (groups, heads-per-group) layout so GQA never repeats K/V.
 Full-sequence attention switches to a KV-chunked online softmax above
 ``CHUNK_THRESHOLD`` keys; with kernels on and Sq == Sk it goes to the flash
 kernel instead (the dispatch ``repro.models.attention.attend`` makes).
@@ -200,8 +200,10 @@ def self_attention(
 
 
 # --------------------------------------------------------------------------
-# KV cache (decode), global layout: capacity S_max, written at the absolute
-# position.  ``pos`` entries are absolute key positions (-1 = unwritten).
+# KV cache (decode).  Two layouts:
+#   * global layers: capacity S_max, written at the absolute position;
+#   * local (sliding-window) layers: a ring buffer of size ``window``.
+# ``pos`` entries are absolute key positions (-1 = unwritten, masked out).
 # --------------------------------------------------------------------------
 
 def init_kv_cache(
@@ -226,13 +228,18 @@ def cache_from_kv(
     positions: torch.Tensor,  # (S,)
     capacity: int,
 ) -> dict:
-    """Build a decode cache from prefill K/V, padded to ``capacity``.  The
-    ring layout of sliding-window layers is not ported yet."""
+    """Build a decode cache from prefill K/V: padded to ``capacity``, or, when
+    the prompt is longer (sliding-window layers), the trailing ``capacity``
+    positions in ring-buffer layout, slot = pos % capacity."""
     B, S, G, dh = k.shape
     if capacity < S:
-        raise NotImplementedError(
-            f"cache capacity {capacity} < prompt length {S} needs the ring layout"
-        )
+        tail_pos = positions[-capacity:]
+        order = torch.argsort(tail_pos % capacity)
+        return {
+            "k": k[:, -capacity:][:, order],
+            "v": v[:, -capacity:][:, order],
+            "pos": tail_pos[order],
+        }
     cache = {
         "k": torch.zeros((B, capacity, G, dh), dtype=k.dtype, device=k.device),
         "v": torch.zeros((B, capacity, G, dh), dtype=v.dtype, device=v.device),

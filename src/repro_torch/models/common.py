@@ -17,6 +17,15 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
+def gemma_forms(cfg: ModelConfig) -> bool:
+    """Whether the model takes the gemma family's forms: the ``(1 + scale)``
+    RMSNorm with its scales initialised to 0, and the token embedding scaled
+    by sqrt(d_model).  The port's one counterpart of the JAX package's
+    ``"gemma" in cfg.name`` tests (its ``apply_norm``, ``norm_params`` and
+    ``_embed_tokens``); the config schema stays an exact copy of JAX's."""
+    return "gemma" in cfg.name
+
+
 # --------------------------------------------------------------------------
 # Norms.
 # --------------------------------------------------------------------------
@@ -51,7 +60,7 @@ def apply_norm(cfg: ModelConfig, x: torch.Tensor, p: Optional[dict]) -> torch.Te
     """Dispatch on cfg.norm.  ``p`` holds {'scale': ..., 'bias': ...} or is
     None for the non-parametric LN."""
     if cfg.norm == "rmsnorm":
-        return rmsnorm(x, None if p is None else p.get("scale"))
+        return rmsnorm(x, None if p is None else p.get("scale"), plus_one=gemma_forms(cfg))
     if cfg.norm == "layernorm":
         return layernorm(
             x, None if p is None else p.get("scale"), None if p is None else p.get("bias")

@@ -1,13 +1,15 @@
 """Serving entry points: cache init, prefill and single-token decode.
 
-Ported from ``repro.models.decode`` for ATTN and RWKV layers.  Caches
-mirror the parameter structure: one tuple per layer group, one dict per
-layer kind of the group's pattern, leaves stacked over the group's
-``count``: a KV cache for ATTN, the O(1) recurrent state and the two token
-shifts for RWKV.  A Python loop over the stack replaces ``lax.scan``.
-Decode writes each new key and value, or the new state and shifts, into the
-stacked cache in place (through per-layer views) and hands back the same
-cache object; the JAX package returns a new one.
+Ported from ``repro.models.decode`` for ATTN, LOCAL, RWKV and RGLRU layers.
+Caches mirror the parameter structure: one tuple per layer group, one dict
+per layer kind of the group's pattern, leaves stacked over the group's
+``count``: a KV cache for ATTN; a ring-buffer KV cache of capacity
+``min(window, capacity)`` for LOCAL (O(1) in context length); the O(1)
+recurrent state and the two token shifts for RWKV; the recurrence state and
+the conv tail for RGLRU.  A Python loop over the stack replaces
+``lax.scan``.  Decode writes each new key and value, or the new states and
+shifts, into the stacked cache in place (through per-layer views) and hands
+back the same cache object; the JAX package returns a new one.
 """
 from __future__ import annotations
 
@@ -15,9 +17,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ATTN, RWKV, ModelConfig
+from repro_torch.configs.base import ATTN, LOCAL, RGLRU, RWKV, ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models import rwkv
+from repro_torch.models import griffin, rwkv
 from repro_torch.models.common import apply_norm, mlp_apply, unembed
 from repro_torch.models.transformer import (
     _embed_tokens,
@@ -30,8 +32,13 @@ from repro_torch.models.transformer import (
 def _layer_cache(cfg: ModelConfig, kind: str, batch: int, capacity: int, device) -> dict:
     if kind == ATTN:
         return attn.init_kv_cache(cfg, batch, capacity, device=device)
+    if kind == LOCAL:
+        return attn.init_kv_cache(cfg, batch, attn.cache_capacity(cfg.window, capacity),
+                                  device=device)
     if kind == RWKV:
         return rwkv.init_rwkv_cache(cfg, batch, device=device)
+    if kind == RGLRU:
+        return griffin.init_rglru_cache(cfg, batch, device=device)
     raise ValueError(kind)
 
 
@@ -60,11 +67,13 @@ def _prefill_layer(
     cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, positions: torch.Tensor,
     capacity: int,
 ) -> Tuple[torch.Tensor, dict]:
-    if kind == ATTN:
+    if kind in (ATTN, LOCAL):
+        window = cfg.window if kind == LOCAL else 0
         h = apply_norm(cfg, x, p["ln1"])
         q, k, v = attn.qkv_proj(cfg, p["attn"], h, positions)
-        cache = attn.cache_from_kv(k, v, positions, capacity)
-        o = attn.attend(cfg, q, k, v, positions, positions)
+        cap = capacity if kind == ATTN else attn.cache_capacity(cfg.window, capacity)
+        cache = attn.cache_from_kv(k, v, positions, cap)
+        o = attn.attend(cfg, q, k, v, positions, positions, window=window)
         x = x + attn.out_proj(p["attn"], o)
         h = apply_norm(cfg, x, p["ln2"])
         return x + mlp_apply(cfg, p["mlp"], h), cache
@@ -76,6 +85,12 @@ def _prefill_layer(
         x = x + rwkv.rwkv_channel_mix(cfg, p["tm_cm"], h2)
         # the shifts are the last position's normed inputs, not x
         return x, {"state": state, "tm_shift": h[:, -1], "cm_shift": h2[:, -1]}
+    if kind == RGLRU:
+        h = apply_norm(cfg, x, p["ln1"])
+        y, cache = griffin.rglru_block_prefill(cfg, p["rec"], h)
+        x = x + y
+        h = apply_norm(cfg, x, p["ln2"])
+        return x + mlp_apply(cfg, p["mlp"], h), cache
     raise ValueError(kind)
 
 
@@ -112,9 +127,10 @@ def prefill(
 def _decode_layer(
     cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, pos: int, cache: dict
 ) -> torch.Tensor:
-    if kind == ATTN:
+    if kind in (ATTN, LOCAL):
         h = apply_norm(cfg, x, p["ln1"])
-        a, _ = attn.decode_attention(cfg, p["attn"], h, pos, cache)
+        a, _ = attn.decode_attention(cfg, p["attn"], h, pos, cache,
+                                     window=cfg.window if kind == LOCAL else 0)
         x = x + a
         h = apply_norm(cfg, x, p["ln2"])
         return x + mlp_apply(cfg, p["mlp"], h)
@@ -125,6 +141,12 @@ def _decode_layer(
         h2 = apply_norm(cfg, x, p["ln2"])
         y2, _ = rwkv.rwkv_channel_mix_decode(cfg, p["tm_cm"], h2, cache)
         return x + y2
+    if kind == RGLRU:
+        h = apply_norm(cfg, x, p["ln1"])
+        y, _ = griffin.rglru_block_decode(cfg, p["rec"], h, cache)
+        x = x + y
+        h = apply_norm(cfg, x, p["ln2"])
+        return x + mlp_apply(cfg, p["mlp"], h)
     raise ValueError(kind)
 
 

@@ -1,10 +1,11 @@
 """The model: layer groups applied over parameters stacked per group.
 
-Ported from ``repro.models.transformer`` for ATTN and RWKV layers on one
-device (``dist=None``).  The parameter tree keeps the JAX package's keys and its
-stacking over a group's ``count`` (``_superblock_params``), so a JAX tree
-carried across by ``convert.params_from_jax`` runs here unchanged; the
-layer loop replaces ``lax.scan`` over the stack.
+Ported from ``repro.models.transformer`` for ATTN, LOCAL, RWKV and RGLRU
+layers on one device (``dist=None``).  The parameter tree keeps the JAX
+package's keys and its stacking over a group's ``count``
+(``_superblock_params``), so a JAX tree carried across by
+``convert.params_from_jax`` runs here unchanged; the layer loop replaces
+``lax.scan`` over the stack.
 """
 from __future__ import annotations
 
@@ -12,30 +13,32 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.configs.base import ATTN, RWKV, LayerGroup, ModelConfig
+from repro_torch.configs.base import ATTN, LOCAL, RGLRU, RWKV, LayerGroup, ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models import rwkv
+from repro_torch.models import griffin, rwkv
 from repro_torch.models.common import (
     apply_norm,
     dtype_of,
     embed_params,
+    gemma_forms,
     mlp_apply,
     mlp_params,
     unembed,
 )
 
 
-PORTED_KINDS = (ATTN, RWKV)
+PORTED_KINDS = (ATTN, LOCAL, RWKV, RGLRU)
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port runs decoders whose layers are all dense ATTN or all RWKV."""
+    """The port runs dense decoders whose layers are any mix of the ported
+    kinds (no MoE, post-norms, encoder, or cross-attention layers)."""
     kinds = {k for g in cfg.groups for k in g.pattern}
-    if (len(kinds) != 1 or not kinds <= set(PORTED_KINDS)
+    if (not kinds <= set(PORTED_KINDS)
             or cfg.is_moe or cfg.post_norms or cfg.encoder_layers):
         raise NotImplementedError(
             f"{cfg.name}: layer kinds {sorted(kinds)}; the port runs decoders whose "
-            f"layers are all one of {PORTED_KINDS} (dense, no post-norms, no encoder)")
+            f"layers are each one of {PORTED_KINDS} (dense, no post-norms, no encoder)")
 
 
 # --------------------------------------------------------------------------
@@ -45,7 +48,9 @@ def check_supported(cfg: ModelConfig) -> None:
 def norm_params(cfg: ModelConfig, lead: Tuple[int, ...], device) -> dict:
     if cfg.norm == "nonparam_ln":
         return None
-    p = {"scale": torch.ones(lead + (cfg.d_model,), dtype=dtype_of(cfg), device=device)}
+    # the gemma forms' (1 + scale) RMSNorm starts from scale 0
+    fill = 0.0 if cfg.norm == "rmsnorm" and gemma_forms(cfg) else 1.0
+    p = {"scale": torch.full(lead + (cfg.d_model,), fill, dtype=dtype_of(cfg), device=device)}
     if cfg.norm == "layernorm":
         p["bias"] = torch.zeros(lead + (cfg.d_model,), dtype=dtype_of(cfg), device=device)
     return p
@@ -53,11 +58,14 @@ def norm_params(cfg: ModelConfig, lead: Tuple[int, ...], device) -> dict:
 
 def _layer_params(cfg: ModelConfig, kind: str, gen: torch.Generator, lead: Tuple[int, ...]) -> dict:
     p = {"ln1": norm_params(cfg, lead, gen.device), "ln2": norm_params(cfg, lead, gen.device)}
-    if kind == ATTN:
+    if kind in (ATTN, LOCAL):
         p["attn"] = attn.attn_params(cfg, gen, lead)
         p["mlp"] = mlp_params(cfg, gen, lead)
     elif kind == RWKV:
         p["tm_cm"] = rwkv.rwkv_params(cfg, gen, lead)
+    elif kind == RGLRU:
+        p["rec"] = griffin.rglru_params(cfg, gen, lead)
+        p["mlp"] = mlp_params(cfg, gen, lead)
     else:
         raise ValueError(kind)
     return p
@@ -97,7 +105,11 @@ def layer_params(gp: tuple, i: int) -> tuple:
 # --------------------------------------------------------------------------
 
 def _embed_tokens(cfg: ModelConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"]["tok"][tokens]
+    x = params["embed"]["tok"][tokens]
+    if gemma_forms(cfg):
+        # sqrt(d_model) in x's dtype first, as the JAX package casts it
+        x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype, device=x.device)
+    return x
 
 
 def _positions_embed(cfg: ModelConfig, params: dict, x: torch.Tensor, positions) -> torch.Tensor:
@@ -109,9 +121,11 @@ def _positions_embed(cfg: ModelConfig, params: dict, x: torch.Tensor, positions)
 def _apply_layer_full(
     cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, positions: torch.Tensor
 ) -> torch.Tensor:
-    if kind == ATTN:
+    if kind in (ATTN, LOCAL):
         h = apply_norm(cfg, x, p["ln1"])
-        x = x + attn.self_attention(cfg, p["attn"], h, positions)
+        x = x + attn.self_attention(
+            cfg, p["attn"], h, positions, window=cfg.window if kind == LOCAL else 0
+        )
         h = apply_norm(cfg, x, p["ln2"])
         return x + mlp_apply(cfg, p["mlp"], h)
     if kind == RWKV:
@@ -119,6 +133,11 @@ def _apply_layer_full(
         x = x + rwkv.rwkv_time_mix(cfg, p["tm_cm"], h)
         h = apply_norm(cfg, x, p["ln2"])
         return x + rwkv.rwkv_channel_mix(cfg, p["tm_cm"], h)
+    if kind == RGLRU:
+        h = apply_norm(cfg, x, p["ln1"])
+        x = x + griffin.rglru_block(cfg, p["rec"], h)
+        h = apply_norm(cfg, x, p["ln2"])
+        return x + mlp_apply(cfg, p["mlp"], h)
     raise ValueError(kind)
 
 

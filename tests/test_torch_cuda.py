@@ -15,10 +15,14 @@ from repro_torch.configs import smoke_config
 from repro_torch.kernels import use_kernels
 from repro_torch.kernels.flash_attention import kernel, ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.rglru import kernel as lru_kernel
+from repro_torch.kernels.rglru import ops as lru_ops
+from repro_torch.kernels.rglru.ref import rglru_ref
 from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
 from repro_torch.kernels.rwkv6 import ops as wkv_ops
 from repro_torch.kernels.rwkv6.ref import wkv6_ref
 from repro_torch.models import decode as dec
+from repro_torch.models import griffin
 from repro_torch.models.convert import tree_map
 from repro_torch.models.transformer import init_params
 
@@ -139,3 +143,68 @@ def test_smoke_prefill_on_card_matches_cpu(cuda_device):
     finally:
         use_kernels(False)
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("B,S,W,dtype,draw", [
+    (1, 128, 128, torch.float32, "uniform"),
+    (2, 256, 256, torch.float32, "uniform"),
+    (1, 64, 512, torch.float32, "uniform"),
+    (2, 200, 96, torch.float32, "uniform"),  # ragged S and W
+    (1, 70, 4100, torch.float32, "uniform"),  # W past a multiple of the tile
+    (1, 2560, 256, torch.float32, "uniform"),  # chunks of 160 steps
+    (1, 128, 128, torch.bfloat16, "uniform"),
+    (2, 300, 128, torch.float32, "model"),  # a from the model's gates
+])
+def test_rglru_kernel_matches_plain_version(cuda_device, B, S, W, dtype, draw):
+    """The JAX package's tolerances for its kernel: f32 atol 1e-5 / rtol
+    1e-4, bf16 atol 0.15 / rtol 0.1."""
+    rng = np.random.default_rng(0)
+    b = torch.from_numpy(rng.standard_normal((B, S, W), dtype=np.float32)).to(cuda_device)
+    if draw == "uniform":
+        a = torch.from_numpy(rng.uniform(0.3, 0.999, (B, S, W)).astype(np.float32)).to(cuda_device)
+    else:
+        W8 = W // griffin.N_BLOCKS
+        p = {"gate_a": torch.randn(8, W8, W8, device=cuda_device) / W8 ** 0.5,
+             "gate_x": torch.randn(8, W8, W8, device=cuda_device) / W8 ** 0.5,
+             "lam": torch.linspace(2.0, 6.0, W, device=cuda_device)}
+        a, b = griffin._gates(p, b)
+    a, b = a.to(dtype), b.to(dtype)
+    before = lru_kernel.launches
+    y = lru_ops.scan(a, b)
+    assert lru_kernel.launches == before + 1
+    want, _ = rglru_ref(a, b)
+    tol = dict(atol=1e-5, rtol=1e-4) if dtype == torch.float32 else dict(atol=0.15, rtol=0.1)
+    assert y.dtype == dtype
+    torch.testing.assert_close(y.float(), want.float(), **tol)
+
+
+def test_rglru_kernel_rejects_mixed_dtypes(cuda_device):
+    a = torch.rand(1, 8, 32, device=cuda_device)
+    with pytest.raises(ValueError, match="b is torch.bfloat16"):
+        lru_kernel.rglru_scan(a, a.bfloat16())
+
+
+def test_smoke_prefill_on_card_matches_cpu_recurrentgemma(cuda_device):
+    """A prompt of 40 over the smoke window of 32 binds the window in the
+    flash kernel and makes each LOCAL layer's cache a ring; each LOCAL layer
+    launches the flash kernel once and each RGLRU layer the RG-LRU kernel
+    once; logits and every cache agree."""
+    cfg = dataclasses.replace(smoke_config("recurrentgemma-9b"), dtype="float32")
+    kinds = [k for g in cfg.groups for k in g.pattern * g.count]
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(2, cfg.vocab_size, size=(2, 40)))
+    use_kernels(True)
+    try:
+        before = (kernel.launches, lru_kernel.launches)
+        want, want_cache = dec.prefill(cfg, params, tokens, capacity=48)
+        got, got_cache = dec.prefill(cfg, tree_map(lambda t: t.to(cuda_device), params),
+                                     tokens.to(cuda_device), capacity=48)
+        assert (kernel.launches - before[0], lru_kernel.launches - before[1]) == (
+            kinds.count("local"), kinds.count("rglru"))
+    finally:
+        use_kernels(False)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    for g, w in zip(got_cache, want_cache):
+        for gd, wd in zip(g, w):
+            for key in wd:
+                torch.testing.assert_close(gd[key].cpu(), wd[key], atol=1e-4, rtol=1e-4)

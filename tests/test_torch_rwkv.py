@@ -213,14 +213,20 @@ def test_init_caches_match_reference(cfgs):
 
 
 def test_check_supported_names_ported_kinds():
+    """Any mix of the ported kinds runs (RWKV with ATTN, all RGLRU); kinds
+    still unported (XATTN, ATTNX) and MoE are refused, naming the ported
+    kinds."""
     cfg = tcfgs.get_config(ARCH)
     ttf.check_supported(cfg)
-    mixed = dataclasses.replace(cfg, groups=(tcfgs.LayerGroup(pattern=("rwkv", "attn"), count=2),))
-    with pytest.raises(NotImplementedError, match=r"\('attn', 'rwkv'\)"):
+    ported = dataclasses.replace(cfg, groups=(tcfgs.LayerGroup(pattern=("rwkv", "attn"), count=2),))
+    ttf.check_supported(ported)
+    ttf.check_supported(dataclasses.replace(cfg, groups=(tcfgs.LayerGroup(("rglru",), 1),)))
+    mixed = dataclasses.replace(cfg, groups=(tcfgs.LayerGroup(pattern=("rwkv", "xattn"), count=2),))
+    with pytest.raises(NotImplementedError, match=r"\('attn', 'local', 'rwkv', 'rglru'\)"):
         ttf.check_supported(mixed)
     moe = dataclasses.replace(tcfgs.get_config("llama3.2-1b"), n_experts=4, top_k=2)
     with pytest.raises(NotImplementedError):
         ttf.check_supported(moe)
     with pytest.raises(NotImplementedError):
-        ttf.init_params(dataclasses.replace(cfg, groups=(tcfgs.LayerGroup(("rglru",), 1),)),
+        ttf.init_params(dataclasses.replace(cfg, groups=(tcfgs.LayerGroup(("attn_x",), 1),)),
                         torch.Generator())
