@@ -10,8 +10,10 @@ Phases, each printing its own lines, any failure ending the run non-zero:
   1. device  — fail without CUDA; print the card's name and power limit;
                TF32 off for f32 matmuls and convolutions.
   2. build   — compile every CUDA kernel from the repository's sources, all
-               nvcc processes at once.
-  3. kernels — each kernel against its plain PyTorch version on the card.
+               nvcc processes at once; print ptxas's registers, shared
+               memory, spills and performance notes for each kernel.
+  3. kernels — each kernel against its plain PyTorch version on the card
+               (flash: bf16 on the wgmma kernel, f32 on the CUDA-core one).
   4. parity  — each smoke-width model in f32: CPU (plain) against CUDA (kernel).
   5. serve   — each full-width model through ``repro_torch.launch.serve``,
                every launch count set to 0 just before and read just after:
@@ -25,7 +27,7 @@ Phases, each printing its own lines, any failure ending the run non-zero:
                share, device operations and the largest kernels per phase.
   7. timing  — each kernel at its serving path's shape, beside its plain
                version, one PyTorch library call where there is one, and the
-               card's bound.
+               card's bound; flash also on its f32 route at llama's shape.
 The second-to-last line is the card as nvidia-smi names it, the last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of ``repro``.
 """
@@ -120,6 +122,24 @@ FA_CASES = [
     ("gemma_window_binds", 1, 16, 1, 700, 700, 256, torch.bfloat16, {"window": 256}),
     ("gemma_window_binds_f32", 2, 4, 1, 300, 300, 256, torch.float32, {"window": 64}),
     ("gemma_ring_prompt", 1, 16, 1, 2560, 2560, 256, torch.bfloat16, {"window": 2048}),
+    # the bf16 (wgmma) kernel: each head dim, ragged lengths, binding windows,
+    # softcap, q_offset with Sq < Sk, one KV head, no causal mask, and q, k, v
+    # cut from wider rows (a non-dense view; o comes back dense)
+    ("bf16_dh32_ragged", 2, 4, 2, 200, 200, 32, torch.bfloat16, {}),
+    ("bf16_dh64_ragged", 2, 4, 2, 333, 333, 64, torch.bfloat16, {}),
+    ("bf16_dh128_ragged", 2, 8, 2, 200, 200, 128, torch.bfloat16, {}),
+    ("bf16_dh256_window_binds", 1, 4, 2, 333, 333, 256, torch.bfloat16, {"window": 64}),
+    ("bf16_softcap", 1, 2, 2, 128, 128, 64, torch.bfloat16, {"softcap": 20.0}),
+    ("bf16_dh256_window_softcap", 1, 2, 2, 200, 200, 256, torch.bfloat16,
+     {"window": 32, "softcap": 10.0}),
+    ("bf16_q_offset_ragged", 2, 4, 1, 37, 301, 64, torch.bfloat16, {"q_offset": 264}),
+    ("bf16_q_offset_dh256_window", 1, 16, 1, 100, 612, 256, torch.bfloat16,
+     {"q_offset": 512, "window": 256}),
+    ("bf16_mqa_h16", 2, 16, 1, 256, 256, 64, torch.bfloat16, {}),
+    ("bf16_noncausal_dh128", 2, 2, 2, 192, 192, 128, torch.bfloat16, {"causal": False}),
+    ("bf16_noncausal_window_dh32", 1, 4, 4, 300, 300, 32, torch.bfloat16,
+     {"causal": False, "window": 40}),
+    ("bf16_strided_views", 2, 4, 2, 160, 160, 64, torch.bfloat16, {"window": 48}),
 ]
 GEMMA_FA_SHAPE = dict(B=4, H=16, G=1, S=512, dh=256, dtype=torch.bfloat16, window=2048)
 
@@ -184,10 +204,13 @@ def time_ms(fn, reps: int = 21, iters: int = 10, warmup: int = 5) -> float:
     return statistics.median(times)
 
 
-def model_layout(rng, B, H, G, Sq, Sk, dh, dtype, device="cuda"):
-    """q (B, Sq, H, dh), k, v (B, Sk, G, dh) as the model makes them."""
+def model_layout(rng, B, H, G, Sq, Sk, dh, dtype, device="cuda", strided=False):
+    """q (B, Sq, H, dh), k, v (B, Sk, G, dh) as the model makes them;
+    ``strided`` cuts each from rows twice as wide (a non-dense view)."""
     def mk(*shape):
-        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device, dtype)
+        wide = (*shape[:-1], 2 * shape[-1]) if strided else shape
+        t = torch.from_numpy(rng.standard_normal(wide, dtype=np.float32)).to(device, dtype)
+        return t[..., :shape[-1]]
     return mk(B, Sq, H, dh), mk(B, Sk, G, dh), mk(B, Sk, G, dh)
 
 
@@ -315,9 +338,12 @@ def phase_build() -> None:
     say("build", f"built {sorted(seconds)} in {time.perf_counter() - t0:.2f}s "
                  f"(per kernel: {seconds})")
     for name in seconds:
+        entry = ""
         for ln in build.build_log(name).splitlines():
-            if "registers" in ln or "spill" in ln:
-                say("build", f"{name}: {ln.strip()}")
+            if "Compiling entry function" in ln:
+                entry = ln.split("'")[1]  # mangled: the template arguments tell kernels apart
+            elif "registers" in ln or "spill" in ln or "C75" in ln:
+                say("build", f"{name} {entry}: {ln.replace('ptxas info    :', '').strip()}")
 
 
 def phase_kernel_cases() -> dict:
@@ -329,7 +355,8 @@ def phase_kernel_cases() -> dict:
     rng = np.random.default_rng(0)
     errs = {}
     for label, B, H, G, Sq, Sk, dh, dtype, kw in FA_CASES:
-        q, k, v = model_layout(rng, B, H, G, Sq, Sk, dh, dtype)
+        q, k, v = model_layout(rng, B, H, G, Sq, Sk, dh, dtype,
+                               strided=label == "bf16_strided_views")
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         out = kernel.flash_attention(qt, kt, vt, **kw)
         ref = attention_ref(qt, kt, vt, **kw)
@@ -644,6 +671,12 @@ def phase_breakdown(gpu: str, arch: str) -> None:
         for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
             say("breakdown", f"  {arch} {phase}: {t / per:9.1f} us {100 * t / busy_us:5.1f}% "
                              f"x{c / per:<6g} {name[:90]}")
+        for kname, n in n_kernel.items():  # the path's own kernels, in the top eight or not
+            if n:
+                t = sum(e.time_range.elapsed_us() for e in ops if kname in e.name)
+                say("breakdown", f"  {arch} {phase}: {kname} {t / per:.1f} us "
+                                 f"({100 * t / busy_us:.1f}%), {n} launches, "
+                                 f"{t / n:.1f} us each")
 
 
 def launches_of(launches: dict, name: str) -> int:
@@ -686,10 +719,12 @@ def flash_timing(gpu: str, B, H, G, S, dh, dtype, window=0) -> dict:
 
 def phase_timing(gpu: str, launches: dict, errs: dict) -> dict:
     """The flash row at llama3.2-1b's prefill shape, with each path's own
-    shape and launches under ``paths``."""
+    shape and launches under ``paths``; a line besides for the f32 route."""
     s, g = MAIN_SHAPE, GEMMA_FA_SHAPE
     llama = flash_timing(gpu, s["B"], s["H"], s["G"], s["S"], s["dh"], s["dtype"])
     gemma = flash_timing(gpu, g["B"], g["H"], g["G"], g["S"], g["dh"], g["dtype"], g["window"])
+    # the f32 route (the CUDA-core kernel) at llama's shape, for its own record
+    flash_timing(gpu, s["B"], s["H"], s["G"], s["S"], s["dh"], torch.float32)
     paths = [
         dict(arch="llama3.2-1b", shape=f"B={s['B']} H={s['H']} G={s['G']} S={s['S']} "
              f"dh={s['dh']} bf16 causal", launches=launches["llama3.2-1b"]["flash_attention"],

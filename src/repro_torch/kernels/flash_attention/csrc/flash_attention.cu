@@ -2,39 +2,82 @@
 //
 // Replaces the Pallas TPU kernel
 //   src/repro/kernels/flash_attention/kernel.py::flash_attention (body _kernel)
-// and computes the same function: GQA attention with an online softmax whose
-// running max m, sum l and accumulator acc stay in f32; q pre-scaled by
-// dh^-0.5; optional softcap * tanh(s / softcap); causal and sliding-window
-// masks on absolute positions shifted by q_offset; masked scores set to
-// NEG_INF; fully masked rows guarded (m_safe = max(m, -1e30), l floored at
-// 1e-30, so such a row comes out as 0); output in the input dtype.
+// and computes the same function: GQA attention (query head h reads K/V group
+// h / (H/G), K/V never repeated) with an online softmax whose running max m,
+// sum l and accumulator stay in f32; scores scaled by dh^-0.5 in f32; optional
+// softcap * tanh(s / softcap); causal and sliding-window masks on absolute
+// positions shifted by q_offset; masked scores set to NEG_INF; fully masked
+// rows guarded (m_safe = max(m, -1e30), l floored at 1e-30, so such a row is
+// 0); output in the input dtype with q's layout.  Strides are passed in, so
+// the model's (B, S, H, dh) buffers are read in place.  Two kernels:
 //
-// Design.  The TPU kernel walks a (B*H, Sq/bq, Sk/bk) grid in order and keeps
-// the softmax state in VMEM scratch across the sequential kv axis.  Here one
-// thread block owns one (b*h, 64-row q tile) and runs the kv loop itself, over
-// exactly the key tiles its causal and window limits allow (no visit-and-
-// predicate of dead tiles).  Q is staged once in shared memory, K and V tiles
-// of 64 keys are staged per step, all converted to f32.  Four threads share
-// one query row: each computes 16 of the tile's 64 scores, the row max and
-// row sum are reduced with two warp shuffles, and each thread keeps dh/4
-// columns of the f32 accumulator in registers.  Query head h reads K/V group
-// h / (H/G) directly; K/V are never repeated.  Ragged edges (Sq or Sk not a
-// multiple of 64) are masked in the kernel, so every sequence length runs here.
-// Strides are passed in, so the model's (B, S, H, dh) buffers are read in place.
-//
-// Bound.  At the serving path's prefill shape (B=4, H=32, G=8, S=512, dh=64,
-// bf16, causal) the kernel must move q + o = 2 x 8.39 MB and k + v =
-// 2 x 2.10 MB (21.0 MB), and do 4 * dh * B * H * S(S+1)/2 = 4.30 GFLOP.  On an
-// H100 SXM (3.35 TB/s, 989 TFLOP/s bf16) that is 6.3 us from memory against
-// 4.3 us of tensor-core work: the bound is bytes.  This first version does
-// its products as f32 FMAs on the CUDA cores (67 TFLOP/s), so it runs far
-// above that bound; wgmma and TMA are the way down to it.
+// bf16: flash_fwd_wgmma_kernel (flash_fwd_hopper.cuh).  Bound: at llama3.2-1b's
+// prefill shape (B=4 H=32 G=8 S=512 dh=64, causal) it must move q, o, k, v
+// once, 20.97 MB = 6.26 us at 3.35 TB/s, against 4.30 GFLOP = 4.35 us at 989
+// TFLOP/s; at recurrentgemma-9b's (B=4 H=16 G=1 S=512 dh=256, window 2048)
+// 35.65 MB = 10.64 us against 8.61 GFLOP = 8.70 us.  Both are bounded by
+// bytes, with the tensor cores close behind.  What the first, CUDA-core
+// design lost, and what this one does about it:
+//  - Products were f32 FMAs (67 TFLOP/s, 64 and 128 us of work alone): both
+//    are wgmma on the bf16 tensor cores.  S = Q K^T reads Q and K from shared
+//    memory, unscaled (bf16 x bf16 products are exact in f32, so the scores
+//    match q.astype(f32) * scale up to the order of summation; dh^-0.5 is
+//    applied in f32, since it is no power of two at dh 32 and 128: to the row
+//    max and inside the exponent's FMA, or before the softcap).
+//    O += P V takes P from registers and V as an MN-major (transposed) operand.
+//  - Each shared-memory load fed four FMAs: wgmma reads its operands from
+//    shared memory once per 64-row warpgroup tile.
+//  - K and V were widened to f32 in shared memory (217 KB a block at dh=256,
+//    one block of 8 warps an SM): tiles stay bf16.
+//  - Loads were synchronous behind two __syncthreads a tile: one producer
+//    thread issues TMA loads into a K ring and a V ring of two tiles each,
+//    every slot with a full and an empty mbarrier; a K tile is released as
+//    soon as its product is done, a V tile after P V.  Blocks are persistent:
+//    each walks work items (a query tile of one batch and head), the heaviest
+//    first, so the next item's Q, K and V load while this one finishes.
+//    setmaxnreg moves the producer warpgroup's registers to the consumers
+//    (24 left to it, 240 or 232 to each consumer thread).
+//    The tensor maps are built on the host for each call from the strides
+//    (4-d: dh, seq, head, batch, unit boxes on the last two), with a 128-byte
+//    swizzle (64-byte at dh=32) that the wgmma descriptors name; a 256-column
+//    tile is four 64-column boxes.  TMA fills rows past the end with zeros;
+//    the ragged edge of Sk is still masked in the scores.
+//    cuTensorMapEncodeTiled is taken with cudaGetDriverEntryPoint, so the
+//    build flags stay as they are (no -lcuda).
+//  - P went through shared memory: the f32 accumulator's pairs, packed to
+//    bf16x2, are the register A operand of the next wgmma as they lie.  This
+//    is the one rounding the Pallas kernel does not make; l is summed from the
+//    f32 probabilities before it.
+//  - Nothing overlapped the softmax: Q K^T of tile i + 1 and P V of tile i are
+//    issued together, and the softmax of tile i + 1 runs while P V of tile i
+//    is on the tensor cores.  ptxas serializes every wgmma of a kernel where
+//    an instruction between a batch and its wait branches (a divergent
+//    predicate counts) or writes a wgmma's registers, so the softmax has no
+//    branch: softcap is a template argument, and the mask is chosen per tile
+//    before the batch is issued.
+//  - Every tile computed the mask: only tiles that cross the diagonal, the
+//    window's edge or the end of the keys do; they lead (window) and trail
+//    (diagonal, ragged end) the key range, so each item runs three loops:
+//    masked, unmasked, masked.  Tiles a mask kills entirely are never loaded.
+// Blocks: dh <= 64, one warpgroup of 64 query rows and two blocks an SM
+// (128-key tiles), so that one block's loads, first product and epilogue
+// overlap the other's work; dh >= 128, two warpgroups (128 rows) and one
+// block an SM, with 128-key tiles at dh=128 and 64-key tiles at dh=256.
+
+// float32: flash_fwd_kernel, the first design, kept for the f32 route, where
+// its f32 FMAs are exact to the 1e-4 parity tolerances.  One block per
+// (b*h, 64-row q tile) runs the kv loop over the key tiles its limits allow;
+// Q (pre-scaled) and K/V tiles of 64 keys are staged in shared memory; four
+// threads share a query row, reducing its max and sum with two shuffles.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
+#include <cstdio>
+
+#include "flash_fwd_hopper.cuh"
 
 namespace {
 
@@ -66,27 +109,14 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(p);
-  const float2 a = __bfloat1622float2(p2[0]);
-  const float2 b = __bfloat1622float2(p2[1]);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
 __device__ __forceinline__ void store4(float* p, float4 x) {
   *reinterpret_cast<float4*>(p) = x;
 }
 
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
-  __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(p);
-  p2[0] = __floats2bfloat162_rn(x.x, x.y);
-  p2[1] = __floats2bfloat162_rn(x.z, x.w);
-}
-
 // Copies `rows` rows of DH elements (row stride `ld` elements) into a
 // BK x (DH + PAD) f32 shared tile, scaled by `mul`; rows past `rows` are zero.
-template <int DH, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, long long ld,
+template <int DH>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, long long ld,
                                           int rows, float mul) {
   constexpr int V = DH / 4;
   for (int idx = threadIdx.x; idx < BK * V; idx += NTHREADS) {
@@ -104,7 +134,7 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, long long ld
   }
 }
 
-template <int DH, typename T>
+template <int DH>
 __global__ void __launch_bounds__(NTHREADS)
     flash_fwd_kernel(const Params p) {
   constexpr int LD = DH + PAD;
@@ -123,10 +153,10 @@ __global__ void __launch_bounds__(NTHREADS)
   const int q0 = blockIdx.y * BQ;
   const int q_rows = min(BQ, p.Sq - q0);
 
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh + q0 * p.q_ss;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + g * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + g * p.v_sh;
-  T* o = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh + q0 * p.o_ss;
+  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh + q0 * p.q_ss;
+  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + g * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + g * p.v_sh;
+  float* o = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh + q0 * p.o_ss;
 
   load_tile<DH>(Qs, q, p.q_ss, q_rows, p.scale);
 
@@ -231,7 +261,7 @@ __global__ void __launch_bounds__(NTHREADS)
 
   if (r < q_rows) {
     const float den = fmaxf(l, 1e-30f);
-    T* o_row = o + r * p.o_ss;
+    float* o_row = o + r * p.o_ss;
 #pragma unroll
     for (int i = 0; i < DH / 16; ++i) {
       store4(o_row + 16 * i + 4 * c,
@@ -241,24 +271,23 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
-template <int DH, typename T>
+template <int DH>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   const int smem = (BQ * (DH + PAD) + 2 * BK * (DH + PAD) + BQ * LDP) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<DH, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * p.H, (p.Sq + BQ - 1) / BQ);
-  flash_fwd_kernel<DH, T><<<grid, NTHREADS, smem, stream>>>(p);
+  flash_fwd_kernel<DH><<<grid, NTHREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const Params& p, int B, int dh, cudaStream_t stream) {
+cudaError_t dispatch_f32(const Params& p, int B, int dh, cudaStream_t stream) {
   switch (dh) {
-    case 32: return launch<32, T>(p, B, stream);
-    case 64: return launch<64, T>(p, B, stream);
-    case 128: return launch<128, T>(p, B, stream);
-    case 256: return launch<256, T>(p, B, stream);
+    case 32: return launch<32>(p, B, stream);
+    case 64: return launch<64>(p, B, stream);
+    case 128: return launch<128>(p, B, stream);
+    case 256: return launch<256>(p, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -267,12 +296,35 @@ cudaError_t dispatch(const Params& p, int B, int dh, cudaStream_t stream) {
 
 // q: (B, H, Sq, dh); k, v: (B, G, Sk, dh); o like q.  strides holds the
 // (batch, head, sequence) strides in elements of q, k, v and o, in that order;
-// the dh axis is contiguous.  Returns the launch's cudaError_t (0 on success).
+// the dh axis is contiguous.  bf16 goes to the wgmma kernel, f32 to the
+// CUDA-core one.  Returns 0 on success, else a cudaError_t, or a code of
+// hopper::ERR_TENSOR_MAP, hopper::ERR_ENTRY_POINT or hopper::ERR_REGISTERS
+// (flash_attention_error_string names each).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int is_bf16, int B, int H, int G, int Sq, int Sk,
                                    int dh, const long long* strides, int causal,
                                    int window, int q_offset, float softcap, float scale,
                                    void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    hopper::Params hp;
+    hp.o = o;
+    hp.o_sb = strides[9];
+    hp.o_sh = strides[10];
+    hp.o_ss = strides[11];
+    hp.H = H;
+    hp.G = G;
+    hp.Sq = Sq;
+    hp.Sk = Sk;
+    hp.BH = B * H;
+    hp.causal = causal;
+    hp.window = window;
+    hp.q_offset = q_offset;
+    hp.softcap = softcap;
+    hp.softcap_inv = softcap > 0.f ? 1.f / softcap : 0.f;
+    hp.scale = scale;
+    return hopper::dispatch(q, k, v, hp, B, dh, strides, s);
+  }
   Params p;
   p.q = q;
   p.k = k;
@@ -299,12 +351,19 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   p.q_offset = q_offset;
   p.softcap = softcap;
   p.scale = scale;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = is_bf16 ? dispatch<__nv_bfloat16>(p, B, dh, s)
-                                  : dispatch<float>(p, B, dh, s);
-  return static_cast<int>(err);
+  return static_cast<int>(dispatch_f32(p, B, dh, s));
 }
 
 extern "C" const char* flash_attention_error_string(int err) {
+  static char buf[96];
+  if (err == hopper::ERR_ENTRY_POINT) return "cuTensorMapEncodeTiled not found in the driver";
+  if (err == hopper::ERR_REGISTERS)
+    return "flash_fwd_wgmma_kernel was built with another entry register count than its "
+           "setmaxnreg budget assumes";
+  if (err >= hopper::ERR_TENSOR_MAP) {
+    snprintf(buf, sizeof buf, "cuTensorMapEncodeTiled failed with CUresult %d",
+             err - hopper::ERR_TENSOR_MAP);
+    return buf;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

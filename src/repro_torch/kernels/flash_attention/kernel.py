@@ -1,11 +1,12 @@
 """ctypes wrapper of the hand-written CUDA flash-attention kernel.
 
 The kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
-``repro/kernels/flash_attention/kernel.py::flash_attention``.  This wrapper
-checks what the kernel takes, allocates the output, launches on PyTorch's
-current stream and raises on a launch error.  It never computes anything
-itself: a tensor off the card is an error here (``ops.attention`` routes CPU
-tensors to the plain version).
+``repro/kernels/flash_attention/kernel.py::flash_attention``: bf16 runs on
+the tensor cores (``wgmma``, fed by TMA), float32 on the CUDA cores.  This
+wrapper checks what the kernel takes, allocates the output, launches on
+PyTorch's current stream and raises on a launch error.  It never computes
+anything itself: a tensor off the card is an error here (``ops.attention``
+routes CPU tensors to the plain version).
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ from repro_torch.kernels import build
 
 SUPPORTED_DH = (32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# strides in elements: 16 bytes, as TMA needs for bf16 and float4 loads for f32
+_STRIDE_ALIGN = {torch.float32: 4, torch.bfloat16: 8}
 _MAX_Q_TILES = 65535  # grid.y of the launch, one 64-row q tile each
 
 # one per kernel launch (not per call that raised before launching)
@@ -43,6 +46,9 @@ def _kernel():
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"flash_attention: dtype {q.dtype} not supported (float32, bfloat16)")
+    align = _STRIDE_ALIGN[q.dtype]
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
             raise ValueError(f"flash_attention: {name} is on {t.device}, the kernel needs a CUDA tensor")
@@ -52,15 +58,13 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             raise ValueError(f"flash_attention: {name} is {t.dtype}, q is {q.dtype}")
         if t.dim() != 4:
             raise ValueError(f"flash_attention: {name} must be 4-d, got {tuple(t.shape)}")
-        if t.stride(-1) != 1 or any(s % 4 for s in t.stride()[:3]):
+        if t.stride(-1) != 1 or any(s % align for s in t.stride()[:3]):
             raise ValueError(
-                f"flash_attention: {name} strides {t.stride()} must be multiples of 4 "
-                "elements with a contiguous last axis"
+                f"flash_attention: {name} strides {t.stride()} must be multiples of {align} "
+                "elements (16 bytes) with a contiguous last axis"
             )
         if t.data_ptr() % 16:
             raise ValueError(f"flash_attention: {name} is not 16-byte aligned")
-    if q.dtype not in _DTYPES:
-        raise ValueError(f"flash_attention: dtype {q.dtype} not supported (float32, bfloat16)")
     B, H, Sq, dh = q.shape
     if dh not in SUPPORTED_DH:
         raise ValueError(f"flash_attention: head dim {dh} not in {SUPPORTED_DH}")

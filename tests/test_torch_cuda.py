@@ -46,13 +46,29 @@ def cuda_device():
     (1, 2, 2, 128, 64, torch.float32, {"window": 32, "softcap": 10.0}),
     (2, 4, 2, 200, 32, torch.float32, {}),
     (1, 4, 2, 130, 256, torch.bfloat16, {"window": 40}),
+    # the wgmma kernel (bf16): every head dim, ragged lengths, a binding
+    # window at dh=256, softcap, q_offset with Sq < Sk (S = (Sq, Sk)), one KV
+    # head under 16 query heads, no causal mask
+    (2, 4, 2, 200, 32, torch.bfloat16, {}),
+    (2, 4, 2, 333, 64, torch.bfloat16, {}),
+    (2, 8, 2, 200, 128, torch.bfloat16, {}),
+    (1, 4, 2, 333, 256, torch.bfloat16, {"window": 64}),
+    (1, 2, 2, 128, 64, torch.bfloat16, {"softcap": 20.0}),
+    (1, 2, 2, 200, 256, torch.bfloat16, {"window": 32, "softcap": 10.0}),
+    (2, 4, 1, (37, 301), 64, torch.bfloat16, {"q_offset": 264}),
+    (1, 16, 1, (100, 612), 256, torch.bfloat16, {"q_offset": 512, "window": 256}),
+    (2, 16, 1, 256, 64, torch.bfloat16, {}),
+    (2, 2, 2, 192, 128, torch.bfloat16, {"causal": False}),
 ])
 def test_kernel_matches_plain_version(cuda_device, B, H, G, S, dh, dtype, kw):
     """f32 at 1e-4: the kernel sums in another order than the plain version;
-    bf16 at 1e-2, above the rounding of bf16 outputs."""
+    bf16 at 1e-2, above the rounding of bf16 outputs and of the kernel's bf16
+    P (test_torch_flash_attention.py holds that rounding to the Pallas kernel
+    on the CPU)."""
+    Sq, Sk = S if isinstance(S, tuple) else (S, S)
     rng = np.random.default_rng(0)
     q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(cuda_device, dtype)
-               for s in ((B, S, H, dh), (B, S, G, dh), (B, S, G, dh)))
+               for s in ((B, Sq, H, dh), (B, Sk, G, dh), (B, Sk, G, dh)))
     before = kernel.launches
     out = ops.attention(q, k, v, **kw)
     assert kernel.launches == before + 1
@@ -65,6 +81,34 @@ def test_kernel_rejects_unsupported_head_dim(cuda_device):
     q = torch.zeros(1, 2, 8, 48, device=cuda_device)
     with pytest.raises(ValueError, match="head dim 48"):
         kernel.flash_attention(q, q, q)
+
+
+def test_kernel_bf16_strided_view_matches_plain_version(cuda_device):
+    """q, k, v cut from wider rows (strides of 2 dh, multiples of 8): TMA
+    reads the views in place; o comes back dense."""
+    rng = np.random.default_rng(1)
+    B, S, H, G, dh = 2, 160, 4, 2, 64
+
+    def view(heads):
+        wide = torch.from_numpy(rng.standard_normal((B, S, heads, 2 * dh), dtype=np.float32))
+        return wide.to(cuda_device, torch.bfloat16)[..., :dh]
+
+    q, k, v = view(H), view(G), view(G)
+    out = ops.attention(q, k, v, window=48)
+    want = attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), window=48)
+    torch.testing.assert_close(out.transpose(1, 2).float(), want.float(), atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("dtype,step", [(torch.bfloat16, 4), (torch.float32, 2)])
+def test_kernel_rejects_strides_off_16_bytes(cuda_device, dtype, step):
+    """TMA (bf16) needs strides of 16 bytes, 8 elements; the f32 kernel's
+    float4 loads 16 bytes too, 4 elements."""
+    wide = torch.zeros(1, 64, 2, 64 + step, device=cuda_device, dtype=dtype)
+    q = wide[..., :64].transpose(1, 2)  # sequence stride 2 (64 + step) elements
+    before = kernel.launches
+    with pytest.raises(ValueError, match="multiples of"):
+        kernel.flash_attention(q, q, q)
+    assert kernel.launches == before
 
 
 def _wkv_inputs(device, B, S, H, K, dtype, log_w_scale=1.0, seed=0):

@@ -16,7 +16,7 @@ from repro.kernels.flash_attention.kernel import flash_attention as pallas_flash
 from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import kernel, ops
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_ref
 
 torch.set_num_threads(1)
 
@@ -79,6 +79,53 @@ def test_flash_attention_ragged_vs_jax_ref():
     block, which is why the JAX package routes it to its plain version)."""
     (jq, jk, jv), tx = _inputs(2, 4, 2, 200, 200, 64, "float32", seed=1)
     _check_port(tx, np.asarray(jax_attention_ref(jq, jk, jv)), "float32")
+
+
+def _attention_p_bf16(q, k, v, *, causal=True, window=0, softcap=0.0):
+    """attention_ref with the CUDA bf16 kernel's one extra rounding: the
+    unnormalised probabilities enter the PV product in bf16, while the
+    softmax denominator sums them in f32.  A model of that rounding only (one
+    row max, not the kernel's tiles); nothing on the main path uses it."""
+    B, H, S, dh = q.shape
+    G = k.shape[1]
+    qg = q.reshape(B, G, H // G, S, dh).float()
+    s = torch.einsum("bgrsd,bgtd->bgrst", qg, k.float()) * dh**-0.5
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    pos = torch.arange(S)
+    ok = torch.ones((S, S), dtype=torch.bool)
+    if causal:
+        ok &= pos[None, :] <= pos[:, None]
+    if window:
+        ok &= pos[None, :] > pos[:, None] - window
+    s = s.masked_fill(~ok, NEG_INF)
+    m = torch.clamp(s.amax(-1, keepdim=True), min=-1e30)
+    p = torch.exp(s - m)
+    pv = torch.einsum("bgrst,bgtd->bgrsd", p.to(torch.bfloat16).float(), v.float())
+    out = pv / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
+    return out.reshape(B, H, S, dh).to(q.dtype)
+
+
+@pytest.mark.parametrize("B,H,G,S,dh,kw", [
+    (1, 2, 2, 128, 64, {}),
+    (1, 2, 2, 128, 64, {"window": 32}),
+    (1, 2, 2, 128, 64, {"softcap": 20.0}),
+    (1, 2, 2, 128, 64, {"causal": False}),
+    (1, 4, 1, 128, 256, {}),
+    (1, 4, 1, 128, 256, {"window": 48}),
+    (1, 4, 1, 128, 256, {"window": 48, "softcap": 10.0}),
+])
+def test_bf16_p_rounding_within_card_tolerance(B, H, G, S, dh, kw):
+    """The CUDA bf16 kernel rounds P to bf16 before P V, where the Pallas
+    kernel keeps it in f32.  Held against the Pallas kernel in interpret mode
+    at the 1e-2 that the card holds the kernel to (against attention_ref),
+    this shows that the tolerance covers that rounding."""
+    (jq, jk, jv), (q, k, v) = _inputs(B, H, G, S, S, dh, "bfloat16", seed=2)
+    want = np.asarray(pallas_flash(jq, jk, jv, block_q=64, block_k=64, interpret=True, **kw),
+                      np.float32)
+    got = _attention_p_bf16(q, k, v, **kw)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, atol=1e-2, rtol=1e-2)
 
 
 def test_ops_routes_cpu_tensors_to_plain_version():
