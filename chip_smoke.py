@@ -27,7 +27,8 @@ Phases, each printing its own lines, any failure ending the run non-zero:
                share, device operations and the largest kernels per phase.
   7. timing  — each kernel at its serving path's shape, beside its plain
                version, one PyTorch library call where there is one, and the
-               card's bound; flash also on its f32 route at llama's shape.
+               card's bound; flash also on its f32 route at llama's shape;
+               WKV6's two CUDA kernels each under torch.profiler (in phase 3).
 The second-to-last line is the card as nvidia-smi names it, the last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of ``repro``.
 """
@@ -65,11 +66,15 @@ ARCHS = ("llama3.2-1b", "rwkv6-1.6b", "recurrentgemma-9b")
 # each layer kind's prefill kernel (row name); decode launches none
 KIND_KERNEL = {"attn": "flash_attention", "local": "flash_attention",
                "rwkv": "wkv6", "rglru": "rglru_scan"}
-# each kernel's name in the profiler: the CUDA kernel that runs once a launch
-PROFILER_NAME = {"flash_attention": "flash_fwd", "wkv6": "wkv6_kernel",
-                 "rglru_scan": "rglru_scan_kernel"}
+# each kernel's names in the profiler: the CUDA kernels that each run once a
+# launch (WKV6's entry point launches two)
+PROFILER_NAME = {"flash_attention": ("flash_fwd",),
+                 "wkv6": ("wkv6_intra_kernel", "wkv6_state_kernel"),
+                 "rglru_scan": ("rglru_scan_kernel",)}
 # warm serve runs of the breakdown phase
 WARM_RUNS = {"llama3.2-1b": 5, "rwkv6-1.6b": 3, "recurrentgemma-9b": 2}
+# profiler sessions allowed for one profile: torch.profiler may drop events
+PROFILE_TRIES = 3
 # the ring run: one sequence whose prompt overruns recurrentgemma's window
 RING_ARCH, P_RING, N_RING = "recurrentgemma-9b", 2560, 16
 
@@ -94,6 +99,8 @@ WKV_CASES = [
     ("model_decay_clipped", 2, 256, 4, 64, 32, torch.float32, "model_clipped"),
     ("main_path", 4, 512, 32, 64, 32, torch.bfloat16, "exp_normal"),
     ("main_path_f32", 4, 512, 32, 64, 32, torch.float32, "model_clipped"),
+    ("s_below_chunk", 1, 20, 2, 64, 32, torch.float32, "exp_normal"),
+    ("last_chunk_one_row", 2, 97, 3, 32, 32, torch.bfloat16, "exp_normal"),
 ]
 
 FA_CASES = [
@@ -379,10 +386,12 @@ def phase_kernel_cases() -> dict:
     return errs
 
 
-def phase_wkv_cases() -> float:
+def phase_wkv_cases() -> tuple:
     """WKV6 kernel against wkv6_ref (the token-by-token recurrence) on the
-    same CUDA tensors, y and the final state; returns y's max abs error at
-    the serving path's shape."""
+    same CUDA tensors, y and the final state.  Returns y's max abs error at
+    the serving path's shape and the device ms of each of the entry point's
+    two CUDA kernels at that shape (torch.profiler, here: before the serve
+    phases run their own large profiles)."""
     from repro_torch.kernels.rwkv6 import kernel, ops
     from repro_torch.kernels.rwkv6.ref import wkv6_ref
     from repro_torch.models.rwkv import wkv_chunked
@@ -422,7 +431,17 @@ def phase_wkv_cases() -> float:
             y2, state2 = ops.wkv(r, k, v, log_w, u, chunk=chunk)  # the model's entry point
             if not (torch.equal(y2, y) and torch.equal(state2, state)):
                 raise AssertionError("ops.wkv differs from the kernel it wraps")
-    return main_err
+    s = WKV_SHAPE
+    r, k, v, log_w, u = wkv_inputs(np.random.default_rng(1), s["B"], s["S"], s["H"], s["K"],
+                                   s["dtype"], "model_clipped")
+    n_launch = kernel.launches
+    parts, recorded = profiled_ms(lambda: kernel.wkv6(r, k, v, log_w, u, chunk=s["chunk"]),
+                                  PROFILER_NAME["wkv6"])
+    kernel.launches = n_launch  # timing launches are not the main path's
+    say("kernels", f"wkv6 main_path shape under torch.profiler: "
+                   f"{', '.join(f'{n} {t:.4f} ms' for n, t in parts.items())} a launch "
+                   f"(launches recorded {recorded} of 20)")
+    return main_err, parts
 
 
 def phase_lru_cases() -> float:
@@ -627,33 +646,48 @@ def phase_breakdown(gpu: str, arch: str) -> None:
     stream, so they do not overlap) from one run under torch.profiler, each
     operation assigned to the serve span (``prefill``, ``decode``) its start
     falls in.  Both spans end in a synchronise, so every operation of a
-    phase starts inside its span."""
+    phase starts inside its span.  The profile must show exactly the path's
+    kernel launches.  torch.profiler has been seen to drop a session's last
+    device events (a profile missing one flash launch of 16); such a session
+    is run again, up to PROFILE_TRIES sessions in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
 
     N = N_SERVE
-    want = {PROFILER_NAME[name]: n for name, n in prefill_launches(get_config(arch)).items()}
+    want = {pname: n for name, n in prefill_launches(get_config(arch)).items()
+            for pname in PROFILER_NAME[name]}
     walls = [serve_once(arch, quiet=True)[1:] for _ in range(WARM_RUNS[arch])]
     for r, (t_pre, t_dec) in enumerate(walls, 1):
         say("breakdown", f"{arch} run {r}: prefill {t_pre * 1e3:.3f} ms, "
                          f"decode {t_dec / N * 1e3:.3f} ms/step")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        serve_once(arch, quiet=True)
-    events = prof.events()
-    spans = {e.name: e.time_range for e in events
-             if e.device_type == DeviceType.CPU and e.name in ("prefill", "decode")}
-    device_ops = [e for e in events if e.device_type == DeviceType.CUDA
-                  and e.name not in ("prefill", "decode", "decode.step")]
+    for attempt in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            serve_once(arch, quiet=True)
+        events = prof.events()
+        spans = {e.name: e.time_range for e in events
+                 if e.device_type == DeviceType.CPU and e.name in ("prefill", "decode")}
+        device_ops = [e for e in events if e.device_type == DeviceType.CUDA
+                      and e.name not in ("prefill", "decode", "decode.step")]
+        phases = {}
+        for phase in ("prefill", "decode"):
+            span = spans.get(phase)  # a span dropped too leaves no operations
+            ops = [e for e in device_ops
+                   if span and span.start <= e.time_range.start < span.end]
+            phases[phase] = (ops, {kname: sum(kname in e.name for e in ops) for kname in want})
+        bad = {phase: (len(ops), n_kernel) for phase, (ops, n_kernel) in phases.items()
+               if not ops or n_kernel != (want if phase == "prefill" else dict.fromkeys(want, 0))}
+        if not bad:
+            break
+        say("breakdown", f"{arch} profile session {attempt}: device operations and kernels "
+                         f"recorded {bad}, expected kernels {want} in prefill")
+    else:
+        raise AssertionError(f"{arch} profile: {PROFILE_TRIES} sessions, the last recorded {bad}")
     for i, (phase, per) in enumerate((("prefill", 1), ("decode", N))):
         span = spans[phase]
-        ops = [e for e in device_ops if span.start <= e.time_range.start < span.end]
+        ops, n_kernel = phases[phase]
         busy_us = sum(e.time_range.elapsed_us() for e in ops)
-        n_kernel = {kname: sum(kname in e.name for e in ops) for kname in want}
-        if not ops or n_kernel != (want if phase == "prefill" else dict.fromkeys(want, 0)):
-            raise AssertionError(f"{arch} profile of {phase}: {len(ops)} device operations, "
-                                 f"kernels {n_kernel}")
         wall_us = sorted(w[i] * 1e6 / per for w in walls)
         idle = [1 - busy_us / per / w for w in wall_us]
         unit = "step" if per > 1 else "call"
@@ -769,7 +803,35 @@ def wkv6_work(B, S, H, K, chunk, el) -> tuple:
     return nbytes, flops * B * H, exps * B * H
 
 
-def phase_wkv_timing(gpu: str, launches: dict, main_err: float) -> dict:
+def profiled_ms(fn, names, calls: int = 20, tries: int = PROFILE_TRIES) -> tuple:
+    """Device ms per launch of each CUDA kernel whose name contains one of
+    ``names``, from torch.profiler over ``calls`` calls after a warm-up,
+    and how many launches of each the profiler recorded.  The profiler has
+    been seen to drop some of a session's device events late in a process
+    that ran large profiles before: the mean is over the launches recorded,
+    and a session that recorded fewer than half of any kernel's is run again,
+    up to ``tries`` sessions in all."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        evs = {name: [e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA and name in e.name] for name in names}
+        counts = {name: len(e) for name, e in evs.items()}
+        if all(calls // 2 <= n <= calls for n in counts.values()):
+            return ({name: sum(x.time_range.elapsed_us() for x in e) / len(e) / 1e3
+                     for name, e in evs.items()}, counts)
+    raise AssertionError(f"profile: launches {counts} in {calls} calls, {tries} sessions")
+
+
+def phase_wkv_timing(gpu: str, launches: dict, main_err: float, parts: dict) -> dict:
     from repro_torch.kernels.rwkv6 import kernel
     from repro_torch.kernels.rwkv6.ref import wkv6_ref
 
@@ -797,9 +859,12 @@ def phase_wkv_timing(gpu: str, launches: dict, main_err: float) -> dict:
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None,
+        "parts_ms": parts,
     }
     say("timing", f"wkv6 B={B} S={S} H={H} K={K} chunk={chunk} bf16 r/k/v, f32 log_w: "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                  f"kernel {ms:.4f} ms (under the profiler, phase 3: "
+                  f"{', '.join(f'{n} {t:.4f} ms' for n, t in parts.items())}), "
+                  f"plain {plain_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
                   f"({row['bound_by']}: {nbytes / 1e6:.2f} MB = {t_bytes:.4f} ms, "
                   f"{flops / 1e9:.3f} GFLOP f32 = {t_ops:.4f} ms; {exps / 1e6:.1f} M exponentials "
                   f"besides) | {gpu}")
@@ -860,7 +925,7 @@ def main() -> int:
     gpu = phase_device()
     phase_build()
     fa_errs = phase_kernel_cases()
-    wkv_err = phase_wkv_cases()
+    wkv_err, wkv_parts = phase_wkv_cases()
     lru_err = phase_lru_cases()
     for arch in ARCHS:
         phase_parity(arch)
@@ -868,7 +933,8 @@ def main() -> int:
     phase_ring(gpu)
     for arch in ARCHS:
         phase_breakdown(gpu, arch)
-    rows = [phase_timing(gpu, launches, fa_errs), phase_wkv_timing(gpu, launches, wkv_err),
+    rows = [phase_timing(gpu, launches, fa_errs),
+            phase_wkv_timing(gpu, launches, wkv_err, wkv_parts),
             phase_lru_timing(gpu, launches, lru_err)]
     print(json.dumps({"kernels": rows}))
     print(gpu_line())

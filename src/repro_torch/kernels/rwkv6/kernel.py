@@ -1,11 +1,13 @@
 """ctypes wrapper of the hand-written CUDA WKV6 kernel.
 
 The kernel (``csrc/wkv6.cu``) replaces the Pallas TPU kernel
-``repro/kernels/rwkv6/kernel.py::wkv6``.  This wrapper checks what the kernel
-takes, allocates y and the final state, launches on PyTorch's current stream
-and raises on a launch error.  It never computes anything itself: a tensor
-off the card is an error here (``ops.wkv`` routes CPU tensors to the plain
-version).
+``repro/kernels/rwkv6/kernel.py::wkv6``.  Its entry point launches two CUDA
+kernels, a chunk-parallel pass and the state chain, with f32 scratch in
+device memory between them.  This wrapper checks what the kernel takes,
+allocates y, the final state and the scratch, launches on PyTorch's current
+stream and raises on a launch error.  It never computes anything itself: a
+tensor off the card is an error here (``ops.wkv`` routes CPU tensors to the
+plain version).
 """
 from __future__ import annotations
 
@@ -20,7 +22,8 @@ SUPPORTED_K = (32, 64)
 SUPPORTED_CHUNK = (16, 32)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# one per kernel launch (not per call that raised before launching)
+# one per call that launched the kernels (not per call that raised before
+# launching)
 launches = 0
 
 _fn = None
@@ -31,7 +34,7 @@ def _kernel():
     if _fn is None:
         lib = build.load("rwkv6")
         fn = lib.wkv6_fwd
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
             ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
@@ -97,6 +100,14 @@ def wkv6(
     B, S, H, K = r.shape
     y = torch.empty((B, S, H, K), dtype=r.dtype, device=r.device)
     state = torch.empty((B, H, K, K), dtype=torch.float32, device=r.device)
+    # scratch between the two kernels: att, r exp(cum_ex), k exp(cum_L - cum)
+    # and exp(cum_L) of every chunk
+    nc = -(-S // chunk)
+    f32 = dict(dtype=torch.float32, device=r.device)
+    att = torch.empty((B, H, nc, chunk, chunk), **f32)
+    rd = torch.empty((B, H, nc * chunk, K), **f32)
+    kd = torch.empty((B, H, nc * chunk, K), **f32)
+    dec = torch.empty((B, H, nc, K), **f32)
     strides = (ctypes.c_longlong * 15)(
         *(s for t in (r, k, v, log_w, y) for s in (t.stride(0), t.stride(1), t.stride(2)))
     )
@@ -105,7 +116,8 @@ def wkv6(
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = fn(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(), u.data_ptr(),
-            y.data_ptr(), state.data_ptr(), _DTYPES[r.dtype], B, S, H, K, int(chunk),
+            y.data_ptr(), state.data_ptr(), att.data_ptr(), rd.data_ptr(), kd.data_ptr(),
+            dec.data_ptr(), _DTYPES[r.dtype], B, S, H, K, int(chunk),
             strides, stream,
         )
     if err:

@@ -130,6 +130,8 @@ def _wkv_inputs(device, B, S, H, K, dtype, log_w_scale=1.0, seed=0):
     (2, 70, 2, 64, 32, torch.float32, 1.0),  # ragged: a partial last chunk
     (2, 256, 4, 64, 32, torch.float32, 4.0),  # steps down to the clip, -e^8
     (2, 200, 4, 64, 32, torch.bfloat16, 1.0),
+    (1, 20, 2, 64, 32, torch.float32, 1.0),  # S below one chunk
+    (2, 97, 3, 32, 32, torch.bfloat16, 1.0),  # a last chunk of one row
 ])
 def test_wkv6_kernel_matches_plain_version(cuda_device, B, S, H, K, chunk, dtype, log_w_scale):
     """f32 at 2e-4, the JAX package's tolerance for its kernel against the
@@ -143,6 +145,21 @@ def test_wkv6_kernel_matches_plain_version(cuda_device, B, S, H, K, chunk, dtype
     tol = 2e-4 if dtype == torch.float32 else 1e-2
     assert y.dtype == dtype and state.dtype == torch.float32
     torch.testing.assert_close(y.float(), y_ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(state, state_ref, atol=2e-4, rtol=2e-4)
+
+
+def test_wkv6_kernel_takes_a_strided_log_w(cuda_device):
+    """log_w as the transposed view of a (B, H, S, K) buffer: one launch (the
+    entry point's two CUDA kernels count as one), and the recurrence's
+    result."""
+    r, k, v, log_w, u = _wkv_inputs(cuda_device, 2, 96, 4, 64, torch.float32, 4.0)
+    log_w = log_w.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not log_w.is_contiguous()
+    before = wkv_kernel.launches
+    y, state = wkv_kernel.wkv6(r, k, v, log_w, u)
+    assert wkv_kernel.launches == before + 1
+    y_ref, state_ref = wkv6_ref(r, k, v, log_w, u)
+    torch.testing.assert_close(y, y_ref, atol=2e-4, rtol=2e-4)
     torch.testing.assert_close(state, state_ref, atol=2e-4, rtol=2e-4)
 
 

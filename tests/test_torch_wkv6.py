@@ -4,10 +4,14 @@ On the CPU the port's ``ops.wkv`` takes the plain version (``ref.wkv6_ref``,
 the token-by-token recurrence); it is held against the Pallas kernel run in
 interpret mode and against JAX's own ``wkv6_ref`` on the JAX package's kernel
 cases plus its strong-decay case, at the JAX package's own tolerance for its
-kernel, 2e-4.  The port's ``wkv_chunked`` (the plain chunked scan of
+kernel, 2e-4.  ``ref.wkv6_split_ref``, the CUDA kernel's two passes
+(chunk-parallel att, rd, kd and dec from compensated cumulative sums, then
+the state chain over slices of V) in plain PyTorch, is held against the same
+references and against the recurrence at a ragged length and at the model's
+clipped decay draw.  The port's ``wkv_chunked`` (the plain chunked scan of
 ``models/rwkv.py``) is held against JAX's at a ragged length.  The CUDA
 kernel runs only on the card (``test_torch_cuda.py``); here the tests check
-that it refuses CPU tensors and that both kernels build in parallel.
+that it refuses CPU tensors and that the kernels build in parallel.
 """
 import stat
 
@@ -21,7 +25,7 @@ from repro.kernels.rwkv6.kernel import wkv6 as pallas_wkv6
 from repro.kernels.rwkv6.ref import wkv6_ref as jax_wkv6_ref
 from repro_torch.kernels import build
 from repro_torch.kernels.rwkv6 import kernel, ops
-from repro_torch.kernels.rwkv6.ref import wkv6_ref
+from repro_torch.kernels.rwkv6.ref import wkv6_ref, wkv6_split_ref
 from repro_torch.models import rwkv as trwkv
 
 torch.set_num_threads(1)
@@ -64,6 +68,44 @@ def test_wkv6_ref_vs_pallas_and_jax_ref(B, S, H, K, chunk):
     for want_y, want_fin in ((py, pfin), (ry, rfin)):
         _close(y, want_y)
         _close(fin, want_fin)
+
+
+@pytest.mark.parametrize("B,S,H,K,chunk", WKV_CASES)
+def test_wkv6_split_ref_vs_pallas_and_jax_ref(B, S, H, K, chunk):
+    jx, tx = _inputs(B, S, H, K)
+    y, fin = wkv6_split_ref(*tx, chunk=chunk)
+    assert y.dtype == torch.float32 and fin.shape == (B, H, K, K)
+    py, pfin = pallas_wkv6(*jx, chunk=chunk, interpret=True)
+    ry, rfin = jax_wkv6_ref(*jx)
+    for want_y, want_fin in ((py, pfin), (ry, rfin)):
+        _close(y, want_y)
+        _close(fin, want_fin)
+
+
+def _clipped_log_w(B, S, H, K, seed):
+    """-exp(clip(-1 + 4 z, -8, 8)), z standard normal: the model's decay with
+    both clips reached (steps of -e^8 = -2981 beside steps of -3.4e-4), as
+    chip_smoke.py draws it."""
+    z = np.random.default_rng(seed).standard_normal((B, S, H, K), dtype=np.float32)
+    return -np.exp(np.clip(-1.0 + 4.0 * z, -8.0, 8.0))
+
+
+@pytest.mark.parametrize("S,chunk,clipped", [(70, 32, False), (256, 32, True)])
+def test_wkv6_split_ref_vs_recurrence(S, chunk, clipped):
+    """A ragged S (70: the last chunk holds 6 rows) and the clipped draw, at
+    B=2 H=4 K=64.  At the clipped draw the plain chunked algebra with f32
+    cumulative sums (``wkv_chunked``, the Pallas body's) misses the
+    tolerance: the compensated sums are what keep the split within it."""
+    B, H, K = 2, 4, 64
+    log_w = _clipped_log_w(B, S, H, K, seed=5) if clipped else None
+    _, tx = _inputs(B, S, H, K, seed=6, log_w=log_w)
+    y, fin = wkv6_split_ref(*tx, chunk=chunk)
+    ry, rfin = wkv6_ref(*tx)
+    _close(y, ry)
+    _close(fin, rfin)
+    if clipped:
+        cy, _ = trwkv.wkv_chunked(*tx, chunk=chunk)
+        assert (cy - ry).abs().max().item() > TOL["atol"]
 
 
 def test_wkv6_ref_strong_decay_stable():
