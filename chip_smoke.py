@@ -3,9 +3,12 @@
 
     python3 chip_smoke.py
 
-Three serving paths and their kernels: llama3.2-1b (flash attention),
-rwkv6-1.6b (the WKV6 scan) and recurrentgemma-9b (flash attention with a
-sliding window on its LOCAL layers, the RG-LRU scan on its RGLRU layers).
+Six serving paths and their kernels: llama3.2-1b, olmo-1b and
+codeqwen1.5-7b (flash attention), rwkv6-1.6b (the WKV6 scan),
+recurrentgemma-9b (flash attention with a sliding window on its LOCAL
+layers, the RG-LRU scan on its RGLRU layers) and gemma2-9b (flash attention
+with softcap 50, and a sliding window on its LOCAL layers).  Every path
+decodes through one captured CUDA graph a step (``DecodeGraph``).
 Phases, each printing its own lines, any failure ending the run non-zero:
   1. device  — fail without CUDA; print the card's name and power limit;
                TF32 off for f32 matmuls and convolutions.
@@ -14,17 +17,19 @@ Phases, each printing its own lines, any failure ending the run non-zero:
                memory, spills and performance notes for each kernel.
   3. kernels — each kernel against its plain PyTorch version on the card
                (flash: bf16 on the wgmma kernel, f32 on the CUDA-core one).
-  4. parity  — each smoke-width model in f32: CPU (plain) against CUDA (kernel).
+  4. parity  — each smoke-width model in f32: CPU (plain) against CUDA (kernel),
+               then the same decode steps captured and replayed against both.
   5. serve   — each full-width model through ``repro_torch.launch.serve``,
                every launch count set to 0 just before and read just after:
                each layer's kernel launched once, no other kernel, no plain
                version on the card.  Then recurrentgemma-9b once more at a
                prompt of 2560, so that its 2048 window binds and every LOCAL
-               layer's cache is a ring.
+               layer's cache is a ring, decoded by replays over the wrapped rings.
   6. breakdown — the same serve calls again: every run's prefill and decode
                wall time, then one run under torch.profiler split by serve's
                own ``prefill`` / ``decode`` spans: device busy time, idle
-               share, device operations and the largest kernels per phase.
+               share, device operations and the largest kernels per phase;
+               for the replayed decode steps, the host's launch calls a step.
   7. timing  — each kernel at its serving path's shape, beside its plain
                version, one PyTorch library call where there is one, and the
                card's bound; flash also on its f32 route at llama's shape;
@@ -34,20 +39,29 @@ The second-to-last line is the card as nvidia-smi names it, the last line
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import io
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
 
-import numpy as np
-import torch
-
 ROOT = Path(__file__).resolve().parent
+# torch.compile (phase 7's library yardstick for softcap attention) builds in
+# the checkout's kernel build directory, in this process, starting no workers
+os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
+                      str(ROOT / "src" / "repro_torch" / "kernels" / "_build" / "inductor"))
+os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
 sys.path.insert(0, str(ROOT / "src"))
 
 # Published peaks (NVIDIA data sheets, SXM parts, dense): HBM bytes/s and
@@ -57,12 +71,12 @@ PEAKS = {"H200": (4.8e12, 989e12), "H100": (3.35e12, 989e12)}
 F32_FLOPS = 67e12
 # about 10 ms of the card's clock: time for the host to enqueue a timing's calls
 HOST_LEAD_CYCLES = 20_000_000
-MAIN_SHAPE = dict(B=4, H=32, G=8, S=512, dh=64, dtype=torch.bfloat16)
 # f32: the kernel sums in another order; bf16: well above the rounding of
 # bf16 outputs (about 4e-3 at these magnitudes), well below the outputs' size
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 B_SERVE, P_SERVE, N_SERVE = 4, 512, 32
-ARCHS = ("llama3.2-1b", "rwkv6-1.6b", "recurrentgemma-9b")
+ARCHS = ("llama3.2-1b", "rwkv6-1.6b", "recurrentgemma-9b", "olmo-1b", "codeqwen1.5-7b",
+         "gemma2-9b")
 # each layer kind's prefill kernel (row name); decode launches none
 KIND_KERNEL = {"attn": "flash_attention", "local": "flash_attention",
                "rwkv": "wkv6", "rglru": "rglru_scan"}
@@ -72,7 +86,11 @@ PROFILER_NAME = {"flash_attention": ("flash_fwd",),
                  "wkv6": ("wkv6_intra_kernel", "wkv6_state_kernel"),
                  "rglru_scan": ("rglru_scan_kernel",)}
 # warm serve runs of the breakdown phase
-WARM_RUNS = {"llama3.2-1b": 5, "rwkv6-1.6b": 3, "recurrentgemma-9b": 2}
+WARM_RUNS = {"llama3.2-1b": 5, "rwkv6-1.6b": 3, "recurrentgemma-9b": 2, "olmo-1b": 2,
+             "codeqwen1.5-7b": 2, "gemma2-9b": 2}
+# the host's calls that launch device work, as torch.profiler names them
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
 # profiler sessions allowed for one profile: torch.profiler may drop events
 PROFILE_TRIES = 3
 # the ring run: one sequence whose prompt overruns recurrentgemma's window
@@ -129,6 +147,16 @@ FA_CASES = [
     ("gemma_window_binds", 1, 16, 1, 700, 700, 256, torch.bfloat16, {"window": 256}),
     ("gemma_window_binds_f32", 2, 4, 1, 300, 300, 256, torch.float32, {"window": 64}),
     ("gemma_ring_prompt", 1, 16, 1, 2560, 2560, 256, torch.bfloat16, {"window": 2048}),
+    # the prefill shapes of olmo-1b and codeqwen1.5-7b (MHA at dh 128) and
+    # gemma2-9b (16 query heads over 8 KV heads of 256, softcap 50 on every
+    # layer, window 4096 on the LOCAL ones)
+    ("olmo_main_path", 4, 16, 16, 512, 512, 128, torch.bfloat16, {}),
+    ("codeqwen_main_path", 4, 32, 32, 512, 512, 128, torch.bfloat16, {}),
+    ("gemma2_attn_main_path", 4, 16, 8, 512, 512, 256, torch.bfloat16, {"softcap": 50.0}),
+    ("gemma2_local_main_path", 4, 16, 8, 512, 512, 256, torch.bfloat16,
+     {"softcap": 50.0, "window": 4096}),
+    ("gemma2_window_binds", 1, 16, 8, 700, 700, 256, torch.bfloat16,
+     {"softcap": 50.0, "window": 256}),
     # the bf16 (wgmma) kernel: each head dim, ragged lengths, binding windows,
     # softcap, q_offset with Sq < Sk, one KV head, no causal mask, and q, k, v
     # cut from wider rows (a non-dense view; o comes back dense)
@@ -148,7 +176,17 @@ FA_CASES = [
      {"causal": False, "window": 40}),
     ("bf16_strided_views", 2, 4, 2, 160, 160, 64, torch.bfloat16, {"window": 48}),
 ]
-GEMMA_FA_SHAPE = dict(B=4, H=16, G=1, S=512, dh=256, dtype=torch.bfloat16, window=2048)
+# each serving path's flash shape in prefill (B=4, S=512, bf16, causal):
+# (arch, its case in FLASH_CASES, H, G, dh, kwargs).  No window binds at 512,
+# so gemma2's LOCAL layers do the work of its ATTN ones: one timing for both
+FA_B, FA_S = 4, 512
+FA_PATHS = [
+    ("llama3.2-1b", "main_path", 32, 8, 64, {}),
+    ("recurrentgemma-9b", "gemma_main_path", 16, 1, 256, {"window": 2048}),
+    ("olmo-1b", "olmo_main_path", 16, 16, 128, {}),
+    ("codeqwen1.5-7b", "codeqwen_main_path", 32, 32, 128, {}),
+    ("gemma2-9b", "gemma2_attn_main_path", 16, 8, 256, {"softcap": 50.0}),
+]
 
 LRU_SHAPE = dict(B=4, S=512, W=4096, dtype=torch.float32)
 # the JAX package's own tolerances for its kernel against the same oracle
@@ -209,6 +247,12 @@ def time_ms(fn, reps: int = 21, iters: int = 10, warmup: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
+
+
+def agrees(out: torch.Tensor, ref: torch.Tensor, tol: float) -> bool:
+    """Attention's gate: ``out`` finite and within ``tol + tol * |ref|`` of ``ref``."""
+    d = (out.float() - ref.float()).abs()
+    return not bool((d > tol + tol * ref.float().abs()).any()) and bool(torch.isfinite(out).all())
 
 
 def model_layout(rng, B, H, G, Sq, Sk, dh, dtype, device="cuda", strided=False):
@@ -370,14 +414,13 @@ def phase_kernel_cases() -> dict:
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         tol = TOL[dtype]
-        bad = (out.float() - ref.float()).abs() > tol + tol * ref.float().abs()
-        ok = not bool(bad.any()) and bool(torch.isfinite(out).all())
+        ok = agrees(out, ref, tol)
         say("kernels", f"{label}: B={B} H={H} G={G} Sq={Sq} Sk={Sk} dh={dh} "
                        f"{str(dtype)[6:]} {kw} max_abs_err={err:.3e} tol={tol:g} "
                        f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"flash_attention disagrees with attention_ref in {label}")
-        if label in ("main_path", "gemma_main_path"):
+        if label.endswith("main_path"):  # a serving path's shape
             errs[label] = err
             # the model-layout entry point the serve path calls
             o2 = ops.attention(q, k, v, **kw)
@@ -488,8 +531,11 @@ def _leaves(tree) -> list:
 def phase_parity(arch: str) -> None:
     """Smoke-width model in f32, one set of weights: prefill + decode on the
     CPU (plain versions) against CUDA (the kernels); logits and caches.  The
-    prompt of 40 is longer than recurrentgemma's smoke window of 32, so the
-    window binds in the flash kernel and each LOCAL layer's cache is a ring."""
+    prompt of 40 is longer than the smoke window of 32, so the window binds
+    in the flash kernel and each LOCAL layer's cache is a ring.  Then the same
+    decode steps once more from a copy of the CUDA prefill's caches, captured
+    and replayed (``DecodeGraph``): logits, greedy tokens and caches against
+    the eager CUDA steps and the CPU's."""
     from repro_torch.configs import smoke_config
     from repro_torch.kernels import use_kernels
     from repro_torch.models import decode as dec
@@ -511,36 +557,56 @@ def phase_parity(arch: str) -> None:
         launched = {name: c[0] - before[name][0] for name, c in read_counts().items()}
         worst = (lg_g.cpu() - lg_c).abs().max().item()
         torch.testing.assert_close(lg_g.cpu(), lg_c, atol=1e-4, rtol=1e-4)
+        steps = dec.DecodeGraph(cfg, params_gpu, tree_map(lambda t: t.clone(), cache_g),
+                                lg_g.argmax(-1)[:, None], P, N)
+        fed, replay_worst = [], {"eager CUDA": 0.0, "CPU": 0.0}
         for i in range(N):
             tok = lg_c.argmax(-1)[:, None]  # both sides decode the CPU's pick
+            fed.append(tok[:, 0])
             lg_c, cache_c = dec.decode_step(cfg, params, cache_c, tok, P + i)
             lg_g, cache_g = dec.decode_step(cfg, params_gpu, cache_g, tok.cuda(), P + i)
+            lg_r = steps.step().cpu()  # the replay decodes its own pick
             worst = max(worst, (lg_g.cpu() - lg_c).abs().max().item())
             torch.testing.assert_close(lg_g.cpu(), lg_c, atol=1e-4, rtol=1e-4)
+            for side, ref in (("eager CUDA", lg_g.cpu()), ("CPU", lg_c)):
+                replay_worst[side] = max(replay_worst[side], (lg_r - ref).abs().max().item())
+                torch.testing.assert_close(lg_r, ref, atol=1e-4, rtol=1e-4)
+        if steps.graph is None or not torch.equal(steps.tokens.cpu(), torch.stack(fed, dim=1)):
+            raise AssertionError(f"{cfg.name}: the replayed decode was not captured or "
+                                 "decoded other tokens than the CPU")
         cache_worst = 0.0
-        for c, g in zip(_leaves(cache_c), _leaves(cache_g)):
+        for c, g, r in zip(_leaves(cache_c), _leaves(cache_g), _leaves(steps.caches)):
             torch.testing.assert_close(g.cpu(), c, atol=1e-4, rtol=1e-4)
-            cache_worst = max(cache_worst, (g.cpu().double() - c.double()).abs().max().item())
+            torch.testing.assert_close(r, g, atol=1e-4, rtol=1e-4)
+            cache_worst = max(cache_worst, (g.cpu().double() - c.double()).abs().max().item(),
+                              (r.double() - g.double()).abs().max().item())
     finally:
         use_kernels(False)
     if launched != want:
         raise AssertionError(f"CUDA prefill launched {launched}, expected {want}")
     say("parity", f"{cfg.name} f32 B={B} prompt={P}: prefill + {N} decode steps, "
-                  f"CUDA vs CPU logits max abs diff {worst:.3e}, caches {cache_worst:.3e} "
-                  f"(tol 1e-4), launches in the CUDA prefill {launched}")
+                  f"CUDA vs CPU logits max abs diff {worst:.3e}; decode captured and "
+                  f"replayed ({N - 1} replays) vs eager CUDA {replay_worst['eager CUDA']:.3e}, "
+                  f"vs CPU {replay_worst['CPU']:.3e}; caches {cache_worst:.3e} (tol 1e-4), "
+                  f"launches in the CUDA prefill {launched}")
 
 
 def serve_once(arch: str, quiet: bool) -> tuple:
     """One ``serve.main`` of ``arch`` at full width: (generations, prefill and
-    decode wall seconds from serve's own metrics)."""
+    decode wall seconds, and the seconds of decode's first step, its eager
+    warm-up and the capture, from serve's own metrics).  Fails unless serve
+    captured its decode step."""
     from repro_torch.launch import serve
     from repro_torch.obs import metrics
 
-    hist = [metrics.registry().histogram(f"serve.{k}.seconds") for k in ("prefill", "decode")]
-    before = [h.total for h in hist]
+    hist = [metrics.registry().histogram(f"serve.{k}.seconds")
+            for k in ("prefill", "decode", "decode.first_step")]
+    before = [(h.count, h.total) for h in hist]
     with contextlib.redirect_stdout(io.StringIO()) if quiet else contextlib.nullcontext():
         gen = serve.main(serve_argv(arch))
-    return (gen, *(h.total - b for h, b in zip(hist, before)))
+    if hist[2].count != before[2][0] + 1:
+        raise AssertionError(f"{arch} serve: decode was not captured as a CUDA graph")
+    return (gen, *(h.total - b for h, (_, b) in zip(hist, before)))
 
 
 def check_counts(what: str, counts: dict, want: dict) -> None:
@@ -566,7 +632,7 @@ def phase_serve(gpu: str, arch: str) -> dict:
     want = prefill_launches(cfg)
     zero_counts()
     torch.cuda.reset_peak_memory_stats()
-    gen, t_pre, t_dec = serve_once(arch, quiet=False)
+    gen, t_pre, t_dec, t_first = serve_once(arch, quiet=False)
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     if gen.shape != (B_SERVE, N_SERVE) or gen.min() < 0 or gen.max() >= cfg.vocab_size:
@@ -576,7 +642,10 @@ def phase_serve(gpu: str, arch: str) -> dict:
     say("serve", f"{cfg.name} bf16 B={B} prompt={P} new={N}, first full-width run of it in "
                  f"this process: prefill {B * P / t_pre:.1f} tok/s "
                  f"({t_pre * 1e3:.2f} ms), decode {B * N / t_dec:.2f} tok/s "
-                 f"({t_dec / N * 1e3:.3f} ms/step), peak memory {peak / 2**30:.3f} GiB, "
+                 f"({t_dec / N * 1e3:.3f} ms/step; step 0 with the capture "
+                 f"{t_first * 1e3:.2f} ms, the {N - 1} replays "
+                 f"{(t_dec - t_first) / (N - 1) * 1e3:.3f} ms/step), "
+                 f"peak memory {peak / 2**30:.3f} GiB, "
                  f"launches {({n: c[0] for n, c in counts.items()})}, plain calls on the card "
                  f"{({n: c[1] for n, c in counts.items()})} | {gpu}")
     return {name: counts[name][0] for name, n in want.items() if n}
@@ -586,8 +655,9 @@ def phase_ring(gpu: str) -> None:
     """recurrentgemma-9b at full width, one sequence whose prompt of 2560
     overruns the 2048 window: prefill and greedy decode through the entry
     points serve calls (``models.decode``), with the caches in hand.  The
-    same launches as the serve run, finite logits, and after decode every
-    LOCAL layer's ring holds exactly the last 2048 positions."""
+    same launches as the serve run, finite logits, and after decode, which
+    replays the captured step over the wrapped rings, every LOCAL layer's
+    ring holds exactly the last 2048 positions."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import use_kernels
     from repro_torch.models import decode as dec
@@ -608,10 +678,9 @@ def phase_ring(gpu: str) -> None:
         t_pre = time.perf_counter() - t0
         counts = read_counts()
         t0 = time.perf_counter()
-        for i in range(N_RING):
-            tok = logits.argmax(-1)[:, None]
-            logits, caches = dec.decode_step(cfg, params, caches, tok, P_RING + i)
-            finite = finite and bool(torch.isfinite(logits).all())
+        steps = dec.DecodeGraph(cfg, params, caches, logits.argmax(-1)[:, None], P_RING, N_RING)
+        step_finite = [torch.isfinite(steps.step()).all() for _ in range(N_RING)]
+        finite = finite and bool(torch.stack(step_finite).all())
         t_dec = time.perf_counter() - t0
     finally:
         use_kernels(False)
@@ -620,6 +689,8 @@ def phase_ring(gpu: str) -> None:
         raise AssertionError(f"ring run decode launched a kernel: {read_counts()}")
     if not finite:
         raise AssertionError("ring run: non-finite logits")
+    if steps.graph is None:
+        raise AssertionError("ring run: decode was not captured")
     last = list(range(P_RING + N_RING - cfg.window, P_RING + N_RING))
     n_local = 0
     for group, gc in zip(cfg.groups, caches):
@@ -635,9 +706,15 @@ def phase_ring(gpu: str) -> None:
         raise AssertionError(f"ring run: {n_local} LOCAL caches checked")
     say("serve", f"{cfg.name} bf16 B=1 prompt={P_RING} new={N_RING} (window {cfg.window} "
                  f"binds): prefill {t_pre * 1e3:.2f} ms, decode {t_dec / N_RING * 1e3:.3f} "
-                 f"ms/step, launches {({n: c[0] for n, c in counts.items()})}, plain calls on "
-                 f"the card {({n: c[1] for n, c in counts.items()})}, logits finite, each of "
+                 f"ms/step (step 0 eager, then {N_RING - 1} replays), launches "
+                 f"{({n: c[0] for n, c in counts.items()})}, plain calls on the card "
+                 f"{({n: c[1] for n, c in counts.items()})}, logits finite, each of "
                  f"the {n_local} LOCAL rings holds positions {last[0]} .. {last[-1]} | {gpu}")
+
+
+def _launch_call(name: str) -> str:
+    """A host launch call's name without a versioned API suffix (``_v7000``)."""
+    return re.sub(r"_v\d+$", "", name)
 
 
 def phase_breakdown(gpu: str, arch: str) -> None:
@@ -649,7 +726,17 @@ def phase_breakdown(gpu: str, arch: str) -> None:
     phase starts inside its span.  The profile must show exactly the path's
     kernel launches.  torch.profiler has been seen to drop a session's last
     device events (a profile missing one flash launch of 16); such a session
-    is run again, up to PROFILE_TRIES sessions in all."""
+    is run again, up to PROFILE_TRIES sessions in all.
+
+    Decode's span holds step 0 (run eagerly as the capture's warm-up, then
+    captured; the capture synchronises first, so step 0's operations all
+    start inside its own ``decode.step`` span) and N - 1 replays, which are
+    also read apart: the device operations that start after step 0's span,
+    their wall from serve's metrics (decode less its first step), and the
+    host's launch calls inside each later step's span, which must be one
+    ``cudaGraphLaunch`` and nothing else.  Their device busy share is read
+    in the profiled run alone: the replays' device operations over the
+    window from the first one's start to the last one's end."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -659,15 +746,20 @@ def phase_breakdown(gpu: str, arch: str) -> None:
     want = {pname: n for name, n in prefill_launches(get_config(arch)).items()
             for pname in PROFILER_NAME[name]}
     walls = [serve_once(arch, quiet=True)[1:] for _ in range(WARM_RUNS[arch])]
-    for r, (t_pre, t_dec) in enumerate(walls, 1):
+    for r, (t_pre, t_dec, t_first) in enumerate(walls, 1):
         say("breakdown", f"{arch} run {r}: prefill {t_pre * 1e3:.3f} ms, "
-                         f"decode {t_dec / N * 1e3:.3f} ms/step")
+                         f"decode {t_dec / N * 1e3:.3f} ms/step (step 0 with the capture "
+                         f"{t_first * 1e3:.3f} ms, replays "
+                         f"{(t_dec - t_first) / (N - 1) * 1e3:.3f} ms/step)")
     for attempt in range(1, PROFILE_TRIES + 1):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             serve_once(arch, quiet=True)
         events = prof.events()
         spans = {e.name: e.time_range for e in events
                  if e.device_type == DeviceType.CPU and e.name in ("prefill", "decode")}
+        steps = sorted((e.time_range for e in events
+                        if e.device_type == DeviceType.CPU and e.name == "decode.step"),
+                       key=lambda t: t.start)
         device_ops = [e for e in events if e.device_type == DeviceType.CUDA
                       and e.name not in ("prefill", "decode", "decode.step")]
         phases = {}
@@ -678,12 +770,19 @@ def phase_breakdown(gpu: str, arch: str) -> None:
             phases[phase] = (ops, {kname: sum(kname in e.name for e in ops) for kname in want})
         bad = {phase: (len(ops), n_kernel) for phase, (ops, n_kernel) in phases.items()
                if not ops or n_kernel != (want if phase == "prefill" else dict.fromkeys(want, 0))}
+        if len(steps) != N:
+            bad["decode.step spans"] = len(steps)
         if not bad:
             break
         say("breakdown", f"{arch} profile session {attempt}: device operations and kernels "
                          f"recorded {bad}, expected kernels {want} in prefill")
     else:
         raise AssertionError(f"{arch} profile: {PROFILE_TRIES} sessions, the last recorded {bad}")
+    replay_ops = [e for e in phases["decode"][0]
+                  if steps[0].end <= e.time_range.start < spans["decode"].end]
+    if not replay_ops:
+        raise AssertionError(f"{arch}: the profile shows no device operation of the "
+                             f"{N - 1} replayed decode steps")
     for i, (phase, per) in enumerate((("prefill", 1), ("decode", N))):
         span = spans[phase]
         ops, n_kernel = phases[phase]
@@ -698,19 +797,54 @@ def phase_breakdown(gpu: str, arch: str) -> None:
                          f"idle share {idle[0]:.3f} .. {idle[-1]:.3f}, "
                          f"{len(ops) / per:.0f} device operations, kernels {n_kernel}"
                          f" | {gpu}")
-        by_name = {}
-        for e in ops:
-            t, c = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
-        for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
-            say("breakdown", f"  {arch} {phase}: {t / per:9.1f} us {100 * t / busy_us:5.1f}% "
-                             f"x{c / per:<6g} {name[:90]}")
+        label = phase
+        if phase == "decode":  # the largest kernels of the replays
+            ops, per, label = replay_ops, N - 1, "decode replay"
+            busy_us = sum(e.time_range.elapsed_us() for e in ops)
+        top_kernels(arch, label, ops, per, busy_us)
         for kname, n in n_kernel.items():  # the path's own kernels, in the top eight or not
             if n:
                 t = sum(e.time_range.elapsed_us() for e in ops if kname in e.name)
                 say("breakdown", f"  {arch} {phase}: {kname} {t / per:.1f} us "
                                  f"({100 * t / busy_us:.1f}%), {n} launches, "
                                  f"{t / n:.1f} us each")
+
+    # the replayed steps
+    calls = [e for e in events if e.device_type == DeviceType.CPU
+             and _launch_call(e.name) in LAUNCH_CALLS]
+    per_step = [collections.Counter(_launch_call(e.name) for e in calls
+                                    if span.start <= e.time_range.start < span.end)
+                for span in steps[1:]]
+    if any(c != {"cudaGraphLaunch": 1} for c in per_step):
+        raise AssertionError(f"{arch}: replayed decode steps made the launch calls {per_step}; "
+                             "expected one cudaGraphLaunch a step")
+    step0 = collections.Counter(_launch_call(e.name) for e in calls
+                                if steps[0].start <= e.time_range.start < steps[0].end)
+    wall_us = sorted((t_dec - t_first) * 1e6 / (N - 1) for _, t_dec, t_first in walls)
+    busy_us = sum(e.time_range.elapsed_us() for e in replay_ops)
+    window_us = (max(e.time_range.end for e in replay_ops)
+                 - min(e.time_range.start for e in replay_ops))
+    med = statistics.median(wall_us)
+    say("breakdown", f"{arch} captured decode, per replayed step: wall without profiler "
+                     f"{wall_us[0]:.1f} .. {med:.1f} .. {wall_us[-1]:.1f} us "
+                     f"(min .. median .. max of {len(walls)}); under the profiler the replays' "
+                     f"device window {window_us / (N - 1):.1f} us, device busy "
+                     f"{busy_us / (N - 1):.1f} us, idle share {1 - busy_us / window_us:.4f}, "
+                     f"{len(replay_ops) / (N - 1):.1f} device operations; host launch calls "
+                     f"{dict(per_step[0])} in each of the {N - 1} replayed steps (step 0, eager "
+                     f"and captured: {sum(step0.values())} launch calls) | {gpu}")
+
+
+def top_kernels(arch: str, phase: str, ops: list, per: int, busy_us: float) -> None:
+    """The eight device operations of ``ops`` that took the most time, per
+    step (``per`` steps) and as a share of ``busy_us``."""
+    by_name = {}
+    for e in ops:
+        t, c = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
+    for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        say("breakdown", f"  {arch} {phase}: {t / per:9.1f} us {100 * t / busy_us:5.1f}% "
+                         f"x{c / per:<6g} {name[:90]}")
 
 
 def launches_of(launches: dict, name: str) -> int:
@@ -719,20 +853,61 @@ def launches_of(launches: dict, name: str) -> int:
     return sum(per_arch.get(name, 0) for per_arch in launches.values())
 
 
-def flash_timing(gpu: str, B, H, G, S, dh, dtype, window=0) -> dict:
-    """The flash kernel, its plain version and SDPA on one causal input in the
-    model's layout, and the card's bound.  ``window`` must not bind at S:
-    SDPA, the library yardstick, has no sliding window."""
+def softcap_library_call(q, k, v, softcap: float, want: torch.Tensor):
+    """One PyTorch call for causal attention with a softcap, which SDPA lacks:
+    ``flex_attention`` compiled to its fused kernel, with
+    ``softcap * tanh(s / softcap)`` as its score_mod and a causal block mask.
+    The mask is built and the call compiled here, outside any timing, and its
+    output held against the plain version's ``want`` at phase 3's gate.  Used
+    only as a yardstick: the port never calls it."""
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    def causal(b, h, q_idx, kv_idx):
+        return kv_idx <= q_idx
+
+    def cap(score, b, h, q_idx, kv_idx):
+        return softcap * torch.tanh(score / softcap)
+
+    mask = create_block_mask(causal, None, None, q.shape[2], k.shape[2], device=q.device)
+    flex = torch.compile(flex_attention, dynamic=False)
+
+    def call():
+        return flex(q, k, v, score_mod=cap, block_mask=mask, enable_gqa=True)
+
+    out = call()
+    err = (out.float() - want.float()).abs().max().item()
+    if not agrees(out, want, TOL[q.dtype]):
+        raise AssertionError(f"flex_attention with softcap {softcap:g} disagrees with the "
+                             f"plain version (max abs err {err:.3e}, gate {TOL[q.dtype]:g})")
+    return call, err
+
+
+def flash_timing(gpu: str, B, H, G, S, dh, dtype, window=0, softcap=0.0) -> dict:
+    """The flash kernel, its plain version and one library call on one causal
+    input in the model's layout, and the card's bound.  ``window`` must not
+    bind at S: neither library call has it.  The library call is SDPA, or
+    with a softcap, which SDPA has not, compiled ``flex_attention``."""
     from repro_torch.kernels.flash_attention import kernel
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     q, k, v = model_layout(np.random.default_rng(1), B, H, G, S, S, dh, dtype)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    kw = dict(causal=True, window=window, softcap=softcap)
     n_launch = kernel.launches
-    ms = time_ms(lambda: kernel.flash_attention(qt, kt, vt, causal=True, window=window))
-    plain_ms = time_ms(lambda: attention_ref(qt, kt, vt, causal=True, window=window))
-    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True))
+    ms = time_ms(lambda: kernel.flash_attention(qt, kt, vt, **kw))
+    plain_ms = time_ms(lambda: attention_ref(qt, kt, vt, **kw))
+    if softcap:
+        t0 = time.perf_counter()
+        lib_call, lib_err = softcap_library_call(qt, kt, vt, softcap,
+                                                 attention_ref(qt, kt, vt, **kw))
+        library, note = "flex_attention", (f" (compiled in {time.perf_counter() - t0:.1f} s, "
+                                           f"{lib_err:.3e} from the plain version)")
+    else:
+        def lib_call():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+        library, note = "scaled_dot_product_attention", ""
+    lib_ms = time_ms(lib_call)
     kernel.launches = n_launch  # timing launches are not the main path's
 
     el = torch.tensor([], dtype=dtype).element_size()
@@ -742,10 +917,11 @@ def flash_timing(gpu: str, B, H, G, S, dh, dtype, window=0) -> dict:
     peak = peak if dtype == torch.bfloat16 else F32_FLOPS
     t_bytes, t_ops = nbytes / bw * 1e3, flops / peak * 1e3
     out = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": lib_ms}
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": lib_ms,
+           "library": library}
     say("timing", f"flash_attention B={B} H={H} G={G} S={S} dh={dh} {str(dtype)[6:]} causal "
-                  f"window={window}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"sdpa {lib_ms:.4f} ms, bound "
+                  f"window={window} softcap={softcap:g}: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, {library}{note} {lib_ms:.4f} ms, bound "
                   f"{out['bound_ms']:.4f} ms ({out['bound_by']}: {nbytes / 1e6:.2f} MB = "
                   f"{t_bytes:.4f} ms, {flops / 1e9:.3f} GFLOP = {t_ops:.4f} ms) | {gpu}")
     return out
@@ -754,28 +930,26 @@ def flash_timing(gpu: str, B, H, G, S, dh, dtype, window=0) -> dict:
 def phase_timing(gpu: str, launches: dict, errs: dict) -> dict:
     """The flash row at llama3.2-1b's prefill shape, with each path's own
     shape and launches under ``paths``; a line besides for the f32 route."""
-    s, g = MAIN_SHAPE, GEMMA_FA_SHAPE
-    llama = flash_timing(gpu, s["B"], s["H"], s["G"], s["S"], s["dh"], s["dtype"])
-    gemma = flash_timing(gpu, g["B"], g["H"], g["G"], g["S"], g["dh"], g["dtype"], g["window"])
+    paths = []
+    for arch, label, H, G, dh, kw in FA_PATHS:
+        t = flash_timing(gpu, FA_B, H, G, FA_S, dh, torch.bfloat16, **kw)
+        paths.append(dict(arch=arch, shape=f"B={FA_B} H={H} G={G} S={FA_S} dh={dh} bf16 "
+                          f"causal{''.join(f' {k}={v:g}' for k, v in kw.items())}",
+                          launches=launches[arch]["flash_attention"],
+                          max_abs_err=errs[label], **t))
     # the f32 route (the CUDA-core kernel) at llama's shape, for its own record
-    flash_timing(gpu, s["B"], s["H"], s["G"], s["S"], s["dh"], torch.float32)
-    paths = [
-        dict(arch="llama3.2-1b", shape=f"B={s['B']} H={s['H']} G={s['G']} S={s['S']} "
-             f"dh={s['dh']} bf16 causal", launches=launches["llama3.2-1b"]["flash_attention"],
-             max_abs_err=errs["main_path"], **llama),
-        dict(arch="recurrentgemma-9b", shape=f"B={g['B']} H={g['H']} G={g['G']} S={g['S']} "
-             f"dh={g['dh']} bf16 causal window={g['window']}",
-             launches=launches["recurrentgemma-9b"]["flash_attention"],
-             max_abs_err=errs["gemma_main_path"], **gemma),
-    ]
+    _, _, H, G, dh, _ = FA_PATHS[0]
+    flash_timing(gpu, FA_B, H, G, FA_S, dh, torch.float32)
+    main = paths[0]
     return {
         "name": "flash_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:101",
         "launches": launches_of(launches, "flash_attention"),
-        "max_abs_err": errs["main_path"],
-        **llama,
+        "max_abs_err": main["max_abs_err"],
+        **{key: main[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                      "library")},
         "paths": paths,
     }
 

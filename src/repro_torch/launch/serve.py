@@ -6,9 +6,13 @@
 Ported from ``repro.launch.serve``: the same flags (plus ``--device``, which
 defaults to ``cuda``), the same prompts from ``--seed``, the same
 ``prefill`` / ``decode.step`` spans (and a ``decode`` span around the
-loop) and ``serve.*`` metrics.  Kernels are on
-for the run.  The JAX loop's per-step planner consult and its failure drills
-(``--degrade-at``, ``--fail-at``, ``--scenario``) are not ported yet.
+loop) and ``serve.*`` metrics.  Kernels are on for the run.  On the card
+each decode step after the first is one replay of a CUDA graph captured
+from the first (``models.decode.DecodeGraph``), as the JAX package jits its
+decode step; the capture counts in ``serve.decode.seconds`` as JAX's first
+call counts its compile.  The JAX loop's per-step planner consult and its
+failure drills (``--degrade-at``, ``--fail-at``, ``--scenario``) are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -78,23 +82,25 @@ def main(argv=None) -> np.ndarray:
         print(f"[serve] prefill {B}x{P_len} in {t_prefill:.3f}s "
               f"({B * P_len / t_prefill:.0f} tok/s)")
 
-        out_tokens = []
-        tok = logits.argmax(dim=-1)[:, None]
+        steps = dec.DecodeGraph(cfg, params, caches, logits.argmax(dim=-1)[:, None], P_len, N)
         t0 = time.perf_counter()
         with trace.span("decode", new_tokens=N):
             for i in range(N):
                 with trace.span("decode.step", token=i):
-                    out_tokens.append(tok[:, 0])
-                    logits, caches = dec.decode_step(cfg, params, caches, tok, P_len + i)
-                    tok = logits.argmax(dim=-1)[:, None]
+                    logits = steps.step()
                 metrics.inc("serve.decode.tokens", B)
             _check_finite(logits, "decode")  # waits for the device
         t_dec = time.perf_counter() - t0
     finally:
         use_kernels(was_on)
     metrics.observe("serve.decode.seconds", t_dec)
+    if steps.graph is not None:
+        metrics.observe("serve.decode.first_step.seconds", steps.first_step_seconds)
+        print(f"[serve] decode step captured as one CUDA graph in {steps.capture_seconds:.3f}s; "
+              f"step 0 (its eager warm-up) and the capture took "
+              f"{steps.first_step_seconds:.3f}s, steps 1..{N - 1} replay it")
 
-    gen = torch.stack(out_tokens, dim=1).to(torch.int32).cpu().numpy()
+    gen = steps.tokens.to(torch.int32).cpu().numpy()
     print(f"[serve] decoded {N} tokens x {B} seqs in {t_dec:.3f}s "
           f"({B * N / t_dec:.1f} tok/s)")
     print("[serve] sample generations (first 3 rows):")

@@ -9,7 +9,7 @@ Decode attention stays plain torch: the JAX package has no kernel for it.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Tuple, Union
 
 import torch
 
@@ -251,32 +251,45 @@ def cache_from_kv(
     return cache
 
 
+def as_pos(pos: Union[int, torch.Tensor], device) -> torch.Tensor:
+    """A decode position as the step takes it: a 0-d int32 tensor on
+    ``device``.  An int is copied there once, before any capture."""
+    if isinstance(pos, torch.Tensor):
+        return pos
+    return torch.tensor(pos, dtype=torch.int32, device=device)
+
+
 def decode_attention(
     cfg: ModelConfig,
     p: dict,
     x: torch.Tensor,  # (B, 1, d)
-    pos: int,  # absolute position of the new token
+    pos: Union[int, torch.Tensor],  # 0-d int32 (or int): position of the new token
     cache: dict,
     *,
     window: int = 0,
 ) -> Tuple[torch.Tensor, dict]:
     """One-token self-attention against the KV cache.  Unlike the JAX
     package, which returns a new cache, this writes the new key, value and
-    position into ``cache`` in place and returns the same dict."""
+    position into ``cache`` in place and returns the same dict.  The slot is
+    picked on the device, as the JAX package's ``jnp.where`` picks it:
+    ``pos % capacity`` in a ring (LOCAL), else ``min(pos, capacity - 1)``;
+    nothing reads ``pos`` on the host."""
     B = x.shape[0]
+    pos = as_pos(pos, x.device)
     q = _project(x, p["wq"])
     k_new = _project(x, p["wk"])
     v_new = _project(x, p["wv"])
-    pos_t = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
+    pos_t = pos.view(1, 1)
     if cfg.pos == "rope":
         q = apply_rope(q, pos_t, cfg.rope_theta)
         k_new = apply_rope(k_new, pos_t, cfg.rope_theta)
 
     capacity = cache["k"].shape[1]
-    slot = pos % capacity if window > 0 else min(pos, capacity - 1)
-    cache["k"][:, slot] = k_new[:, 0]
-    cache["v"][:, slot] = v_new[:, 0]
-    cache["pos"][slot] = pos
+    slot = pos % capacity if window > 0 else torch.clamp(pos, max=capacity - 1)
+    slot = slot.view(1).long()
+    cache["k"].index_copy_(1, slot, k_new)
+    cache["v"].index_copy_(1, slot, v_new)
+    cache["pos"].index_copy_(0, slot, pos.view(1))
 
     qg = _split_groups(cfg, q)  # (B, 1, G, M, dh)
     bias = _mask_bias(pos_t[0], cache["pos"], window, causal=True)

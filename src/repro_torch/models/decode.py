@@ -9,11 +9,14 @@ recurrent state and the two token shifts for RWKV; the recurrence state and
 the conv tail for RGLRU.  A Python loop over the stack replaces
 ``lax.scan``.  Decode writes each new key and value, or the new states and
 shifts, into the stacked cache in place (through per-layer views) and hands
-back the same cache object; the JAX package returns a new one.
+back the same cache object; the JAX package returns a new one.  Its ``pos``
+is a device tensor, so that ``DecodeGraph`` can capture a whole step as one
+CUDA graph, the counterpart of the JAX package's jitted decode step.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import time
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -26,6 +29,7 @@ from repro_torch.models.transformer import (
     _positions_embed,
     check_supported,
     layer_params,
+    post_norm,
 )
 
 
@@ -74,9 +78,9 @@ def _prefill_layer(
         cap = capacity if kind == ATTN else attn.cache_capacity(cfg.window, capacity)
         cache = attn.cache_from_kv(k, v, positions, cap)
         o = attn.attend(cfg, q, k, v, positions, positions, window=window)
-        x = x + attn.out_proj(p["attn"], o)
+        x = x + post_norm(cfg, p, "post_ln1", attn.out_proj(p["attn"], o))
         h = apply_norm(cfg, x, p["ln2"])
-        return x + mlp_apply(cfg, p["mlp"], h), cache
+        return x + post_norm(cfg, p, "post_ln2", mlp_apply(cfg, p["mlp"], h)), cache
     if kind == RWKV:
         h = apply_norm(cfg, x, p["ln1"])
         y, state = rwkv.rwkv_time_mix_prefill(cfg, p["tm_cm"], h)
@@ -125,15 +129,15 @@ def prefill(
 
 
 def _decode_layer(
-    cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, pos: int, cache: dict
+    cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, pos: torch.Tensor, cache: dict
 ) -> torch.Tensor:
     if kind in (ATTN, LOCAL):
         h = apply_norm(cfg, x, p["ln1"])
         a, _ = attn.decode_attention(cfg, p["attn"], h, pos, cache,
                                      window=cfg.window if kind == LOCAL else 0)
-        x = x + a
+        x = x + post_norm(cfg, p, "post_ln1", a)
         h = apply_norm(cfg, x, p["ln2"])
-        return x + mlp_apply(cfg, p["mlp"], h)
+        return x + post_norm(cfg, p, "post_ln2", mlp_apply(cfg, p["mlp"], h))
     if kind == RWKV:
         h = apply_norm(cfg, x, p["ln1"])
         y, _ = rwkv.rwkv_time_mix_decode(cfg, p["tm_cm"], h, cache)
@@ -155,16 +159,95 @@ def decode_step(
     params: dict,
     caches: tuple,
     token: torch.Tensor,  # (B, 1)
-    pos: int,  # absolute position of this token
+    pos: Union[int, torch.Tensor],  # absolute position of this token
 ) -> Tuple[torch.Tensor, tuple]:
-    """Returns (logits (B, V) f32, caches) with ``caches`` updated in place."""
-    pos = int(pos)
+    """Returns (logits (B, V) f32, caches) with ``caches`` updated in place.
+
+    ``pos`` is a 0-d int32 tensor on the token's device, as the JAX package
+    traces it, or an int, which becomes such a tensor here.  Given a tensor,
+    the step reads no device value on the host, so it can be captured in a
+    CUDA graph and replayed (``DecodeGraph``)."""
+    pos = attn.as_pos(pos, token.device)
     x = _embed_tokens(cfg, params, token)
-    if cfg.pos == "learned":
-        x = _positions_embed(cfg, params, x, torch.tensor([pos], device=token.device))
+    x = _positions_embed(cfg, params, x, pos.view(1))
     for group, gp, gc in zip(cfg.groups, params["groups"], caches):
         for i in range(group.count):
             for kind, p, c in zip(group.pattern, layer_params(gp, i), layer_params(gc, i)):
                 x = _decode_layer(cfg, kind, p, x, pos, c)
     x = apply_norm(cfg, x, params["final_norm"])
     return unembed(cfg, params["embed"], x[:, -1]), caches
+
+
+class DecodeGraph:
+    """Greedy decode of one batch, each step after the first one replay of a
+    captured CUDA graph: the counterpart of the JAX package's jitted,
+    cache-donating ``decode_step``.
+
+    A step (``decode_step``, the greedy ``argmax`` and the bookkeeping around
+    them) reads and writes only static buffers: the token (B, 1), ``pos`` (a
+    0-d int32 tensor), the caches (prefill's, written in place) and the
+    generations (B, n_steps), where the step stores the token it is fed.  The
+    step ends by writing its pick into the token buffer and adding 1 to
+    ``pos``, so the host has nothing to do between two steps.
+
+    On a CUDA device the first ``step()`` runs the step eagerly on a side
+    stream, as the capture's warm-up (a real step: it writes the caches and
+    advances ``pos``), then captures it into one ``torch.cuda.CUDAGraph``;
+    every later ``step()`` is one ``replay()``.  A capture that fails raises;
+    nothing runs eagerly instead.  On the CPU every step runs eagerly.
+    """
+
+    def __init__(self, cfg: ModelConfig, params: dict, caches: tuple, token: torch.Tensor,
+                 pos: Union[int, torch.Tensor], n_steps: int):
+        self.cfg, self.params, self.caches = cfg, params, caches
+        self.n_steps, self.steps = n_steps, 0
+        self.token = token.clone()
+        # the step advances its own copy of pos, never the caller's tensor
+        self.pos = attn.as_pos(pos, token.device).clone()
+        self.start = self.pos.clone()
+        self.tokens = torch.zeros((token.shape[0], n_steps), dtype=token.dtype,
+                                  device=token.device)
+        self.graph = self.static_logits = None
+        self.first_step_seconds = self.capture_seconds = 0.0
+
+    def _step(self) -> torch.Tensor:
+        self.tokens.index_copy_(1, (self.pos - self.start).view(1).long(), self.token)
+        logits, _ = decode_step(self.cfg, self.params, self.caches, self.token, self.pos)
+        self.token.copy_(logits.argmax(dim=-1, keepdim=True))
+        self.pos.add_(1)
+        return logits
+
+    def step(self) -> torch.Tensor:
+        """Runs the next step and returns its logits (B, V) f32.  After the
+        first step on the card these are the graph's static output, which
+        the next replay overwrites."""
+        if self.steps == self.n_steps:
+            raise RuntimeError(f"DecodeGraph: all {self.n_steps} steps have run")
+        self.steps += 1
+        if self.token.device.type != "cuda":
+            return self._step()
+        if self.graph is None:
+            return self._warm_up_and_capture()
+        self.graph.replay()
+        return self.static_logits
+
+    def _warm_up_and_capture(self) -> torch.Tensor:
+        t0 = time.perf_counter()
+        device = self.token.device
+        main = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            logits = self._step()  # step 0: the warm-up is a real step
+        main.wait_stream(side)
+        logits.record_stream(main)
+        if self.n_steps > 1:
+            torch.cuda.synchronize(device)
+            t1 = time.perf_counter()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):  # records the step; runs nothing
+                static_logits = self._step()
+            self.capture_seconds = time.perf_counter() - t1
+            self.graph, self.static_logits = graph, static_logits
+        self.first_step_seconds = time.perf_counter() - t0
+        return logits

@@ -1,14 +1,15 @@
 """The model: layer groups applied over parameters stacked per group.
 
 Ported from ``repro.models.transformer`` for ATTN, LOCAL, RWKV and RGLRU
-layers on one device (``dist=None``).  The parameter tree keeps the JAX
-package's keys and its stacking over a group's ``count``
-(``_superblock_params``), so a JAX tree carried across by
+layers, with or without post-norms (gemma2), on one device (``dist=None``).
+The parameter tree keeps the JAX package's keys and its stacking over a
+group's ``count`` (``_superblock_params``), so a JAX tree carried across by
 ``convert.params_from_jax`` runs here unchanged; the layer loop replaces
 ``lax.scan`` over the stack.
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -32,13 +33,13 @@ PORTED_KINDS = (ATTN, LOCAL, RWKV, RGLRU)
 
 def check_supported(cfg: ModelConfig) -> None:
     """The port runs dense decoders whose layers are any mix of the ported
-    kinds (no MoE, post-norms, encoder, or cross-attention layers)."""
+    kinds, with or without post-norms (no MoE, encoder, or cross-attention
+    layers)."""
     kinds = {k for g in cfg.groups for k in g.pattern}
-    if (not kinds <= set(PORTED_KINDS)
-            or cfg.is_moe or cfg.post_norms or cfg.encoder_layers):
+    if not kinds <= set(PORTED_KINDS) or cfg.is_moe or cfg.encoder_layers:
         raise NotImplementedError(
             f"{cfg.name}: layer kinds {sorted(kinds)}; the port runs decoders whose "
-            f"layers are each one of {PORTED_KINDS} (dense, no post-norms, no encoder)")
+            f"layers are each one of {PORTED_KINDS} (dense, no encoder)")
 
 
 # --------------------------------------------------------------------------
@@ -61,6 +62,9 @@ def _layer_params(cfg: ModelConfig, kind: str, gen: torch.Generator, lead: Tuple
     if kind in (ATTN, LOCAL):
         p["attn"] = attn.attn_params(cfg, gen, lead)
         p["mlp"] = mlp_params(cfg, gen, lead)
+        if cfg.post_norms:
+            p["post_ln1"] = norm_params(cfg, lead, gen.device)
+            p["post_ln2"] = norm_params(cfg, lead, gen.device)
     elif kind == RWKV:
         p["tm_cm"] = rwkv.rwkv_params(cfg, gen, lead)
     elif kind == RGLRU:
@@ -104,11 +108,18 @@ def layer_params(gp: tuple, i: int) -> tuple:
 # Forward (full sequence).
 # --------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=None)
+def _embed_scale(d_model: int, dtype: torch.dtype) -> float:
+    """sqrt(d_model) rounded to ``dtype`` first, as the JAX package casts it,
+    as a host number: multiplying by it rounds as multiplying by a 0-d tensor
+    of ``dtype`` does, and no step copies it to the device."""
+    return float(torch.tensor(d_model**0.5, dtype=dtype))
+
+
 def _embed_tokens(cfg: ModelConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
     x = params["embed"]["tok"][tokens]
     if gemma_forms(cfg):
-        # sqrt(d_model) in x's dtype first, as the JAX package casts it
-        x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype, device=x.device)
+        x = x * _embed_scale(cfg.d_model, x.dtype)
     return x
 
 
@@ -118,16 +129,23 @@ def _positions_embed(cfg: ModelConfig, params: dict, x: torch.Tensor, positions)
     return x
 
 
+def post_norm(cfg: ModelConfig, p: dict, key: str, y: torch.Tensor) -> torch.Tensor:
+    """A sublayer's output through its post-norm (``post_ln1`` after
+    attention, ``post_ln2`` after the MLP) where the config has them."""
+    return apply_norm(cfg, y, p[key]) if cfg.post_norms else y
+
+
 def _apply_layer_full(
     cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, positions: torch.Tensor
 ) -> torch.Tensor:
     if kind in (ATTN, LOCAL):
         h = apply_norm(cfg, x, p["ln1"])
-        x = x + attn.self_attention(
+        a = attn.self_attention(
             cfg, p["attn"], h, positions, window=cfg.window if kind == LOCAL else 0
         )
+        x = x + post_norm(cfg, p, "post_ln1", a)
         h = apply_norm(cfg, x, p["ln2"])
-        return x + mlp_apply(cfg, p["mlp"], h)
+        return x + post_norm(cfg, p, "post_ln2", mlp_apply(cfg, p["mlp"], h))
     if kind == RWKV:
         h = apply_norm(cfg, x, p["ln1"])
         x = x + rwkv.rwkv_time_mix(cfg, p["tm_cm"], h)

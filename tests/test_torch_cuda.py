@@ -59,6 +59,12 @@ def cuda_device():
     (1, 16, 1, (100, 612), 256, torch.bfloat16, {"q_offset": 512, "window": 256}),
     (2, 16, 1, 256, 64, torch.bfloat16, {}),
     (2, 2, 2, 192, 128, torch.bfloat16, {"causal": False}),
+    # gemma2's prefill: 16 query heads over 8 KV heads of 256, softcap 50 on
+    # every layer, window 4096 on the LOCAL ones (binding at 256 here)
+    (4, 16, 8, 512, 256, torch.bfloat16, {"softcap": 50.0}),
+    (4, 16, 8, 512, 256, torch.bfloat16, {"softcap": 50.0, "window": 4096}),
+    (1, 16, 8, 700, 256, torch.bfloat16, {"softcap": 50.0, "window": 256}),
+    (1, 16, 8, 300, 256, torch.float32, {"softcap": 50.0, "window": 64}),
 ])
 def test_kernel_matches_plain_version(cuda_device, B, H, G, S, dh, dtype, kw):
     """f32 at 1e-4: the kernel sums in another order than the plain version;
@@ -269,3 +275,83 @@ def test_smoke_prefill_on_card_matches_cpu_recurrentgemma(cuda_device):
         for gd, wd in zip(g, w):
             for key in wd:
                 torch.testing.assert_close(gd[key].cpu(), wd[key], atol=1e-4, rtol=1e-4)
+
+
+def _clone(tree):
+    return tree_map(lambda t: t.clone(), tree)
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for key in sorted(tree) for x in _leaves(tree[key])]
+    if isinstance(tree, (tuple, list)):
+        return [x for t in tree for x in _leaves(t)]
+    return [tree]
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "rwkv6-1.6b", "recurrentgemma-9b", "olmo-1b",
+                                  "codeqwen1.5-7b", "gemma2-9b"])
+def test_decode_graph_replay_matches_eager(cuda_device, arch):
+    """Smoke width in f32: the captured step replayed against the same steps
+    run eagerly on the card from a copy of the same caches; logits at each
+    step, the greedy tokens and every cache leaf at 1e-4.  A prompt of 40
+    wraps the smoke window of 32, so the replays write a LOCAL ring at slot
+    ``pos % 32`` from the device."""
+    cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+    params = init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0))
+    P, N = 40, 6
+    tokens = torch.from_numpy(
+        np.random.default_rng(0).integers(2, cfg.vocab_size, size=(2, P))).to(cuda_device)
+    use_kernels(True)
+    try:
+        logits, caches = dec.prefill(cfg, params, tokens, capacity=P + N)
+    finally:
+        use_kernels(False)
+    tok = logits.argmax(-1)[:, None]
+    steps = dec.DecodeGraph(cfg, params, _clone(caches), tok, P, N)
+    want_toks = []
+    for i in range(N):
+        want_toks.append(tok[:, 0])
+        want, caches = dec.decode_step(cfg, params, caches, tok, P + i)
+        got = steps.step().clone()
+        assert steps.graph is not None  # step 0 ran eagerly, then was captured
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        tok = want.argmax(-1)[:, None]
+    assert torch.equal(steps.tokens, torch.stack(want_toks, dim=1))
+    assert int(steps.pos) == P + N
+    for g, w in zip(_leaves(steps.caches), _leaves(caches)):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+def test_capture_refuses_a_host_read_of_the_position(cuda_device):
+    """Writing a cache slot picked by the 0-d position tensor through Python
+    indexing reads the position on the host (``.item()``), which a capture
+    refuses: the capture raises rather than recording a fixed slot."""
+    cache = torch.zeros(2, 8, 4, device=cuda_device)
+    pos = torch.tensor(3, dtype=torch.int32, device=cuda_device)
+    new = torch.ones(2, 4, device=cuda_device)
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError):
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=torch.cuda.Stream()):
+            cache[:, int(pos)] = new
+    torch.cuda.synchronize()
+
+
+def test_decode_graph_raises_when_the_step_cannot_be_captured(cuda_device, monkeypatch):
+    """No eager fallback on the card: a step that reads a device value on the
+    host runs as the eager warm-up, then its capture raises."""
+    cfg = dataclasses.replace(smoke_config("llama3.2-1b"), dtype="float32")
+    params = init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0))
+    tokens = torch.zeros((2, 8), dtype=torch.int64, device=cuda_device)
+    logits, caches = dec.prefill(cfg, params, tokens, capacity=12)
+    eager = dec.decode_step
+
+    def syncing_step(cfg, params, caches, token, pos):
+        return eager(cfg, params, caches, token, int(pos))
+
+    monkeypatch.setattr(dec, "decode_step", syncing_step)
+    steps = dec.DecodeGraph(cfg, params, caches, logits.argmax(-1)[:, None], 8, 4)
+    with pytest.raises(RuntimeError):
+        steps.step()
+    assert steps.graph is None
+    torch.cuda.synchronize()

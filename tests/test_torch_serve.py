@@ -1,6 +1,7 @@
 """The port's serving path against the JAX package's, on JAX's own weights.
 
-Smoke llama3.2-1b, rwkv6-1.6b and recurrentgemma-9b: JAX ``prefill`` + 8
+Smoke llama3.2-1b, rwkv6-1.6b, recurrentgemma-9b, olmo-1b, codeqwen1.5-7b
+and gemma2-9b: JAX ``prefill`` + 8
 ``decode_step``s against the port's, on the same weights
 (``params_from_jax``) and prompts.  In f32 the logits agree to 1e-4 (the
 sums run in another order through the layers and the head), the greedy
@@ -10,9 +11,10 @@ kernels off on both sides, once with JAX's Pallas kernels (interpret mode)
 and the port's kernel switch on (CPU tensors take the plain versions).
 rwkv6's kernels-on prompt is 64 tokens: JAX routes WKV to its Pallas kernel
 only when the length is a multiple of the 32-token chunk; a ragged prompt
-of 40 runs with kernels off.  recurrentgemma's prompt of 40 is longer than
-its smoke window of 32, so each LOCAL layer's cache is a ring that wraps
-during decode.  In bf16 the logits agree to 5e-2 (bf16 rounds at other
+of 40 runs with kernels off.  recurrentgemma's and gemma2's prompt of 40 is
+longer than their smoke window of 32, so each LOCAL layer's cache is a ring
+that wraps during decode (gemma2's prompt of 128 fills the ring from a
+prompt four times its size).  In bf16 the logits agree to 5e-2 (bf16 rounds at other
 places in the two frameworks; rwkv6 and recurrentgemma at 1e-1, for the
 reasons their tests give), decoding the same tokens on both sides.
 """
@@ -45,6 +47,9 @@ torch.set_num_threads(1)
 ARCH = "llama3.2-1b"
 RWKV = "rwkv6-1.6b"
 GEMMA = "recurrentgemma-9b"
+OLMO = "olmo-1b"
+QWEN = "codeqwen1.5-7b"
+GEMMA2 = "gemma2-9b"
 B, P, STEPS = 2, 16, 8
 # each layer kind's prefill kernel entry point
 KIND_OPS = {"attn": fa_ops, "local": fa_ops, "rwkv": wkv_ops, "rglru": lru_ops}
@@ -104,6 +109,13 @@ def _run(jc, tc, jp, tp, prompts, *, teacher_forced):
     pytest.param(GEMMA, 16, True, id="recurrentgemma-9b-P16-True"),
     pytest.param(GEMMA, 40, False, id="recurrentgemma-9b-P40-False"),
     pytest.param(GEMMA, 40, True, id="recurrentgemma-9b-P40-True"),
+    pytest.param(OLMO, 16, False, id="olmo-1b-P16-False"),
+    pytest.param(OLMO, 16, True, id="olmo-1b-P16-True"),
+    pytest.param(QWEN, 16, False, id="codeqwen1.5-7b-P16-False"),
+    pytest.param(QWEN, 16, True, id="codeqwen1.5-7b-P16-True"),
+    pytest.param(GEMMA2, 40, False, id="gemma2-9b-P40-False"),
+    pytest.param(GEMMA2, 40, True, id="gemma2-9b-P40-True"),
+    pytest.param(GEMMA2, 128, True, id="gemma2-9b-P128-True"),
 ], indirect=["kernels_on"])
 def test_prefill_decode_f32_matches_jax(arch, prompt_len, kernels_on):
     jc, tc, jp, tp, prompts = _setup("float32", arch, prompt_len)
@@ -161,17 +173,11 @@ def test_prefill_decode_bf16_matches_jax_rwkv6():
     assert err["port"] <= err["jax"] < 0.2, err
 
 
-@pytest.mark.parametrize("prompt_len", [16, 40])
-def test_prefill_decode_bf16_matches_jax_recurrentgemma(prompt_len):
-    """recurrentgemma at 1e-1, not llama's 5e-2: JAX's bf16 GeLU (tanh form,
-    in the RG-LRU gate and the GeGLU MLP of every layer) rounds each step of
-    its formula, torch's rounds once, and 1 of 1024 logits lands 0.06 apart.
-    That is bf16's own noise on this model: each package's bf16 logits lie
-    within 0.1 of the f32 logits of the same weights and tokens, and their
-    mean distances to them agree within 10% (0.0099 for both at prompt 16,
-    0.0111 for the port and 0.0106 for JAX at prompt 40; the port's largest
-    distance is the smaller one at prompt 40, the larger at prompt 16)."""
-    tc, tp, prompts, jlogs, tlogs, ttoks = _check_bf16(GEMMA, prompt_len, tol=1e-1)
+def _check_bf16_against_f32(arch, prompt_len):
+    """bf16 logits of both packages at 1e-1, each within 0.1 of the f32
+    logits of the same weights and tokens, their mean distances to them
+    within 10% of each other."""
+    tc, tp, prompts, jlogs, tlogs, ttoks = _check_bf16(arch, prompt_len, tol=1e-1)
     tc32 = dataclasses.replace(tc, dtype="float32")
     tp32 = tree_map(lambda t: t.float(), tp)
     lg, cache = tdec.prefill(tc32, tp32, torch.from_numpy(prompts),
@@ -187,6 +193,28 @@ def test_prefill_decode_bf16_matches_jax_recurrentgemma(prompt_len):
     mean = {side: float(np.mean([d.mean() for d in ds])) for side, ds in dist.items()}
     assert max(worst.values()) < 0.1, worst
     assert abs(mean["port"] / mean["jax"] - 1) < 0.1, mean
+    return worst, mean
+
+
+@pytest.mark.parametrize("prompt_len", [16, 40])
+def test_prefill_decode_bf16_matches_jax_recurrentgemma(prompt_len):
+    """recurrentgemma at 1e-1, not llama's 5e-2: JAX's bf16 GeLU (tanh form,
+    in the RG-LRU gate and the GeGLU MLP of every layer) rounds each step of
+    its formula, torch's rounds once, and 1 of 1024 logits lands 0.06 apart.
+    That is bf16's own noise on this model: each package's bf16 logits lie
+    within 0.1 of the f32 logits of the same weights and tokens, and their
+    mean distances to them agree within 10% (0.0099 for both at prompt 16,
+    0.0111 for the port and 0.0106 for JAX at prompt 40; the port's largest
+    distance is the smaller one at prompt 40, the larger at prompt 16)."""
+    _check_bf16_against_f32(GEMMA, prompt_len)
+
+
+def test_prefill_decode_bf16_matches_jax_gemma2():
+    """gemma2 held as recurrentgemma is: its GeGLU MLP takes the same bf16
+    tanh-GeLU, which JAX rounds at each step of the formula and torch once.
+    Prompt 40 wraps the LOCAL layers' ring of 32.  Largest distances to the
+    f32 logits 0.039 (port) and 0.037 (JAX), means 0.0077 and 0.0076."""
+    _check_bf16_against_f32(GEMMA2, 40)
 
 
 def test_serve_main_cpu_recurrentgemma():
