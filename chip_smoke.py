@@ -3,11 +3,15 @@
 
     python3 chip_smoke.py
 
-Six serving paths and their kernels: llama3.2-1b, olmo-1b and
+Eight serving paths and their kernels: llama3.2-1b, olmo-1b and
 codeqwen1.5-7b (flash attention), rwkv6-1.6b (the WKV6 scan),
 recurrentgemma-9b (flash attention with a sliding window on its LOCAL
-layers, the RG-LRU scan on its RGLRU layers) and gemma2-9b (flash attention
-with softcap 50, and a sliding window on its LOCAL layers).  Every path
+layers, the RG-LRU scan on its RGLRU layers), gemma2-9b (flash attention
+with softcap 50, and a sliding window on its LOCAL layers), whisper-small
+(flash attention without a causal mask over 1500 frames in its encoder,
+causal in its decoder's self-attention; cross-attention plain) and
+llama-3.2-vision-11b (flash attention in its 32 ATTN layers; its 8 gated
+XATTN layers attend to 1601 patch embeddings in plain torch).  Every path
 decodes through one captured CUDA graph a step (``DecodeGraph``).
 Phases, each printing its own lines, any failure ending the run non-zero:
   1. device  — fail without CUDA; print the card's name and power limit;
@@ -18,7 +22,10 @@ Phases, each printing its own lines, any failure ending the run non-zero:
   3. kernels — each kernel against its plain PyTorch version on the card
                (flash: bf16 on the wgmma kernel, f32 on the CUDA-core one).
   4. parity  — each smoke-width model in f32: CPU (plain) against CUDA (kernel),
-               then the same decode steps captured and replayed against both.
+               then the same decode steps captured and replayed against both
+               (whisper and llama-vision with a seeded frontend and their
+               XATTN gates drawn non-zero: at their initial zero the layer
+               adds nothing).
   5. serve   — each full-width model through ``repro_torch.launch.serve``,
                every launch count set to 0 just before and read just after:
                each layer's kernel launched once, no other kernel, no plain
@@ -76,9 +83,11 @@ HOST_LEAD_CYCLES = 20_000_000
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 B_SERVE, P_SERVE, N_SERVE = 4, 512, 32
 ARCHS = ("llama3.2-1b", "rwkv6-1.6b", "recurrentgemma-9b", "olmo-1b", "codeqwen1.5-7b",
-         "gemma2-9b")
-# each layer kind's prefill kernel (row name); decode launches none
+         "gemma2-9b", "whisper-small", "llama-3.2-vision-11b")
+# each layer kind's prefill kernel (row name; XATTN layers launch none, and
+# each encoder layer launches flash); decode launches none
 KIND_KERNEL = {"attn": "flash_attention", "local": "flash_attention",
+               "attn_x": "flash_attention", "xattn": None,
                "rwkv": "wkv6", "rglru": "rglru_scan"}
 # each kernel's names in the profiler: the CUDA kernels that each run once a
 # launch (WKV6's entry point launches two)
@@ -87,7 +96,8 @@ PROFILER_NAME = {"flash_attention": ("flash_fwd",),
                  "rglru_scan": ("rglru_scan_kernel",)}
 # warm serve runs of the breakdown phase
 WARM_RUNS = {"llama3.2-1b": 5, "rwkv6-1.6b": 3, "recurrentgemma-9b": 2, "olmo-1b": 2,
-             "codeqwen1.5-7b": 2, "gemma2-9b": 2}
+             "codeqwen1.5-7b": 2, "gemma2-9b": 2, "whisper-small": 2,
+             "llama-3.2-vision-11b": 2}
 # the host's calls that launch device work, as torch.profiler names them
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
                 "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
@@ -157,6 +167,14 @@ FA_CASES = [
      {"softcap": 50.0, "window": 4096}),
     ("gemma2_window_binds", 1, 16, 8, 700, 700, 256, torch.bfloat16,
      {"softcap": 50.0, "window": 256}),
+    # whisper-small's encoder (1500 frames, no causal mask: the last of the
+    # 128-row tiles holds 92 rows) and decoder (MHA 12 x 64), and
+    # llama-3.2-vision-11b's ATTN layers (32 query heads over 8 KV heads of
+    # 128); the f32 route without a causal mask at a ragged length
+    ("whisper_encoder_main_path", 4, 12, 12, 1500, 1500, 64, torch.bfloat16, {"causal": False}),
+    ("whisper_decoder_main_path", 4, 12, 12, 512, 512, 64, torch.bfloat16, {}),
+    ("vision_main_path", 4, 32, 8, 512, 512, 128, torch.bfloat16, {}),
+    ("noncausal_ragged_f32", 1, 4, 4, 1100, 1100, 64, torch.float32, {"causal": False}),
     # the bf16 (wgmma) kernel: each head dim, ragged lengths, binding windows,
     # softcap, q_offset with Sq < Sk, one KV head, no causal mask, and q, k, v
     # cut from wider rows (a non-dense view; o comes back dense)
@@ -176,16 +194,22 @@ FA_CASES = [
      {"causal": False, "window": 40}),
     ("bf16_strided_views", 2, 4, 2, 160, 160, 64, torch.bfloat16, {"window": 48}),
 ]
-# each serving path's flash shape in prefill (B=4, S=512, bf16, causal):
-# (arch, its case in FLASH_CASES, H, G, dh, kwargs).  No window binds at 512,
-# so gemma2's LOCAL layers do the work of its ATTN ones: one timing for both
+# each serving path's flash shape in prefill (B=4, bf16; S=512 causal in the
+# decoders, 1500 frames without a causal mask in whisper's encoder):
+# (arch, its case in FLASH_CASES, part, H, G, S, dh, kwargs).  No window
+# binds at 512, so gemma2's LOCAL layers do the work of its ATTN ones: one
+# timing for both
 FA_B, FA_S = 4, 512
 FA_PATHS = [
-    ("llama3.2-1b", "main_path", 32, 8, 64, {}),
-    ("recurrentgemma-9b", "gemma_main_path", 16, 1, 256, {"window": 2048}),
-    ("olmo-1b", "olmo_main_path", 16, 16, 128, {}),
-    ("codeqwen1.5-7b", "codeqwen_main_path", 32, 32, 128, {}),
-    ("gemma2-9b", "gemma2_attn_main_path", 16, 8, 256, {"softcap": 50.0}),
+    ("llama3.2-1b", "main_path", "decoder", 32, 8, FA_S, 64, {}),
+    ("recurrentgemma-9b", "gemma_main_path", "decoder", 16, 1, FA_S, 256, {"window": 2048}),
+    ("olmo-1b", "olmo_main_path", "decoder", 16, 16, FA_S, 128, {}),
+    ("codeqwen1.5-7b", "codeqwen_main_path", "decoder", 32, 32, FA_S, 128, {}),
+    ("gemma2-9b", "gemma2_attn_main_path", "decoder", 16, 8, FA_S, 256, {"softcap": 50.0}),
+    ("whisper-small", "whisper_encoder_main_path", "encoder", 12, 12, 1500, 64,
+     {"causal": False}),
+    ("whisper-small", "whisper_decoder_main_path", "decoder", 12, 12, FA_S, 64, {}),
+    ("llama-3.2-vision-11b", "vision_main_path", "decoder", 32, 8, FA_S, 128, {}),
 ]
 
 LRU_SHAPE = dict(B=4, S=512, W=4096, dtype=torch.float32)
@@ -344,11 +368,13 @@ def kernel_modules() -> dict:
 
 def prefill_launches(cfg) -> dict:
     """Row name -> launches of that kernel in one prefill of ``cfg``: one for
-    each layer whose kind it serves."""
+    each layer whose kind it serves, and flash once for each encoder layer."""
     want = {name: 0 for name in kernel_modules()}
+    want["flash_attention"] += cfg.encoder_layers
     for g in cfg.groups:
         for kind in g.pattern:
-            want[KIND_KERNEL[kind]] += g.count
+            if KIND_KERNEL[kind]:
+                want[KIND_KERNEL[kind]] += g.count
     return want
 
 
@@ -532,28 +558,36 @@ def phase_parity(arch: str) -> None:
     """Smoke-width model in f32, one set of weights: prefill + decode on the
     CPU (plain versions) against CUDA (the kernels); logits and caches.  The
     prompt of 40 is longer than the smoke window of 32, so the window binds
-    in the flash kernel and each LOCAL layer's cache is a ring.  Then the same
-    decode steps once more from a copy of the CUDA prefill's caches, captured
-    and replayed (``DecodeGraph``): logits, greedy tokens and caches against
-    the eager CUDA steps and the CPU's."""
+    in the flash kernel and each LOCAL layer's cache is a ring.  Models with
+    a frontend get one drawn from the seed, and their XATTN gates non-zero.
+    Then the same decode steps once more from a copy of the CUDA prefill's
+    caches, captured and replayed (``DecodeGraph``): logits, greedy tokens
+    and caches against the eager CUDA steps and the CPU's."""
     from repro_torch.configs import smoke_config
     from repro_torch.kernels import use_kernels
     from repro_torch.models import decode as dec
-    from repro_torch.models.convert import tree_map
+    from repro_torch.models.convert import draw_xattn_gates, tree_map
     from repro_torch.models.transformer import init_params
 
     cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
     want = prefill_launches(cfg)
     params = init_params(cfg, torch.Generator().manual_seed(0))
-    params_gpu = tree_map(lambda t: t.to("cuda"), params)
     B, P, N = 2, 40, 6
-    prompts = np.random.default_rng(0).integers(2, cfg.vocab_size, size=(B, P))
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(2, cfg.vocab_size, size=(B, P))
+    draw_xattn_gates(params, rng, torch.from_numpy)
+    params_gpu = tree_map(lambda t: t.to("cuda"), params)
+    fr = None
+    if cfg.frontend_tokens:
+        fr = torch.from_numpy(rng.standard_normal(
+            (B, cfg.frontend_tokens, cfg.frontend_dim or cfg.d_model), dtype=np.float32))
     use_kernels(True)
     try:
         tok_cpu = torch.from_numpy(prompts)
-        lg_c, cache_c = dec.prefill(cfg, params, tok_cpu, capacity=P + N)
+        lg_c, cache_c = dec.prefill(cfg, params, tok_cpu, frontend=fr, capacity=P + N)
         before = read_counts()
-        lg_g, cache_g = dec.prefill(cfg, params_gpu, tok_cpu.cuda(), capacity=P + N)
+        lg_g, cache_g = dec.prefill(cfg, params_gpu, tok_cpu.cuda(),
+                                    frontend=None if fr is None else fr.cuda(), capacity=P + N)
         launched = {name: c[0] - before[name][0] for name, c in read_counts().items()}
         worst = (lg_g.cpu() - lg_c).abs().max().item()
         torch.testing.assert_close(lg_g.cpu(), lg_c, atol=1e-4, rtol=1e-4)
@@ -621,23 +655,44 @@ def check_counts(what: str, counts: dict, want: dict) -> None:
                                  "version on the card")
 
 
-def phase_serve(gpu: str, arch: str) -> dict:
+def phase_serve(gpu: str, arch: str) -> tuple:
     """Full-width serve of ``arch``: every launch count is 0 just before and
     read just after; each layer's kernel launched once, every other kernel
-    never, and no call took a plain version on the card.  Returns the
-    launches of the kernels this path runs."""
+    never, and no call took a plain version on the card.  The launches made
+    inside the encoder (prefill's ``frontend_states``) are read apart in the
+    same run: one flash launch for each encoder layer.  Returns the launches
+    of the kernels this path runs, and those of them made in the encoder."""
     from repro_torch.configs import get_config
+    from repro_torch.models import decode as dec
 
     cfg = get_config(arch)
     want = prefill_launches(cfg)
-    zero_counts()
-    torch.cuda.reset_peak_memory_stats()
-    gen, t_pre, t_dec, t_first = serve_once(arch, quiet=False)
-    counts = read_counts()
+    in_encoder = {name: 0 for name in want}
+    states = dec.frontend_states
+
+    def counted_states(*args, **kwargs):
+        before = read_counts()
+        out = states(*args, **kwargs)
+        for name, c in read_counts().items():
+            in_encoder[name] += c[0] - before[name][0]
+        return out
+
+    dec.frontend_states = counted_states
+    try:
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        gen, t_pre, t_dec, t_first = serve_once(arch, quiet=False)
+        counts = read_counts()
+    finally:
+        dec.frontend_states = states
     peak = torch.cuda.max_memory_allocated()
     if gen.shape != (B_SERVE, N_SERVE) or gen.min() < 0 or gen.max() >= cfg.vocab_size:
         raise AssertionError(f"generations {gen.shape} out of range")
     check_counts(f"{arch} serve", counts, want)
+    want_enc = {name: cfg.encoder_layers if name == "flash_attention" else 0 for name in want}
+    if in_encoder != want_enc:
+        raise AssertionError(f"{arch} serve: the encoder launched {in_encoder}, "
+                             f"expected {want_enc}")
     B, P, N = B_SERVE, P_SERVE, N_SERVE
     say("serve", f"{cfg.name} bf16 B={B} prompt={P} new={N}, first full-width run of it in "
                  f"this process: prefill {B * P / t_pre:.1f} tok/s "
@@ -646,9 +701,11 @@ def phase_serve(gpu: str, arch: str) -> dict:
                  f"{t_first * 1e3:.2f} ms, the {N - 1} replays "
                  f"{(t_dec - t_first) / (N - 1) * 1e3:.3f} ms/step), "
                  f"peak memory {peak / 2**30:.3f} GiB, "
-                 f"launches {({n: c[0] for n, c in counts.items()})}, plain calls on the card "
+                 f"launches {({n: c[0] for n, c in counts.items()})} (in the encoder "
+                 f"{in_encoder}), plain calls on the card "
                  f"{({n: c[1] for n, c in counts.items()})} | {gpu}")
-    return {name: counts[name][0] for name, n in want.items() if n}
+    return ({name: counts[name][0] for name, n in want.items() if n},
+            {name: in_encoder[name] for name, n in want.items() if n})
 
 
 def phase_ring(gpu: str) -> None:
@@ -882,17 +939,18 @@ def softcap_library_call(q, k, v, softcap: float, want: torch.Tensor):
     return call, err
 
 
-def flash_timing(gpu: str, B, H, G, S, dh, dtype, window=0, softcap=0.0) -> dict:
-    """The flash kernel, its plain version and one library call on one causal
-    input in the model's layout, and the card's bound.  ``window`` must not
-    bind at S: neither library call has it.  The library call is SDPA, or
-    with a softcap, which SDPA has not, compiled ``flex_attention``."""
+def flash_timing(gpu: str, B, H, G, S, dh, dtype, window=0, softcap=0.0,
+                 causal=True) -> dict:
+    """The flash kernel, its plain version and one library call on one input
+    in the model's layout, and the card's bound.  ``window`` must not bind
+    at S: neither library call has it.  The library call is SDPA, or with a
+    softcap, which SDPA has not, compiled ``flex_attention`` (causal only)."""
     from repro_torch.kernels.flash_attention import kernel
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     q, k, v = model_layout(np.random.default_rng(1), B, H, G, S, S, dh, dtype)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    kw = dict(causal=True, window=window, softcap=softcap)
+    kw = dict(causal=causal, window=window, softcap=softcap)
     n_launch = kernel.launches
     ms = time_ms(lambda: kernel.flash_attention(qt, kt, vt, **kw))
     plain_ms = time_ms(lambda: attention_ref(qt, kt, vt, **kw))
@@ -905,21 +963,23 @@ def flash_timing(gpu: str, B, H, G, S, dh, dtype, window=0, softcap=0.0) -> dict
     else:
         def lib_call():
             return torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
         library, note = "scaled_dot_product_attention", ""
     lib_ms = time_ms(lib_call)
     kernel.launches = n_launch  # timing launches are not the main path's
 
     el = torch.tensor([], dtype=dtype).element_size()
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * el  # q, o, k, v once each
-    flops = 4 * dh * B * H * S * (S + 1) // 2  # QK^T and PV over the causal pairs
+    # QK^T and PV over the pairs attended: the causal ones, or all
+    flops = 4 * dh * B * H * (S * (S + 1) // 2 if causal else S * S)
     bw, peak = next((p for n, p in PEAKS.items() if n in gpu), PEAKS["H100"])
     peak = peak if dtype == torch.bfloat16 else F32_FLOPS
     t_bytes, t_ops = nbytes / bw * 1e3, flops / peak * 1e3
     out = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": lib_ms,
            "library": library}
-    say("timing", f"flash_attention B={B} H={H} G={G} S={S} dh={dh} {str(dtype)[6:]} causal "
+    say("timing", f"flash_attention B={B} H={H} G={G} S={S} dh={dh} {str(dtype)[6:]} "
+                  f"{'causal' if causal else 'non-causal'} "
                   f"window={window} softcap={softcap:g}: kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms, {library}{note} {lib_ms:.4f} ms, bound "
                   f"{out['bound_ms']:.4f} ms ({out['bound_by']}: {nbytes / 1e6:.2f} MB = "
@@ -927,19 +987,24 @@ def flash_timing(gpu: str, B, H, G, S, dh, dtype, window=0, softcap=0.0) -> dict
     return out
 
 
-def phase_timing(gpu: str, launches: dict, errs: dict) -> dict:
+def phase_timing(gpu: str, launches: dict, in_encoder: dict, errs: dict) -> dict:
     """The flash row at llama3.2-1b's prefill shape, with each path's own
-    shape and launches under ``paths``; a line besides for the f32 route."""
+    shape and launches under ``paths`` (whisper's encoder and decoder
+    apart, each with the launches the serve run counted in it); a line
+    besides for the f32 route."""
     paths = []
-    for arch, label, H, G, dh, kw in FA_PATHS:
-        t = flash_timing(gpu, FA_B, H, G, FA_S, dh, torch.bfloat16, **kw)
-        paths.append(dict(arch=arch, shape=f"B={FA_B} H={H} G={G} S={FA_S} dh={dh} bf16 "
-                          f"causal{''.join(f' {k}={v:g}' for k, v in kw.items())}",
-                          launches=launches[arch]["flash_attention"],
+    for arch, label, part, H, G, S, dh, kw in FA_PATHS:
+        t = flash_timing(gpu, FA_B, H, G, S, dh, torch.bfloat16, **kw)
+        n_enc = in_encoder[arch].get("flash_attention", 0)
+        n = n_enc if part == "encoder" else launches[arch]["flash_attention"] - n_enc
+        mask = "causal" if kw.get("causal", True) else "non-causal"
+        shape = (f"B={FA_B} H={H} G={G} S={S} dh={dh} bf16 {mask}"
+                 f"{''.join(f' {k}={v:g}' for k, v in kw.items() if k != 'causal')}")
+        paths.append(dict(arch=arch, part=part, shape=shape, launches=n,
                           max_abs_err=errs[label], **t))
     # the f32 route (the CUDA-core kernel) at llama's shape, for its own record
-    _, _, H, G, dh, _ = FA_PATHS[0]
-    flash_timing(gpu, FA_B, H, G, FA_S, dh, torch.float32)
+    _, _, _, H, G, S, dh, _ = FA_PATHS[0]
+    flash_timing(gpu, FA_B, H, G, S, dh, torch.float32)
     main = paths[0]
     return {
         "name": "flash_attention",
@@ -1103,11 +1168,13 @@ def main() -> int:
     lru_err = phase_lru_cases()
     for arch in ARCHS:
         phase_parity(arch)
-    launches = {arch: phase_serve(gpu, arch) for arch in ARCHS}
+    served = {arch: phase_serve(gpu, arch) for arch in ARCHS}
+    launches = {arch: counts for arch, (counts, _) in served.items()}
+    in_encoder = {arch: enc for arch, (_, enc) in served.items()}
     phase_ring(gpu)
     for arch in ARCHS:
         phase_breakdown(gpu, arch)
-    rows = [phase_timing(gpu, launches, fa_errs),
+    rows = [phase_timing(gpu, launches, in_encoder, fa_errs),
             phase_wkv_timing(gpu, launches, wkv_err, wkv_parts),
             phase_lru_timing(gpu, launches, lru_err)]
     print(json.dumps({"kernels": rows}))

@@ -9,17 +9,19 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict
 
-from repro_torch.configs.base import ATTN, LayerGroup, ModelConfig
+from repro_torch.configs.base import ATTN, ATTNX, XATTN, LayerGroup, ModelConfig
 from repro_torch.configs.codeqwen1_5_7b import CONFIG as CODEQWEN1_5_7B
 from repro_torch.configs.gemma2_9b import CONFIG as GEMMA2_9B
 from repro_torch.configs.llama3_2_1b import CONFIG as LLAMA3_2_1B
+from repro_torch.configs.llama3_2_vision_11b import CONFIG as LLAMA3_2_VISION_11B
 from repro_torch.configs.olmo_1b import CONFIG as OLMO_1B
 from repro_torch.configs.recurrentgemma_9b import CONFIG as RECURRENTGEMMA_9B
 from repro_torch.configs.rwkv6_1_6b import CONFIG as RWKV6_1_6B
+from repro_torch.configs.whisper_small import CONFIG as WHISPER_SMALL
 
 ARCHS: Dict[str, ModelConfig] = {
     c.name: c for c in [LLAMA3_2_1B, RWKV6_1_6B, RECURRENTGEMMA_9B, OLMO_1B,
-                        CODEQWEN1_5_7B, GEMMA2_9B]
+                        CODEQWEN1_5_7B, GEMMA2_9B, WHISPER_SMALL, LLAMA3_2_VISION_11B]
 }
 
 
@@ -55,4 +57,5 @@ def smoke_config(name: str) -> ModelConfig:
     )
 
 
-__all__ = ["ARCHS", "ATTN", "LayerGroup", "ModelConfig", "get_config", "smoke_config"]
+__all__ = ["ARCHS", "ATTN", "ATTNX", "XATTN", "LayerGroup", "ModelConfig", "get_config",
+           "smoke_config"]

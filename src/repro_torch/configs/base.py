@@ -10,7 +10,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
-# Layer descriptor kinds (the port runs ATTN, LOCAL, RWKV and RGLRU so far).
+# Layer descriptor kinds (the port runs all six; MoE layers not yet).
 ATTN = "attn"        # global self-attention (causal for decoders)
 LOCAL = "local"      # sliding-window self-attention
 XATTN = "xattn"      # cross-attention layer w/ own MLP (llama-vision style)

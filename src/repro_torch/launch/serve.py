@@ -6,18 +6,21 @@
 Ported from ``repro.launch.serve``: the same flags (plus ``--device``, which
 defaults to ``cuda``), the same prompts from ``--seed``, the same
 ``prefill`` / ``decode.step`` spans (and a ``decode`` span around the
-loop) and ``serve.*`` metrics.  Kernels are on for the run.  On the card
-each decode step after the first is one replay of a CUDA graph captured
-from the first (``models.decode.DecodeGraph``), as the JAX package jits its
-decode step; the capture counts in ``serve.decode.seconds`` as JAX's first
-call counts its compile.  The JAX loop's per-step planner consult and its
-failure drills (``--degrade-at``, ``--fail-at``, ``--scenario``) are not
-ported yet.
+loop) and ``serve.*`` metrics.  Whisper and llama-vision get the JAX
+package's frontend stub: random frame or patch embeddings drawn after the
+prompts from the same numpy generator (``frontend_stub``).  Kernels are on
+for the run.  On the card each decode step after the first is one replay of
+a CUDA graph captured from the first (``models.decode.DecodeGraph``), as
+the JAX package jits its decode step; the capture counts in
+``serve.decode.seconds`` as JAX's first call counts its compile.  The JAX
+loop's per-step planner consult and its failure drills (``--degrade-at``,
+``--fail-at``, ``--scenario``) are not ported yet.
 """
 from __future__ import annotations
 
 import argparse
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -32,6 +35,18 @@ from repro_torch.obs import metrics, trace
 def _check_finite(logits: torch.Tensor, where: str) -> None:
     if not bool(torch.isfinite(logits).all()):
         raise FloatingPointError(f"non-finite logits after {where}")
+
+
+def frontend_stub(cfg, rng: np.random.Generator, batch: int, device) -> Optional[torch.Tensor]:
+    """The stand-in for an audio or vision frontend: standard normal
+    embeddings (B, frontend_tokens, frontend_dim or d_model) drawn in f32
+    from ``rng`` and cast to bf16, the JAX package's draw; None for a model
+    without a frontend."""
+    if not cfg.frontend_tokens:
+        return None
+    shape = (batch, cfg.frontend_tokens, cfg.frontend_dim or cfg.d_model)
+    embeds = rng.standard_normal(shape, dtype=np.float32)
+    return torch.from_numpy(embeds).to(device=device, dtype=torch.bfloat16)
 
 
 def main(argv=None) -> np.ndarray:
@@ -67,6 +82,7 @@ def main(argv=None) -> np.ndarray:
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(2, cfg.vocab_size, size=(B, P_len), dtype=np.int32)
     tokens = torch.from_numpy(prompts).to(device)
+    frontend = frontend_stub(cfg, rng, B, device)
 
     was_on = kernels_enabled()
     use_kernels(True)
@@ -75,7 +91,8 @@ def main(argv=None) -> np.ndarray:
             torch.cuda.synchronize(device)  # weights and prompts are in place
         t0 = time.perf_counter()
         with trace.span("prefill", batch=B, prompt_len=P_len):
-            logits, caches = dec.prefill(cfg, params, tokens, capacity=capacity)
+            logits, caches = dec.prefill(cfg, params, tokens, frontend=frontend,
+                                         capacity=capacity)
             _check_finite(logits, "prefill")  # waits for the device
         t_prefill = time.perf_counter() - t0
         metrics.observe("serve.prefill.seconds", t_prefill)

@@ -1,15 +1,17 @@
-"""Attention layers: GQA self-attention and decode against a KV cache.
+"""Attention layers: GQA self-attention, cross-attention and decode against a
+KV cache.
 
-Ported from ``repro.models.attention`` (ATTN and LOCAL layers).  Heads stay
-in an explicit (groups, heads-per-group) layout so GQA never repeats K/V.
-Full-sequence attention switches to a KV-chunked online softmax above
-``CHUNK_THRESHOLD`` keys; with kernels on and Sq == Sk it goes to the flash
-kernel instead (the dispatch ``repro.models.attention.attend`` makes).
-Decode attention stays plain torch: the JAX package has no kernel for it.
+Ported from ``repro.models.attention``.  Heads stay in an explicit
+(groups, heads-per-group) layout so GQA never repeats K/V.  Full-sequence
+attention switches to a KV-chunked online softmax above ``CHUNK_THRESHOLD``
+keys; with kernels on and Sq == Sk it goes to the flash kernel instead (the
+dispatch ``repro.models.attention.attend`` makes).
+Decode attention and cross-attention stay plain torch: the JAX package has
+no kernel for them.
 """
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -28,14 +30,18 @@ NEG_INF = -2.3819763e38  # large negative for masking (fits f32)
 # Parameters.
 # --------------------------------------------------------------------------
 
-def attn_params(cfg: ModelConfig, gen: torch.Generator, lead: Tuple[int, ...] = ()) -> dict:
-    """QKV + output projection; ``lead`` prepends stacking axes."""
+def attn_params(cfg: ModelConfig, gen: torch.Generator, lead: Tuple[int, ...] = (),
+                kv_input_dim: Optional[int] = None) -> dict:
+    """QKV + output projection; ``lead`` prepends stacking axes.
+    ``kv_input_dim`` overrides the K/V input width for cross-attention over
+    frontend embeddings (llama-vision)."""
     d, H, KV, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    kd = kv_input_dim or d
     dt = dtype_of(cfg)
     return {
         "wq": dense_init(gen, lead + (d, H, dh), dt, fan_in=d),
-        "wk": dense_init(gen, lead + (d, KV, dh), dt, fan_in=d),
-        "wv": dense_init(gen, lead + (d, KV, dh), dt, fan_in=d),
+        "wk": dense_init(gen, lead + (kd, KV, dh), dt, fan_in=kd),
+        "wv": dense_init(gen, lead + (kd, KV, dh), dt, fan_in=kd),
         "wo": dense_init(gen, lead + (H, dh, d), dt, fan_in=H * dh),
     }
 
@@ -82,11 +88,14 @@ def _mask_bias(
 # --------------------------------------------------------------------------
 
 def _attend_dense(
-    cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor
+    cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
+    """Softmax attention over all of ``k``; ``bias`` (additive mask) or none."""
     logits = torch.einsum("bsgmd,btgd->bgmst", q.float(), k.float()) * _scale(cfg)
     logits = softcap(logits, cfg.attn_softcap)
-    logits = logits + bias
+    if bias is not None:
+        logits = logits + bias
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bgmst,btgd->bsgmd", probs.to(v.dtype), v)
 
@@ -193,10 +202,40 @@ def self_attention(
     window: int = 0,
     causal: bool = True,
 ) -> torch.Tensor:
-    """Full-sequence self-attention (prefill / training forward)."""
+    """Full-sequence self-attention (prefill / training forward / encoder)."""
     q, k, v = qkv_proj(cfg, p, x, positions)
     out = attend(cfg, q, k, v, positions, positions, window=window, causal=causal)
     return out_proj(p, out)
+
+
+def cross_attention(
+    cfg: ModelConfig,
+    p: dict,
+    x: torch.Tensor,  # (B, S, d)
+    kv: Tuple[torch.Tensor, torch.Tensor],  # precomputed (B, T, G, dh) pairs
+) -> torch.Tensor:
+    """Cross-attention over precomputed K/V (encoder output / image patches).
+    No positional rotation, no mask (all frontend tokens visible), and never
+    the flash kernel, as in the JAX package."""
+    B, S, _ = x.shape
+    k, v = kv
+    qg = _split_groups(cfg, _project(x, p["wq"]))
+    T = k.shape[1]
+    if T > CHUNK_THRESHOLD:
+        zeros_q = torch.zeros((S,), dtype=torch.int32, device=x.device)
+        zeros_k = torch.zeros((T,), dtype=torch.int32, device=x.device)
+        out = _attend_chunked(cfg, qg, k, v, zeros_q, zeros_k, 0, causal=False)
+    else:
+        out = _attend_dense(cfg, qg, k, v)
+    return out_proj(p, out.reshape(B, S, cfg.n_heads, cfg.head_dim_))
+
+
+def cross_kv(cfg: ModelConfig, p: dict, enc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention K/V (B, T, G, dh) from encoder / frontend states.
+    ``enc`` is cast to the weights' dtype first: the JAX package's einsum
+    promotes a bf16 frontend to f32 weights the same way."""
+    enc = enc.to(p["wk"].dtype)
+    return _project(enc, p["wk"]), _project(enc, p["wv"])
 
 
 # --------------------------------------------------------------------------

@@ -36,3 +36,22 @@ def array_to_torch(a: np.ndarray, device="cpu") -> torch.Tensor:
 def params_from_jax(tree, device="cpu"):
     """numpy tree (JAX package layout) -> torch tree on ``device``."""
     return tree_map(lambda a: array_to_torch(a, device), tree)
+
+
+def draw_xattn_gates(params: dict, rng: np.random.Generator, leaf: Callable = np.asarray) -> int:
+    """Every XATTN layer's ``gate_attn`` and ``gate_mlp`` (0-d a layer,
+    stacked over the group's count) to values in ±[0.3, 1.0) from ``rng``,
+    in place, each f32 array made a leaf by ``leaf`` (the array itself for
+    a tree in the JAX package's layout, ``torch.from_numpy`` and a move for
+    the port's).  The gates start at zero, where tanh(0) = 0 and the layer
+    adds nothing, so a parity check draws them first.  Returns how many gate
+    arrays were set."""
+    n = 0
+    for layer in (layer for group in params["groups"] for layer in group):
+        for key in ("gate_attn", "gate_mlp"):
+            if key in layer:
+                shape = tuple(layer[key].shape)
+                mag = rng.uniform(0.3, 1.0, shape)
+                layer[key] = leaf((mag * rng.choice([-1.0, 1.0], shape)).astype(np.float32))
+                n += 1
+    return n

@@ -1,17 +1,19 @@
 """Serving entry points: cache init, prefill and single-token decode.
 
-Ported from ``repro.models.decode`` for ATTN, LOCAL, RWKV and RGLRU layers.
-Caches mirror the parameter structure: one tuple per layer group, one dict
-per layer kind of the group's pattern, leaves stacked over the group's
+Ported from ``repro.models.decode`` for every layer kind but MoE.  Caches
+mirror the parameter structure: one tuple per layer group, one dict per
+layer kind of the group's pattern, leaves stacked over the group's
 ``count``: a KV cache for ATTN; a ring-buffer KV cache of capacity
-``min(window, capacity)`` for LOCAL (O(1) in context length); the O(1)
-recurrent state and the two token shifts for RWKV; the recurrence state and
-the conv tail for RGLRU.  A Python loop over the stack replaces
-``lax.scan``.  Decode writes each new key and value, or the new states and
-shifts, into the stacked cache in place (through per-layer views) and hands
-back the same cache object; the JAX package returns a new one.  Its ``pos``
-is a device tensor, so that ``DecodeGraph`` can capture a whole step as one
-CUDA graph, the counterpart of the JAX package's jitted decode step.
+``min(window, capacity)`` for LOCAL (O(1) in context length); the cross K/V
+over the frontend (``ck``, ``cv``) for XATTN; a KV cache (``kv``) and the
+cross K/V for ATTNX; the O(1) recurrent state and the two token shifts for
+RWKV; the recurrence state and the conv tail for RGLRU.  A Python loop over
+the stack replaces ``lax.scan``.  Decode writes each new key and value, or
+the new states and shifts, into the stacked cache in place (through
+per-layer views) and hands back the same cache object; the JAX package
+returns a new one.  Its ``pos`` is a device tensor, so that ``DecodeGraph``
+can capture a whole step as one CUDA graph, the counterpart of the JAX
+package's jitted decode step.
 """
 from __future__ import annotations
 
@@ -20,14 +22,17 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from repro_torch.configs.base import ATTN, LOCAL, RGLRU, RWKV, ModelConfig
+from repro_torch.configs.base import ATTN, ATTNX, LOCAL, RGLRU, RWKV, XATTN, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import griffin, rwkv
-from repro_torch.models.common import apply_norm, mlp_apply, unembed
+from repro_torch.models.common import apply_norm, dtype_of, mlp_apply, unembed
+from repro_torch.models.convert import tree_map
 from repro_torch.models.transformer import (
     _embed_tokens,
     _positions_embed,
     check_supported,
+    frontend_states,
+    gate,
     layer_params,
     post_norm,
 )
@@ -39,6 +44,13 @@ def _layer_cache(cfg: ModelConfig, kind: str, batch: int, capacity: int, device)
     if kind == LOCAL:
         return attn.init_kv_cache(cfg, batch, attn.cache_capacity(cfg.window, capacity),
                                   device=device)
+    if kind in (XATTN, ATTNX):
+        shape = (batch, max(cfg.frontend_tokens, 1), cfg.n_kv_heads, cfg.head_dim_)
+        cache = {"ck": torch.zeros(shape, dtype=dtype_of(cfg), device=device),
+                 "cv": torch.zeros(shape, dtype=dtype_of(cfg), device=device)}
+        if kind == ATTNX:
+            cache["kv"] = attn.init_kv_cache(cfg, batch, capacity, device=device)
+        return cache
     if kind == RWKV:
         return rwkv.init_rwkv_cache(cfg, batch, device=device)
     if kind == RGLRU:
@@ -52,24 +64,26 @@ def init_caches(cfg: ModelConfig, batch: int, capacity: int, device=None) -> tup
     groups = []
     for g in cfg.groups:
         single = [_layer_cache(cfg, kind, batch, capacity, device) for kind in g.pattern]
-        groups.append(tuple(
-            {k: t.unsqueeze(0).repeat(g.count, *([1] * t.dim())) for k, t in c.items()}
-            for c in single
-        ))
+        groups.append(tree_map(lambda t: t.unsqueeze(0).repeat(g.count, *([1] * t.dim())),
+                               tuple(single)))
     return tuple(groups)
+
+
+def _stack_dicts(dicts: list) -> dict:
+    """Dicts of one structure (nested, as ATTNX's ``kv``) -> one dict whose
+    leaves are stacked over the list."""
+    return {key: _stack_dicts([d[key] for d in dicts]) if isinstance(dicts[0][key], dict)
+            else torch.stack([d[key] for d in dicts]) for key in dicts[0]}
 
 
 def _stack(per_rep: list) -> tuple:
     """[rep][kind] -> (kind) of dicts with leaves stacked over rep."""
-    return tuple(
-        {key: torch.stack([rep[j][key] for rep in per_rep]) for key in per_rep[0][j]}
-        for j in range(len(per_rep[0]))
-    )
+    return tuple(_stack_dicts([rep[j] for rep in per_rep]) for j in range(len(per_rep[0])))
 
 
 def _prefill_layer(
     cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, positions: torch.Tensor,
-    capacity: int,
+    enc: Optional[torch.Tensor], capacity: int,
 ) -> Tuple[torch.Tensor, dict]:
     if kind in (ATTN, LOCAL):
         window = cfg.window if kind == LOCAL else 0
@@ -81,6 +95,24 @@ def _prefill_layer(
         x = x + post_norm(cfg, p, "post_ln1", attn.out_proj(p["attn"], o))
         h = apply_norm(cfg, x, p["ln2"])
         return x + post_norm(cfg, p, "post_ln2", mlp_apply(cfg, p["mlp"], h)), cache
+    if kind == XATTN:
+        ck, cv = attn.cross_kv(cfg, p["xattn"], enc)
+        h = apply_norm(cfg, x, p["ln1"])
+        x = x + gate(p, "gate_attn", x) * attn.cross_attention(cfg, p["xattn"], h, (ck, cv))
+        h = apply_norm(cfg, x, p["ln2"])
+        x = x + gate(p, "gate_mlp", x) * mlp_apply(cfg, p["mlp"], h)
+        return x, {"ck": ck, "cv": cv}
+    if kind == ATTNX:
+        h = apply_norm(cfg, x, p["ln1"])
+        q, k, v = attn.qkv_proj(cfg, p["attn"], h, positions)
+        kv = attn.cache_from_kv(k, v, positions, capacity)
+        o = attn.attend(cfg, q, k, v, positions, positions)
+        x = x + attn.out_proj(p["attn"], o)
+        ck, cv = attn.cross_kv(cfg, p["xattn"], enc)
+        h = apply_norm(cfg, x, p["ln_x"])
+        x = x + attn.cross_attention(cfg, p["xattn"], h, (ck, cv))
+        h = apply_norm(cfg, x, p["ln2"])
+        return x + mlp_apply(cfg, p["mlp"], h), {"kv": kv, "ck": ck, "cv": cv}
     if kind == RWKV:
         h = apply_norm(cfg, x, p["ln1"])
         y, state = rwkv.rwkv_time_mix_prefill(cfg, p["tm_cm"], h)
@@ -103,6 +135,7 @@ def prefill(
     params: dict,
     tokens: torch.Tensor,  # (B, S)
     *,
+    frontend: Optional[torch.Tensor] = None,  # (B, T, frontend_dim) stub embeddings
     capacity: Optional[int] = None,
 ) -> Tuple[torch.Tensor, tuple]:
     """Returns (logits of the last position (B, V) f32, caches)."""
@@ -110,6 +143,7 @@ def prefill(
     S = tokens.shape[1]
     capacity = capacity or S
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+    enc = frontend_states(cfg, params, frontend)
     x = _embed_tokens(cfg, params, tokens)
     x = _positions_embed(cfg, params, x, positions)
 
@@ -119,7 +153,7 @@ def prefill(
         for i in range(group.count):
             outs = []
             for kind, p in zip(group.pattern, layer_params(gp, i)):
-                x, c = _prefill_layer(cfg, kind, p, x, positions, capacity)
+                x, c = _prefill_layer(cfg, kind, p, x, positions, enc, capacity)
                 outs.append(c)
             per_rep.append(outs)
         caches.append(_stack(per_rep))
@@ -138,6 +172,20 @@ def _decode_layer(
         x = x + post_norm(cfg, p, "post_ln1", a)
         h = apply_norm(cfg, x, p["ln2"])
         return x + post_norm(cfg, p, "post_ln2", mlp_apply(cfg, p["mlp"], h))
+    if kind == XATTN:
+        h = apply_norm(cfg, x, p["ln1"])
+        a = attn.cross_attention(cfg, p["xattn"], h, (cache["ck"], cache["cv"]))
+        x = x + gate(p, "gate_attn", x) * a
+        h = apply_norm(cfg, x, p["ln2"])
+        return x + gate(p, "gate_mlp", x) * mlp_apply(cfg, p["mlp"], h)
+    if kind == ATTNX:
+        h = apply_norm(cfg, x, p["ln1"])
+        a, _ = attn.decode_attention(cfg, p["attn"], h, pos, cache["kv"])
+        x = x + a
+        h = apply_norm(cfg, x, p["ln_x"])
+        x = x + attn.cross_attention(cfg, p["xattn"], h, (cache["ck"], cache["cv"]))
+        h = apply_norm(cfg, x, p["ln2"])
+        return x + mlp_apply(cfg, p["mlp"], h)
     if kind == RWKV:
         h = apply_norm(cfg, x, p["ln1"])
         y, _ = rwkv.rwkv_time_mix_decode(cfg, p["tm_cm"], h, cache)

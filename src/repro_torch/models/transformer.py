@@ -1,20 +1,31 @@
 """The model: layer groups applied over parameters stacked per group.
 
-Ported from ``repro.models.transformer`` for ATTN, LOCAL, RWKV and RGLRU
-layers, with or without post-norms (gemma2), on one device (``dist=None``).
-The parameter tree keeps the JAX package's keys and its stacking over a
-group's ``count`` (``_superblock_params``), so a JAX tree carried across by
+Ported from ``repro.models.transformer`` for ATTN, LOCAL, XATTN (gated
+cross-attention, llama-vision), ATTNX (self + cross, whisper's decoder),
+RWKV and RGLRU layers, with or without post-norms (gemma2), and whisper's
+encoder, on one device (``dist=None``).  The parameter tree keeps the JAX
+package's keys and its stacking over a group's ``count``
+(``_superblock_params``), so a JAX tree carried across by
 ``convert.params_from_jax`` runs here unchanged; the layer loop replaces
 ``lax.scan`` over the stack.
 """
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ATTN, LOCAL, RGLRU, RWKV, LayerGroup, ModelConfig
+from repro_torch.configs.base import (
+    ATTN,
+    ATTNX,
+    LOCAL,
+    RGLRU,
+    RWKV,
+    XATTN,
+    LayerGroup,
+    ModelConfig,
+)
 from repro_torch.models import attention as attn
 from repro_torch.models import griffin, rwkv
 from repro_torch.models.common import (
@@ -28,18 +39,17 @@ from repro_torch.models.common import (
 )
 
 
-PORTED_KINDS = (ATTN, LOCAL, RWKV, RGLRU)
+PORTED_KINDS = (ATTN, LOCAL, XATTN, ATTNX, RWKV, RGLRU)
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port runs dense decoders whose layers are any mix of the ported
-    kinds, with or without post-norms (no MoE, encoder, or cross-attention
-    layers)."""
+    """The port runs dense models whose layers are any mix of the ported
+    kinds, with or without post-norms and an encoder (no MoE yet)."""
     kinds = {k for g in cfg.groups for k in g.pattern}
-    if not kinds <= set(PORTED_KINDS) or cfg.is_moe or cfg.encoder_layers:
+    if not kinds <= set(PORTED_KINDS) or cfg.is_moe:
         raise NotImplementedError(
-            f"{cfg.name}: layer kinds {sorted(kinds)}; the port runs decoders whose "
-            f"layers are each one of {PORTED_KINDS} (dense, no encoder)")
+            f"{cfg.name}: layer kinds {sorted(kinds)}, {cfg.n_experts} experts; the port "
+            f"runs dense models whose layers are each one of {PORTED_KINDS}")
 
 
 # --------------------------------------------------------------------------
@@ -65,6 +75,17 @@ def _layer_params(cfg: ModelConfig, kind: str, gen: torch.Generator, lead: Tuple
         if cfg.post_norms:
             p["post_ln1"] = norm_params(cfg, lead, gen.device)
             p["post_ln2"] = norm_params(cfg, lead, gen.device)
+    elif kind == XATTN:  # gated cross-attention layer (llama-vision)
+        p["xattn"] = attn.attn_params(cfg, gen, lead, kv_input_dim=cfg.frontend_dim or cfg.d_model)
+        p["mlp"] = mlp_params(cfg, gen, lead)
+        # tanh(0) = 0: a fresh layer adds nothing until its gates are trained
+        p["gate_attn"] = torch.zeros(lead, dtype=torch.float32, device=gen.device)
+        p["gate_mlp"] = torch.zeros(lead, dtype=torch.float32, device=gen.device)
+    elif kind == ATTNX:  # whisper decoder layer: self + cross + mlp
+        p["attn"] = attn.attn_params(cfg, gen, lead)
+        p["ln_x"] = norm_params(cfg, lead, gen.device)
+        p["xattn"] = attn.attn_params(cfg, gen, lead, kv_input_dim=cfg.d_model)
+        p["mlp"] = mlp_params(cfg, gen, lead)
     elif kind == RWKV:
         p["tm_cm"] = rwkv.rwkv_params(cfg, gen, lead)
     elif kind == RGLRU:
@@ -80,14 +101,35 @@ def _superblock_params(cfg: ModelConfig, group: LayerGroup, gen: torch.Generator
     return tuple(_layer_params(cfg, kind, gen, (group.count,)) for kind in group.pattern)
 
 
+def _encoder_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    """Whisper's encoder: ``layers`` one dict whose leaves are stacked over
+    ``encoder_layers``, its final norm and learned positions (std 0.02)."""
+    lead = (cfg.encoder_layers,)
+    pos = 0.02 * torch.randn((max(cfg.frontend_tokens, 1), cfg.d_model), generator=gen,
+                             dtype=torch.float32, device=gen.device)
+    return {
+        "layers": {
+            "ln1": norm_params(cfg, lead, gen.device),
+            "attn": attn.attn_params(cfg, gen, lead),
+            "ln2": norm_params(cfg, lead, gen.device),
+            "mlp": mlp_params(cfg, gen, lead),
+        },
+        "final_norm": norm_params(cfg, (), gen.device),
+        "pos": pos.to(dtype_of(cfg)),
+    }
+
+
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     """Random weights on ``gen``'s device."""
     check_supported(cfg)
-    return {
+    params = {
         "embed": embed_params(cfg, gen),
         "groups": tuple(_superblock_params(cfg, g, gen) for g in cfg.groups),
         "final_norm": norm_params(cfg, (), gen.device),
     }
+    if cfg.encoder_layers:
+        params["encoder"] = _encoder_params(cfg, gen)
+    return params
 
 
 def _take(tree, i: int):
@@ -123,10 +165,19 @@ def _embed_tokens(cfg: ModelConfig, params: dict, tokens: torch.Tensor) -> torch
     return x
 
 
-def _positions_embed(cfg: ModelConfig, params: dict, x: torch.Tensor, positions) -> torch.Tensor:
+def _positions_embed(cfg: ModelConfig, params: dict, x: torch.Tensor,
+                     positions: torch.Tensor) -> torch.Tensor:
+    """Learned positions gathered on the device (``positions`` is a tensor,
+    in decode the 0-d step position as a (1,) view), so a captured step reads
+    nothing on the host."""
     if cfg.pos == "learned":
-        x = x + params["embed"]["pos"][positions]
+        x = x + params["embed"]["pos"].index_select(0, positions)
     return x
+
+
+def gate(p: dict, key: str, x: torch.Tensor) -> torch.Tensor:
+    """tanh of an XATTN layer's 0-d f32 gate, in ``x``'s dtype, on the device."""
+    return torch.tanh(p[key]).to(x.dtype)
 
 
 def post_norm(cfg: ModelConfig, p: dict, key: str, y: torch.Tensor) -> torch.Tensor:
@@ -136,7 +187,8 @@ def post_norm(cfg: ModelConfig, p: dict, key: str, y: torch.Tensor) -> torch.Ten
 
 
 def _apply_layer_full(
-    cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, positions: torch.Tensor
+    cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, positions: torch.Tensor,
+    enc: Optional[torch.Tensor] = None,  # what XATTN / ATTNX layers attend to
 ) -> torch.Tensor:
     if kind in (ATTN, LOCAL):
         h = apply_norm(cfg, x, p["ln1"])
@@ -146,6 +198,19 @@ def _apply_layer_full(
         x = x + post_norm(cfg, p, "post_ln1", a)
         h = apply_norm(cfg, x, p["ln2"])
         return x + post_norm(cfg, p, "post_ln2", mlp_apply(cfg, p["mlp"], h))
+    if kind == XATTN:
+        h = apply_norm(cfg, x, p["ln1"])
+        a = attn.cross_attention(cfg, p["xattn"], h, attn.cross_kv(cfg, p["xattn"], enc))
+        x = x + gate(p, "gate_attn", x) * a
+        h = apply_norm(cfg, x, p["ln2"])
+        return x + gate(p, "gate_mlp", x) * mlp_apply(cfg, p["mlp"], h)
+    if kind == ATTNX:
+        h = apply_norm(cfg, x, p["ln1"])
+        x = x + attn.self_attention(cfg, p["attn"], h, positions)
+        h = apply_norm(cfg, x, p["ln_x"])
+        x = x + attn.cross_attention(cfg, p["xattn"], h, attn.cross_kv(cfg, p["xattn"], enc))
+        h = apply_norm(cfg, x, p["ln2"])
+        return x + mlp_apply(cfg, p["mlp"], h)
     if kind == RWKV:
         h = apply_norm(cfg, x, p["ln1"])
         x = x + rwkv.rwkv_time_mix(cfg, p["tm_cm"], h)
@@ -159,20 +224,51 @@ def _apply_layer_full(
     raise ValueError(kind)
 
 
+def _run_encoder(cfg: ModelConfig, params: dict, frontend: torch.Tensor) -> torch.Tensor:
+    """Whisper's encoder: learned positions, then per layer bidirectional
+    self-attention (flash with ``causal=False`` when kernels are on) and
+    the MLP, each behind its norm; then the final norm."""
+    enc_p = params["encoder"]
+    T = frontend.shape[1]
+    x = frontend + enc_p["pos"][None, :T]
+    positions = torch.arange(T, dtype=torch.int32, device=frontend.device)
+    for i in range(cfg.encoder_layers):
+        p = _take(enc_p["layers"], i)
+        h = apply_norm(cfg, x, p["ln1"])
+        x = x + attn.self_attention(cfg, p["attn"], h, positions, causal=False)
+        h = apply_norm(cfg, x, p["ln2"])
+        x = x + mlp_apply(cfg, p["mlp"], h)
+    return apply_norm(cfg, x, enc_p["final_norm"])
+
+
+def frontend_states(cfg: ModelConfig, params: dict,
+                    frontend: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """What the cross-attention layers attend to: the encoder's output where
+    the model has an encoder (whisper), the raw patch embeddings for a
+    vision-language model, else None."""
+    if cfg.encoder_layers:
+        return _run_encoder(cfg, params, frontend)
+    if cfg.family == "vlm":
+        return frontend
+    return None
+
+
 def forward(
-    cfg: ModelConfig, params: dict, tokens: torch.Tensor
+    cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
+    frontend: Optional[torch.Tensor] = None,  # (B, T, frontend_dim) stub embeddings
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B, S, V) f32, aux_loss scalar); the aux loss is the
     MoE router's, zero for the dense layers ported so far."""
     check_supported(cfg)
     S = tokens.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+    enc = frontend_states(cfg, params, frontend)
     x = _embed_tokens(cfg, params, tokens)
     x = _positions_embed(cfg, params, x, positions)
     for group, gp in zip(cfg.groups, params["groups"]):
         for i in range(group.count):
             for kind, p in zip(group.pattern, layer_params(gp, i)):
-                x = _apply_layer_full(cfg, kind, p, x, positions)
+                x = _apply_layer_full(cfg, kind, p, x, positions, enc)
     x = apply_norm(cfg, x, params["final_norm"])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return unembed(cfg, params["embed"], x), aux

@@ -23,7 +23,7 @@ from repro_torch.kernels.rwkv6 import ops as wkv_ops
 from repro_torch.kernels.rwkv6.ref import wkv6_ref
 from repro_torch.models import decode as dec
 from repro_torch.models import griffin
-from repro_torch.models.convert import tree_map
+from repro_torch.models.convert import draw_xattn_gates, tree_map
 from repro_torch.models.transformer import init_params
 
 pytestmark = pytest.mark.cuda
@@ -65,6 +65,10 @@ def cuda_device():
     (4, 16, 8, 512, 256, torch.bfloat16, {"softcap": 50.0, "window": 4096}),
     (1, 16, 8, 700, 256, torch.bfloat16, {"softcap": 50.0, "window": 256}),
     (1, 16, 8, 300, 256, torch.float32, {"softcap": 50.0, "window": 64}),
+    # whisper's encoder: 1500 frames, no causal mask, a 92-row last tile;
+    # and the f32 (CUDA-core) route non-causal at a ragged length
+    (4, 12, 12, 1500, 64, torch.bfloat16, {"causal": False}),
+    (1, 4, 4, 1100, 64, torch.float32, {"causal": False}),
 ])
 def test_kernel_matches_plain_version(cuda_device, B, H, G, S, dh, dtype, kw):
     """f32 at 1e-4: the kernel sums in another order than the plain version;
@@ -290,21 +294,31 @@ def _leaves(tree) -> list:
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "rwkv6-1.6b", "recurrentgemma-9b", "olmo-1b",
-                                  "codeqwen1.5-7b", "gemma2-9b"])
+                                  "codeqwen1.5-7b", "gemma2-9b", "whisper-small",
+                                  "llama-3.2-vision-11b"])
 def test_decode_graph_replay_matches_eager(cuda_device, arch):
     """Smoke width in f32: the captured step replayed against the same steps
     run eagerly on the card from a copy of the same caches; logits at each
     step, the greedy tokens and every cache leaf at 1e-4.  A prompt of 40
     wraps the smoke window of 32, so the replays write a LOCAL ring at slot
-    ``pos % 32`` from the device."""
+    ``pos % 32`` from the device.  whisper and llama-vision get a frontend
+    and XATTN gates in ±[0.3, 1.0) (at their initial zero the layer adds
+    nothing); a replayed step reads learned positions, tanh of the gates and
+    the cross K/V on the device."""
     cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
     params = init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0))
     P, N = 40, 6
-    tokens = torch.from_numpy(
-        np.random.default_rng(0).integers(2, cfg.vocab_size, size=(2, P))).to(cuda_device)
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(2, cfg.vocab_size, size=(2, P))).to(cuda_device)
+    draw_xattn_gates(params, rng, lambda a: torch.from_numpy(a).to(cuda_device))
+    frontend = None
+    if cfg.frontend_tokens:
+        frontend = torch.from_numpy(rng.standard_normal(
+            (2, cfg.frontend_tokens, cfg.frontend_dim or cfg.d_model),
+            dtype=np.float32)).to(cuda_device)
     use_kernels(True)
     try:
-        logits, caches = dec.prefill(cfg, params, tokens, capacity=P + N)
+        logits, caches = dec.prefill(cfg, params, tokens, frontend=frontend, capacity=P + N)
     finally:
         use_kernels(False)
     tok = logits.argmax(-1)[:, None]

@@ -213,20 +213,23 @@ def test_init_caches_match_reference(cfgs):
 
 
 def test_check_supported_names_ported_kinds():
-    """Any mix of the ported kinds runs (RWKV with ATTN, all RGLRU); kinds
-    still unported (XATTN, ATTNX) and MoE are refused, naming the ported
-    kinds."""
+    """Any mix of the ported kinds runs (RWKV with ATTN, all RGLRU, RWKV with
+    XATTN or ATTNX); a kind the port does not know and MoE are refused, the
+    refusal naming the ported kinds."""
     cfg = tcfgs.get_config(ARCH)
     ttf.check_supported(cfg)
     ported = dataclasses.replace(cfg, groups=(tcfgs.LayerGroup(pattern=("rwkv", "attn"), count=2),))
     ttf.check_supported(ported)
     ttf.check_supported(dataclasses.replace(cfg, groups=(tcfgs.LayerGroup(("rglru",), 1),)))
-    mixed = dataclasses.replace(cfg, groups=(tcfgs.LayerGroup(pattern=("rwkv", "xattn"), count=2),))
-    with pytest.raises(NotImplementedError, match=r"\('attn', 'local', 'rwkv', 'rglru'\)"):
+    for kind in ("xattn", "attn_x"):
+        ttf.check_supported(dataclasses.replace(
+            cfg, groups=(tcfgs.LayerGroup(pattern=("rwkv", kind), count=2),)))
+    mixed = dataclasses.replace(cfg, groups=(tcfgs.LayerGroup(pattern=("rwkv", "ssm"), count=2),))
+    with pytest.raises(NotImplementedError,
+                       match=r"\('attn', 'local', 'xattn', 'attn_x', 'rwkv', 'rglru'\)"):
         ttf.check_supported(mixed)
     moe = dataclasses.replace(tcfgs.get_config("llama3.2-1b"), n_experts=4, top_k=2)
     with pytest.raises(NotImplementedError):
         ttf.check_supported(moe)
     with pytest.raises(NotImplementedError):
-        ttf.init_params(dataclasses.replace(cfg, groups=(tcfgs.LayerGroup(("attn_x",), 1),)),
-                        torch.Generator())
+        ttf.init_params(dataclasses.replace(cfg, n_experts=4, top_k=2), torch.Generator())

@@ -1,7 +1,8 @@
 """The port's serving path against the JAX package's, on JAX's own weights.
 
-Smoke llama3.2-1b, rwkv6-1.6b, recurrentgemma-9b, olmo-1b, codeqwen1.5-7b
-and gemma2-9b: JAX ``prefill`` + 8
+Smoke llama3.2-1b, rwkv6-1.6b, recurrentgemma-9b, olmo-1b, codeqwen1.5-7b,
+gemma2-9b, whisper-small and llama-3.2-vision-11b (with a frontend drawn
+with numpy, and every XATTN gate set non-zero): JAX ``prefill`` + 8
 ``decode_step``s against the port's, on the same weights
 (``params_from_jax``) and prompts.  In f32 the logits agree to 1e-4 (the
 sums run in another order through the layers and the head), the greedy
@@ -40,7 +41,7 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.rglru import ops as lru_ops
 from repro_torch.kernels.rwkv6 import ops as wkv_ops
 from repro_torch.launch import serve
-from repro_torch.models.convert import params_from_jax, tree_map
+from repro_torch.models.convert import draw_xattn_gates, params_from_jax, tree_map
 
 torch.set_num_threads(1)
 
@@ -50,9 +51,13 @@ GEMMA = "recurrentgemma-9b"
 OLMO = "olmo-1b"
 QWEN = "codeqwen1.5-7b"
 GEMMA2 = "gemma2-9b"
+WHISPER = "whisper-small"
+VISION = "llama-3.2-vision-11b"
 B, P, STEPS = 2, 16, 8
-# each layer kind's prefill kernel entry point
-KIND_OPS = {"attn": fa_ops, "local": fa_ops, "rwkv": wkv_ops, "rglru": lru_ops}
+# each layer kind's prefill kernel entry point (XATTN layers call none; each
+# encoder layer calls flash)
+KIND_OPS = {"attn": fa_ops, "local": fa_ops, "attn_x": fa_ops, "rwkv": wkv_ops,
+            "rglru": lru_ops}
 
 
 @pytest.fixture
@@ -69,23 +74,35 @@ def kernels_on(request):
 
 
 def _setup(dtype, arch=ARCH, prompt_len=P):
+    """Configs, JAX params, port params, prompts, and the frontend as (JAX,
+    port) arrays in ``dtype`` (None, None without one).  XATTN gates start at
+    zero, where the layer adds nothing: they are set to ±[0.3, 1.0) first."""
     jc = dataclasses.replace(jcfgs.smoke_config(arch), dtype=dtype)
     tc = dataclasses.replace(tcfgs.smoke_config(arch), dtype=dtype)
     jp = jax.jit(jtf.init_params, static_argnums=0)(jc, jax.random.PRNGKey(0))
-    prompts = np.random.default_rng(0).integers(2, jc.vocab_size, size=(B, prompt_len),
-                                                dtype=np.int32)
-    return jc, tc, jp, params_from_jax(jax.tree.map(np.asarray, jp)), prompts
+    jp = jax.tree.map(np.asarray, jp)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(2, jc.vocab_size, size=(B, prompt_len), dtype=np.int32)
+    draw_xattn_gates(jp, rng)
+    frontend = (None, None)
+    if jc.frontend_tokens:
+        fr = rng.standard_normal((B, jc.frontend_tokens, jc.frontend_dim or jc.d_model),
+                                 dtype=np.float32)
+        frontend = (jnp.asarray(fr, jnp.dtype(dtype)),
+                    torch.from_numpy(fr).to(getattr(torch, dtype)))
+    return jc, tc, jp, params_from_jax(jp), prompts, frontend
 
 
-def _run(jc, tc, jp, tp, prompts, *, teacher_forced):
+def _run(jc, tc, jp, tp, prompts, frontend=(None, None), *, teacher_forced):
     """Prefill + STEPS decode steps on both sides.  Each side decodes its own
     greedy pick, or both decode JAX's when ``teacher_forced``."""
     P = prompts.shape[1]
     cap = P + STEPS
     jpre = jax.jit(functools.partial(jdec.prefill, jc, capacity=cap))
     jstep = jax.jit(functools.partial(jdec.decode_step, jc))
-    jlog, jcache = jpre(jp, jnp.asarray(prompts))
-    tlog, tcache = tdec.prefill(tc, tp, torch.from_numpy(prompts), capacity=cap)
+    jlog, jcache = jpre(jp, jnp.asarray(prompts), frontend=frontend[0])
+    tlog, tcache = tdec.prefill(tc, tp, torch.from_numpy(prompts), frontend=frontend[1],
+                                capacity=cap)
     jlogs, tlogs, jtoks, ttoks = [jlog], [tlog], [], []
     for i in range(STEPS):
         jtok = jnp.argmax(jlog, axis=-1).astype(jnp.int32)[:, None]
@@ -116,18 +133,24 @@ def _run(jc, tc, jp, tp, prompts, *, teacher_forced):
     pytest.param(GEMMA2, 40, False, id="gemma2-9b-P40-False"),
     pytest.param(GEMMA2, 40, True, id="gemma2-9b-P40-True"),
     pytest.param(GEMMA2, 128, True, id="gemma2-9b-P128-True"),
+    pytest.param(WHISPER, 16, False, id="whisper-small-P16-False"),
+    pytest.param(WHISPER, 16, True, id="whisper-small-P16-True"),
+    pytest.param(VISION, 16, False, id="llama-3.2-vision-11b-P16-False"),
+    pytest.param(VISION, 16, True, id="llama-3.2-vision-11b-P16-True"),
 ], indirect=["kernels_on"])
 def test_prefill_decode_f32_matches_jax(arch, prompt_len, kernels_on):
-    jc, tc, jp, tp, prompts = _setup("float32", arch, prompt_len)
+    jc, tc, jp, tp, prompts, frontend = _setup("float32", arch, prompt_len)
     all_ops = set(KIND_OPS.values())
     plain_before = {ops: ops.plain_calls for ops in all_ops}
-    jlogs, tlogs, jtoks, ttoks, jcache, tcache = _run(jc, tc, jp, tp, prompts,
+    jlogs, tlogs, jtoks, ttoks, jcache, tcache = _run(jc, tc, jp, tp, prompts, frontend,
                                                       teacher_forced=False)
-    # with the switch on, prefill took each layer's kernel route once
+    # with the switch on, prefill took each layer's kernel route once, and
+    # flash once more for each encoder layer
     kinds = [k for g in tc.groups for k in g.pattern * g.count]
     for ops in all_ops:
-        want = sum(KIND_OPS[k] is ops for k in kinds) if kernels_on else 0
-        assert ops.plain_calls - plain_before[ops] == want
+        want = sum(KIND_OPS.get(k) is ops for k in kinds) + (tc.encoder_layers if ops is fa_ops
+                                                             else 0)
+        assert ops.plain_calls - plain_before[ops] == (want if kernels_on else 0)
     for j, t in zip(jlogs, tlogs):
         np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=1e-4, rtol=1e-4)
     np.testing.assert_array_equal(np.stack(ttoks), np.stack(jtoks))
@@ -139,8 +162,8 @@ def test_prefill_decode_f32_matches_jax(arch, prompt_len, kernels_on):
 
 
 def _check_bf16(arch, prompt_len=P, tol=5e-2):
-    jc, tc, jp, tp, prompts = _setup("bfloat16", arch, prompt_len)
-    jlogs, tlogs, _, ttoks, _, _ = _run(jc, tc, jp, tp, prompts, teacher_forced=True)
+    jc, tc, jp, tp, prompts, frontend = _setup("bfloat16", arch, prompt_len)
+    jlogs, tlogs, _, ttoks, _, _ = _run(jc, tc, jp, tp, prompts, frontend, teacher_forced=True)
     for j, t in zip(jlogs, tlogs):
         assert t.dtype == torch.float32
         np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=tol, rtol=tol)
