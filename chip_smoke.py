@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Eight serving paths and their kernels: llama3.2-1b, olmo-1b and
+Ten serving paths and their kernels: llama3.2-1b, olmo-1b and
 codeqwen1.5-7b (flash attention), rwkv6-1.6b (the WKV6 scan),
 recurrentgemma-9b (flash attention with a sliding window on its LOCAL
 layers, the RG-LRU scan on its RGLRU layers), gemma2-9b (flash attention
@@ -11,8 +11,11 @@ with softcap 50, and a sliding window on its LOCAL layers), whisper-small
 (flash attention without a causal mask over 1500 frames in its encoder,
 causal in its decoder's self-attention; cross-attention plain) and
 llama-3.2-vision-11b (flash attention in its 32 ATTN layers; its 8 gated
-XATTN layers attend to 1601 patch embeddings in plain torch).  Every path
-decodes through one captured CUDA graph a step (``DecodeGraph``).
+XATTN layers attend to 1601 patch embeddings in plain torch), mixtral-8x22b
+and dbrx-132b (flash attention with 48 query heads over 8 KV heads of 128;
+the MoE layer's dense path in plain torch), served at full width with their
+depth cut to fit one card (``SERVE_DEPTH``).  Every path decodes through
+one captured CUDA graph a step (``DecodeGraph``).
 Phases, each printing its own lines, any failure ending the run non-zero:
   1. device  — fail without CUDA; print the card's name and power limit;
                TF32 off for f32 matmuls and convolutions.
@@ -25,8 +28,8 @@ Phases, each printing its own lines, any failure ending the run non-zero:
                then the same decode steps captured and replayed against both
                (whisper and llama-vision with a seeded frontend and their
                XATTN gates drawn non-zero: at their initial zero the layer
-               adds nothing).
-  5. serve   — each full-width model through ``repro_torch.launch.serve``,
+               adds nothing); the MoE models' forward logits and aux loss too.
+  5. serve   — each full-width model through ``repro_torch.launch.serve.run``,
                every launch count set to 0 just before and read just after:
                each layer's kernel launched once, no other kernel, no plain
                version on the card.  Then recurrentgemma-9b once more at a
@@ -83,7 +86,11 @@ HOST_LEAD_CYCLES = 20_000_000
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 B_SERVE, P_SERVE, N_SERVE = 4, 512, 32
 ARCHS = ("llama3.2-1b", "rwkv6-1.6b", "recurrentgemma-9b", "olmo-1b", "codeqwen1.5-7b",
-         "gemma2-9b", "whisper-small", "llama-3.2-vision-11b")
+         "gemma2-9b", "whisper-small", "llama-3.2-vision-11b", "mixtral-8x22b", "dbrx-132b")
+# layers served of the models that do not fit one card at full depth: full
+# width, the group's count cut (about 40 GB of bf16 weights each, of 281
+# and 263 GB)
+SERVE_DEPTH = {"mixtral-8x22b": 8, "dbrx-132b": 6}
 # each layer kind's prefill kernel (row name; XATTN layers launch none, and
 # each encoder layer launches flash); decode launches none
 KIND_KERNEL = {"attn": "flash_attention", "local": "flash_attention",
@@ -97,7 +104,7 @@ PROFILER_NAME = {"flash_attention": ("flash_fwd",),
 # warm serve runs of the breakdown phase
 WARM_RUNS = {"llama3.2-1b": 5, "rwkv6-1.6b": 3, "recurrentgemma-9b": 2, "olmo-1b": 2,
              "codeqwen1.5-7b": 2, "gemma2-9b": 2, "whisper-small": 2,
-             "llama-3.2-vision-11b": 2}
+             "llama-3.2-vision-11b": 2, "mixtral-8x22b": 2, "dbrx-132b": 2}
 # the host's calls that launch device work, as torch.profiler names them
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
                 "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
@@ -175,6 +182,12 @@ FA_CASES = [
     ("whisper_decoder_main_path", 4, 12, 12, 512, 512, 64, torch.bfloat16, {}),
     ("vision_main_path", 4, 32, 8, 512, 512, 128, torch.bfloat16, {}),
     ("noncausal_ragged_f32", 1, 4, 4, 1100, 1100, 64, torch.float32, {"causal": False}),
+    # mixtral-8x22b's and dbrx-132b's prefill: 48 query heads over 8 KV heads
+    # of 128, a group of 6 (mixtral's window of 4096 does not bind at 512;
+    # here 256 does)
+    ("moe_main_path", 4, 48, 8, 512, 512, 128, torch.bfloat16, {}),
+    ("moe_f32", 1, 48, 8, 300, 300, 128, torch.float32, {}),
+    ("moe_window_binds", 1, 48, 8, 700, 700, 128, torch.bfloat16, {"window": 256}),
     # the bf16 (wgmma) kernel: each head dim, ragged lengths, binding windows,
     # softcap, q_offset with Sq < Sk, one KV head, no causal mask, and q, k, v
     # cut from wider rows (a non-dense view; o comes back dense)
@@ -196,9 +209,10 @@ FA_CASES = [
 ]
 # each serving path's flash shape in prefill (B=4, bf16; S=512 causal in the
 # decoders, 1500 frames without a causal mask in whisper's encoder):
-# (arch, its case in FLASH_CASES, part, H, G, S, dh, kwargs).  No window
-# binds at 512, so gemma2's LOCAL layers do the work of its ATTN ones: one
-# timing for both
+# (arch, or archs of one shape, its case in FLASH_CASES, part, H, G, S, dh,
+# kwargs).  No window binds at 512, so gemma2's LOCAL layers do the work of
+# its ATTN ones, and mixtral's LOCAL layers that of dbrx's ATTN ones: one
+# timing for each pair
 FA_B, FA_S = 4, 512
 FA_PATHS = [
     ("llama3.2-1b", "main_path", "decoder", 32, 8, FA_S, 64, {}),
@@ -210,6 +224,7 @@ FA_PATHS = [
      {"causal": False}),
     ("whisper-small", "whisper_decoder_main_path", "decoder", 12, 12, FA_S, 64, {}),
     ("llama-3.2-vision-11b", "vision_main_path", "decoder", 32, 8, FA_S, 128, {}),
+    (("mixtral-8x22b", "dbrx-132b"), "moe_main_path", "decoder", 48, 8, FA_S, 128, {}),
 ]
 
 LRU_SHAPE = dict(B=4, S=512, W=4096, dtype=torch.float32)
@@ -232,9 +247,19 @@ LRU_CASES = [
 ]
 
 
-def serve_argv(arch: str) -> list:
-    return ["--arch", arch, "--batch", str(B_SERVE), "--prompt-len", str(P_SERVE),
-            "--new-tokens", str(N_SERVE), "--device", "cuda"]
+def serve_config(arch: str):
+    """The config a serve run takes: the published one, with the layer
+    group's count cut to ``SERVE_DEPTH`` where the arch has one (the name
+    then ``<arch>-depth<k>``)."""
+    from repro_torch.configs import LayerGroup, get_config
+
+    cfg = get_config(arch)
+    if arch not in SERVE_DEPTH:
+        return cfg
+    (group,) = cfg.groups
+    k = SERVE_DEPTH[arch]
+    return dataclasses.replace(cfg, name=f"{arch}-depth{k}",
+                               groups=(LayerGroup(group.pattern, k),))
 
 
 def say(phase: str, msg: str) -> None:
@@ -554,6 +579,11 @@ def _leaves(tree) -> list:
     return [tree]
 
 
+def nbytes(tree) -> int:
+    """Bytes of a tree's tensors (a non-parametric norm's None holds none)."""
+    return sum(t.numel() * t.element_size() for t in _leaves(tree) if t is not None)
+
+
 def phase_parity(arch: str) -> None:
     """Smoke-width model in f32, one set of weights: prefill + decode on the
     CPU (plain versions) against CUDA (the kernels); logits and caches.  The
@@ -567,7 +597,7 @@ def phase_parity(arch: str) -> None:
     from repro_torch.kernels import use_kernels
     from repro_torch.models import decode as dec
     from repro_torch.models.convert import draw_xattn_gates, tree_map
-    from repro_torch.models.transformer import init_params
+    from repro_torch.models.transformer import forward, init_params
 
     cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
     want = prefill_launches(cfg)
@@ -591,6 +621,14 @@ def phase_parity(arch: str) -> None:
         launched = {name: c[0] - before[name][0] for name, c in read_counts().items()}
         worst = (lg_g.cpu() - lg_c).abs().max().item()
         torch.testing.assert_close(lg_g.cpu(), lg_c, atol=1e-4, rtol=1e-4)
+        forward_note = ""
+        if cfg.is_moe:  # forward's logits and the routers' summed aux loss
+            (fl_c, aux_c), (fl_g, aux_g) = (forward(cfg, p, t) for p, t in (
+                (params, tok_cpu), (params_gpu, tok_cpu.cuda())))
+            torch.testing.assert_close(fl_g.cpu(), fl_c, atol=1e-4, rtol=1e-4)
+            torch.testing.assert_close(aux_g.cpu(), aux_c, atol=1e-4, rtol=1e-4)
+            forward_note = (f"; forward logits {(fl_g.cpu() - fl_c).abs().max().item():.3e}, "
+                            f"aux {aux_c.item():.6f} CPU, {aux_g.item():.6f} CUDA")
         steps = dec.DecodeGraph(cfg, params_gpu, tree_map(lambda t: t.clone(), cache_g),
                                 lg_g.argmax(-1)[:, None], P, N)
         fed, replay_worst = [], {"eager CUDA": 0.0, "CPU": 0.0}
@@ -622,14 +660,14 @@ def phase_parity(arch: str) -> None:
                   f"CUDA vs CPU logits max abs diff {worst:.3e}; decode captured and "
                   f"replayed ({N - 1} replays) vs eager CUDA {replay_worst['eager CUDA']:.3e}, "
                   f"vs CPU {replay_worst['CPU']:.3e}; caches {cache_worst:.3e} (tol 1e-4), "
-                  f"launches in the CUDA prefill {launched}")
+                  f"launches in the CUDA prefill {launched}{forward_note}")
 
 
 def serve_once(arch: str, quiet: bool) -> tuple:
-    """One ``serve.main`` of ``arch`` at full width: (generations, prefill and
-    decode wall seconds, and the seconds of decode's first step, its eager
-    warm-up and the capture, from serve's own metrics).  Fails unless serve
-    captured its decode step."""
+    """One ``serve.run`` of ``arch``'s ``serve_config`` (full width): (generations,
+    prefill and decode wall seconds, and the seconds of decode's first step,
+    its eager warm-up and the capture, from serve's own metrics).  Fails
+    unless serve captured its decode step."""
     from repro_torch.launch import serve
     from repro_torch.obs import metrics
 
@@ -637,7 +675,8 @@ def serve_once(arch: str, quiet: bool) -> tuple:
             for k in ("prefill", "decode", "decode.first_step")]
     before = [(h.count, h.total) for h in hist]
     with contextlib.redirect_stdout(io.StringIO()) if quiet else contextlib.nullcontext():
-        gen = serve.main(serve_argv(arch))
+        gen = serve.run(serve_config(arch), batch=B_SERVE, prompt_len=P_SERVE,
+                        new_tokens=N_SERVE, seed=0, device="cuda")
     if hist[2].count != before[2][0] + 1:
         raise AssertionError(f"{arch} serve: decode was not captured as a CUDA graph")
     return (gen, *(h.total - b for h, (_, b) in zip(hist, before)))
@@ -656,19 +695,24 @@ def check_counts(what: str, counts: dict, want: dict) -> None:
 
 
 def phase_serve(gpu: str, arch: str) -> tuple:
-    """Full-width serve of ``arch``: every launch count is 0 just before and
-    read just after; each layer's kernel launched once, every other kernel
-    never, and no call took a plain version on the card.  The launches made
-    inside the encoder (prefill's ``frontend_states``) are read apart in the
-    same run: one flash launch for each encoder layer.  Returns the launches
-    of the kernels this path runs, and those of them made in the encoder."""
+    """Full-width serve of ``arch`` (at ``SERVE_DEPTH`` layers where it has
+    one): every launch count is 0 just before and read just after; each
+    layer's kernel launched once, every other kernel never, and no call took
+    a plain version on the card.  The launches made inside the encoder
+    (prefill's ``frontend_states``) are read apart in the same run: one flash
+    launch for each encoder layer; so are the bytes of the weights serve
+    draws, beside those of the model at its published depth.  Returns the
+    launches of the kernels this path runs, and those of them made in the
+    encoder."""
     from repro_torch.configs import get_config
+    from repro_torch.launch import serve
     from repro_torch.models import decode as dec
 
-    cfg = get_config(arch)
+    cfg = serve_config(arch)
     want = prefill_launches(cfg)
     in_encoder = {name: 0 for name in want}
-    states = dec.frontend_states
+    states, init = dec.frontend_states, serve.init_params
+    group_bytes, all_bytes = [], []
 
     def counted_states(*args, **kwargs):
         before = read_counts()
@@ -677,14 +721,21 @@ def phase_serve(gpu: str, arch: str) -> tuple:
             in_encoder[name] += c[0] - before[name][0]
         return out
 
-    dec.frontend_states = counted_states
+    def counted_init(*args, **kwargs):
+        params = init(*args, **kwargs)
+        group_bytes.extend(nbytes(gp) for gp in params["groups"])
+        all_bytes.append(nbytes(params))
+        return params
+
+    torch.cuda.empty_cache()  # the last arch's weights, freed, leave the card
+    dec.frontend_states, serve.init_params = counted_states, counted_init
     try:
         zero_counts()
         torch.cuda.reset_peak_memory_stats()
         gen, t_pre, t_dec, t_first = serve_once(arch, quiet=False)
         counts = read_counts()
     finally:
-        dec.frontend_states = states
+        dec.frontend_states, serve.init_params = states, init
     peak = torch.cuda.max_memory_allocated()
     if gen.shape != (B_SERVE, N_SERVE) or gen.min() < 0 or gen.max() >= cfg.vocab_size:
         raise AssertionError(f"generations {gen.shape} out of range")
@@ -693,6 +744,10 @@ def phase_serve(gpu: str, arch: str) -> tuple:
     if in_encoder != want_enc:
         raise AssertionError(f"{arch} serve: the encoder launched {in_encoder}, "
                              f"expected {want_enc}")
+    # each group's bytes at the published count of its stack
+    published = get_config(arch).groups
+    full = all_bytes[0] + sum(b * g.count / c.count - b
+                              for b, g, c in zip(group_bytes, published, cfg.groups))
     B, P, N = B_SERVE, P_SERVE, N_SERVE
     say("serve", f"{cfg.name} bf16 B={B} prompt={P} new={N}, first full-width run of it in "
                  f"this process: prefill {B * P / t_pre:.1f} tok/s "
@@ -700,7 +755,9 @@ def phase_serve(gpu: str, arch: str) -> tuple:
                  f"({t_dec / N * 1e3:.3f} ms/step; step 0 with the capture "
                  f"{t_first * 1e3:.2f} ms, the {N - 1} replays "
                  f"{(t_dec - t_first) / (N - 1) * 1e3:.3f} ms/step), "
-                 f"peak memory {peak / 2**30:.3f} GiB, "
+                 f"parameters {all_bytes[0] / 1e9:.3f} GB ({cfg.n_layers} layers; "
+                 f"{full / 1e9:.3f} GB at the published {get_config(arch).n_layers}), "
+                 f"peak memory {peak / 2**30:.3f} GiB ({peak / 1e9:.3f} GB), "
                  f"launches {({n: c[0] for n, c in counts.items()})} (in the encoder "
                  f"{in_encoder}), plain calls on the card "
                  f"{({n: c[1] for n, c in counts.items()})} | {gpu}")
@@ -797,11 +854,10 @@ def phase_breakdown(gpu: str, arch: str) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs import get_config
-
     N = N_SERVE
-    want = {pname: n for name, n in prefill_launches(get_config(arch)).items()
+    want = {pname: n for name, n in prefill_launches(serve_config(arch)).items()
             for pname in PROFILER_NAME[name]}
+    torch.cuda.empty_cache()  # the last arch's weights, freed, leave the card
     walls = [serve_once(arch, quiet=True)[1:] for _ in range(WARM_RUNS[arch])]
     for r, (t_pre, t_dec, t_first) in enumerate(walls, 1):
         say("breakdown", f"{arch} run {r}: prefill {t_pre * 1e3:.3f} ms, "
@@ -994,13 +1050,16 @@ def phase_timing(gpu: str, launches: dict, in_encoder: dict, errs: dict) -> dict
     besides for the f32 route."""
     paths = []
     for arch, label, part, H, G, S, dh, kw in FA_PATHS:
+        archs = (arch,) if isinstance(arch, str) else arch
         t = flash_timing(gpu, FA_B, H, G, S, dh, torch.bfloat16, **kw)
-        n_enc = in_encoder[arch].get("flash_attention", 0)
-        n = n_enc if part == "encoder" else launches[arch]["flash_attention"] - n_enc
+        n = 0
+        for a in archs:
+            n_enc = in_encoder[a].get("flash_attention", 0)
+            n += n_enc if part == "encoder" else launches[a]["flash_attention"] - n_enc
         mask = "causal" if kw.get("causal", True) else "non-causal"
         shape = (f"B={FA_B} H={H} G={G} S={S} dh={dh} bf16 {mask}"
                  f"{''.join(f' {k}={v:g}' for k, v in kw.items() if k != 'causal')}")
-        paths.append(dict(arch=arch, part=part, shape=shape, launches=n,
+        paths.append(dict(arch=", ".join(archs), part=part, shape=shape, launches=n,
                           max_abs_err=errs[label], **t))
     # the f32 route (the CUDA-core kernel) at llama's shape, for its own record
     _, _, _, H, G, S, dh, _ = FA_PATHS[0]

@@ -1,4 +1,4 @@
-"""Architecture registry of the port: the configurations it runs so far.
+"""Architecture registry of the port: the JAX package's ten configurations.
 
 ``get_config(name)`` returns the published config; ``smoke_config(name)``
 the reduced same-family config for CPU tests, reduced exactly as the JAX
@@ -11,9 +11,11 @@ from typing import Dict
 
 from repro_torch.configs.base import ATTN, ATTNX, XATTN, LayerGroup, ModelConfig
 from repro_torch.configs.codeqwen1_5_7b import CONFIG as CODEQWEN1_5_7B
+from repro_torch.configs.dbrx_132b import CONFIG as DBRX_132B
 from repro_torch.configs.gemma2_9b import CONFIG as GEMMA2_9B
 from repro_torch.configs.llama3_2_1b import CONFIG as LLAMA3_2_1B
 from repro_torch.configs.llama3_2_vision_11b import CONFIG as LLAMA3_2_VISION_11B
+from repro_torch.configs.mixtral_8x22b import CONFIG as MIXTRAL_8X22B
 from repro_torch.configs.olmo_1b import CONFIG as OLMO_1B
 from repro_torch.configs.recurrentgemma_9b import CONFIG as RECURRENTGEMMA_9B
 from repro_torch.configs.rwkv6_1_6b import CONFIG as RWKV6_1_6B
@@ -21,7 +23,8 @@ from repro_torch.configs.whisper_small import CONFIG as WHISPER_SMALL
 
 ARCHS: Dict[str, ModelConfig] = {
     c.name: c for c in [LLAMA3_2_1B, RWKV6_1_6B, RECURRENTGEMMA_9B, OLMO_1B,
-                        CODEQWEN1_5_7B, GEMMA2_9B, WHISPER_SMALL, LLAMA3_2_VISION_11B]
+                        CODEQWEN1_5_7B, GEMMA2_9B, WHISPER_SMALL, LLAMA3_2_VISION_11B,
+                        MIXTRAL_8X22B, DBRX_132B]
 }
 
 

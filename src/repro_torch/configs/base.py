@@ -10,7 +10,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
-# Layer descriptor kinds (the port runs all six; MoE layers not yet).
+# Layer descriptor kinds (the port runs all six; ATTN and LOCAL layers take
+# the MoE layer in place of their MLP where the config has experts).
 ATTN = "attn"        # global self-attention (causal for decoders)
 LOCAL = "local"      # sliding-window self-attention
 XATTN = "xattn"      # cross-attention layer w/ own MLP (llama-vision style)

@@ -2,12 +2,14 @@
 
     python -m repro_torch.launch.serve --arch llama3.2-1b --batch 4 --prompt-len 512
     python -m repro_torch.launch.serve --arch rwkv6-1.6b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch mixtral-8x22b --smoke --device cpu
 
 Ported from ``repro.launch.serve``: the same flags (plus ``--device``, which
 defaults to ``cuda``), the same prompts from ``--seed``, the same
 ``prefill`` / ``decode.step`` spans (and a ``decode`` span around the
-loop) and ``serve.*`` metrics.  Whisper and llama-vision get the JAX
-package's frontend stub: random frame or patch embeddings drawn after the
+loop) and ``serve.*`` metrics.  ``main`` parses the flags and calls
+``run``, which serves a config it is given.  Whisper and llama-vision get
+the JAX package's frontend stub: random frame or patch embeddings drawn after the
 prompts from the same numpy generator (``frontend_stub``).  Kernels are on
 for the run.  On the card each decode step after the first is one replay of
 a CUDA graph captured from the first (``models.decode.DecodeGraph``), as
@@ -50,6 +52,8 @@ def frontend_stub(cfg, rng: np.random.Generator, batch: int, device) -> Optional
 
 
 def main(argv=None) -> np.ndarray:
+    """The command line: serve ``--arch``'s published config, or its smoke
+    config with ``--smoke``; returns the generations (B, new_tokens)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.2-1b", choices=sorted(ARCHS))
     ap.add_argument("--smoke", action="store_true")
@@ -68,18 +72,28 @@ def main(argv=None) -> np.ndarray:
         help="write the end-of-run metrics snapshot as JSON",
     )
     args = ap.parse_args(argv)
+    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    return run(cfg, batch=args.batch, prompt_len=args.prompt_len, new_tokens=args.new_tokens,
+               seed=args.seed, device=args.device, trace_path=args.trace,
+               metrics_out=args.metrics_out)
 
-    device = torch.device(args.device)
+
+def run(cfg, *, batch: int, prompt_len: int, new_tokens: int, seed: int, device,
+        trace_path: str = "", metrics_out: str = "") -> np.ndarray:
+    """Serve ``cfg`` with random weights and prompts from ``seed``: batched
+    prefill, then greedy decode of ``new_tokens``; returns the generations
+    (B, new_tokens) int32.  ``trace_path`` and ``metrics_out``, where given,
+    receive the Chrome trace and the metrics snapshot."""
+    device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but no CUDA device is visible; pass --device cpu")
 
     metrics.enable()
-    tracer = trace.start(name="serve") if args.trace else None
-    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    params = init_params(cfg, torch.Generator(device=device).manual_seed(args.seed))
-    B, P_len, N = args.batch, args.prompt_len, args.new_tokens
+    tracer = trace.start(name="serve") if trace_path else None
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(seed))
+    B, P_len, N = batch, prompt_len, new_tokens
     capacity = P_len + N
-    rng = np.random.default_rng(args.seed)
+    rng = np.random.default_rng(seed)
     prompts = rng.integers(2, cfg.vocab_size, size=(B, P_len), dtype=np.int32)
     tokens = torch.from_numpy(prompts).to(device)
     frontend = frontend_stub(cfg, rng, B, device)
@@ -126,11 +140,11 @@ def main(argv=None) -> np.ndarray:
 
     if tracer is not None:
         trace.stop()
-        tracer.write(args.trace)
-        print(f"[serve] trace written to {args.trace} ({len(tracer.events)} events)")
-    if args.metrics_out:
-        metrics.write(args.metrics_out)
-        print(f"[serve] metrics written to {args.metrics_out}")
+        tracer.write(trace_path)
+        print(f"[serve] trace written to {trace_path} ({len(tracer.events)} events)")
+    if metrics_out:
+        metrics.write(metrics_out)
+        print(f"[serve] metrics written to {metrics_out}")
     print("[serve] metrics:", metrics.summary_line(prefixes=["serve."]))
     return gen
 

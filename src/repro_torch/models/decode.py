@@ -1,6 +1,8 @@
 """Serving entry points: cache init, prefill and single-token decode.
 
-Ported from ``repro.models.decode`` for every layer kind but MoE.  Caches
+Ported from ``repro.models.decode`` for every layer kind, ATTN and LOCAL
+layers with their MoE layer where the config has experts (its aux loss is
+dropped, as the reference drops it).  Caches
 mirror the parameter structure: one tuple per layer group, one dict per
 layer kind of the group's pattern, leaves stacked over the group's
 ``count``: a KV cache for ATTN; a ring-buffer KV cache of capacity
@@ -31,6 +33,7 @@ from repro_torch.models.transformer import (
     _embed_tokens,
     _positions_embed,
     check_supported,
+    feed_forward,
     frontend_states,
     gate,
     layer_params,
@@ -94,7 +97,7 @@ def _prefill_layer(
         o = attn.attend(cfg, q, k, v, positions, positions, window=window)
         x = x + post_norm(cfg, p, "post_ln1", attn.out_proj(p["attn"], o))
         h = apply_norm(cfg, x, p["ln2"])
-        return x + post_norm(cfg, p, "post_ln2", mlp_apply(cfg, p["mlp"], h)), cache
+        return x + post_norm(cfg, p, "post_ln2", feed_forward(cfg, p, h)[0]), cache
     if kind == XATTN:
         ck, cv = attn.cross_kv(cfg, p["xattn"], enc)
         h = apply_norm(cfg, x, p["ln1"])
@@ -171,7 +174,7 @@ def _decode_layer(
                                      window=cfg.window if kind == LOCAL else 0)
         x = x + post_norm(cfg, p, "post_ln1", a)
         h = apply_norm(cfg, x, p["ln2"])
-        return x + post_norm(cfg, p, "post_ln2", mlp_apply(cfg, p["mlp"], h))
+        return x + post_norm(cfg, p, "post_ln2", feed_forward(cfg, p, h)[0])
     if kind == XATTN:
         h = apply_norm(cfg, x, p["ln1"])
         a = attn.cross_attention(cfg, p["xattn"], h, (cache["ck"], cache["cv"]))

@@ -2,8 +2,10 @@
 
 Ported from ``repro.models.transformer`` for ATTN, LOCAL, XATTN (gated
 cross-attention, llama-vision), ATTNX (self + cross, whisper's decoder),
-RWKV and RGLRU layers, with or without post-norms (gemma2), and whisper's
-encoder, on one device (``dist=None``).  The parameter tree keeps the JAX
+RWKV and RGLRU layers, with or without post-norms (gemma2), whisper's
+encoder, and the MoE layer in place of the MLP of ATTN and LOCAL layers
+(mixtral, dbrx: ``moe.moe_apply_dense``, the reference's single-device
+branch of ``_moe_call``), on one device (``dist=None``).  The parameter tree keeps the JAX
 package's keys and its stacking over a group's ``count``
 (``_superblock_params``), so a JAX tree carried across by
 ``convert.params_from_jax`` runs here unchanged; the layer loop replaces
@@ -27,7 +29,7 @@ from repro_torch.configs.base import (
     ModelConfig,
 )
 from repro_torch.models import attention as attn
-from repro_torch.models import griffin, rwkv
+from repro_torch.models import griffin, moe, rwkv
 from repro_torch.models.common import (
     apply_norm,
     dtype_of,
@@ -40,16 +42,18 @@ from repro_torch.models.common import (
 
 
 PORTED_KINDS = (ATTN, LOCAL, XATTN, ATTNX, RWKV, RGLRU)
+AUX_LOSS_COEF = 0.01
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port runs dense models whose layers are any mix of the ported
-    kinds, with or without post-norms and an encoder (no MoE yet)."""
+    """The port runs models whose layers are any mix of the ported kinds,
+    with or without post-norms, an encoder and experts (the MoE layer of
+    ATTN and LOCAL layers)."""
     kinds = {k for g in cfg.groups for k in g.pattern}
-    if not kinds <= set(PORTED_KINDS) or cfg.is_moe:
+    if not kinds <= set(PORTED_KINDS):
         raise NotImplementedError(
-            f"{cfg.name}: layer kinds {sorted(kinds)}, {cfg.n_experts} experts; the port "
-            f"runs dense models whose layers are each one of {PORTED_KINDS}")
+            f"{cfg.name}: layer kinds {sorted(kinds)}; the port runs models whose "
+            f"layers are each one of {PORTED_KINDS}")
 
 
 # --------------------------------------------------------------------------
@@ -67,11 +71,15 @@ def norm_params(cfg: ModelConfig, lead: Tuple[int, ...], device) -> dict:
     return p
 
 
-def _layer_params(cfg: ModelConfig, kind: str, gen: torch.Generator, lead: Tuple[int, ...]) -> dict:
+def _layer_params(cfg: ModelConfig, kind: str, gen: torch.Generator,
+                  lead: Tuple[int, ...]) -> dict:
     p = {"ln1": norm_params(cfg, lead, gen.device), "ln2": norm_params(cfg, lead, gen.device)}
     if kind in (ATTN, LOCAL):
         p["attn"] = attn.attn_params(cfg, gen, lead)
-        p["mlp"] = mlp_params(cfg, gen, lead)
+        if cfg.is_moe:
+            p["moe"] = moe.moe_params(cfg, gen, lead)
+        else:
+            p["mlp"] = mlp_params(cfg, gen, lead)
         if cfg.post_norms:
             p["post_ln1"] = norm_params(cfg, lead, gen.device)
             p["post_ln2"] = norm_params(cfg, lead, gen.device)
@@ -98,7 +106,8 @@ def _layer_params(cfg: ModelConfig, kind: str, gen: torch.Generator, lead: Tuple
 
 def _superblock_params(cfg: ModelConfig, group: LayerGroup, gen: torch.Generator) -> tuple:
     """One dict per layer kind of the pattern, leaves stacked over ``count``."""
-    return tuple(_layer_params(cfg, kind, gen, (group.count,)) for kind in group.pattern)
+    return tuple(_layer_params(cfg, kind, gen, (group.count,))
+                 for kind in group.pattern)
 
 
 def _encoder_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
@@ -186,9 +195,19 @@ def post_norm(cfg: ModelConfig, p: dict, key: str, y: torch.Tensor) -> torch.Ten
     return apply_norm(cfg, y, p[key]) if cfg.post_norms else y
 
 
+def feed_forward(cfg: ModelConfig, p: dict,
+                 h: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """An ATTN or LOCAL layer's MLP, or its MoE layer where the config has
+    experts: (output, the router's aux loss, or None for the MLP)."""
+    if cfg.is_moe:
+        return moe.moe_apply_dense(cfg, p["moe"], h)
+    return mlp_apply(cfg, p["mlp"], h), None
+
+
 def _apply_layer_full(
     cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, positions: torch.Tensor,
     enc: Optional[torch.Tensor] = None,  # what XATTN / ATTNX layers attend to
+    aux: Optional[list] = None,  # collects each MoE layer's aux loss
 ) -> torch.Tensor:
     if kind in (ATTN, LOCAL):
         h = apply_norm(cfg, x, p["ln1"])
@@ -197,7 +216,10 @@ def _apply_layer_full(
         )
         x = x + post_norm(cfg, p, "post_ln1", a)
         h = apply_norm(cfg, x, p["ln2"])
-        return x + post_norm(cfg, p, "post_ln2", mlp_apply(cfg, p["mlp"], h))
+        m, layer_aux = feed_forward(cfg, p, h)
+        if aux is not None and layer_aux is not None:
+            aux.append(layer_aux)
+        return x + post_norm(cfg, p, "post_ln2", m)
     if kind == XATTN:
         h = apply_norm(cfg, x, p["ln1"])
         a = attn.cross_attention(cfg, p["xattn"], h, attn.cross_kv(cfg, p["xattn"], enc))
@@ -257,18 +279,22 @@ def forward(
     cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     frontend: Optional[torch.Tensor] = None,  # (B, T, frontend_dim) stub embeddings
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits (B, S, V) f32, aux_loss scalar); the aux loss is the
-    MoE router's, zero for the dense layers ported so far."""
+    """Returns (logits (B, S, V) f32, aux_loss scalar): the MoE routers' aux
+    losses summed over the layers, times ``AUX_LOSS_COEF``; zero without
+    experts."""
     check_supported(cfg)
     S = tokens.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     enc = frontend_states(cfg, params, frontend)
     x = _embed_tokens(cfg, params, tokens)
     x = _positions_embed(cfg, params, x, positions)
+    auxes = []
     for group, gp in zip(cfg.groups, params["groups"]):
         for i in range(group.count):
             for kind, p in zip(group.pattern, layer_params(gp, i)):
-                x = _apply_layer_full(cfg, kind, p, x, positions, enc)
+                x = _apply_layer_full(cfg, kind, p, x, positions, enc, auxes)
     x = apply_norm(cfg, x, params["final_norm"])
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return unembed(cfg, params["embed"], x), aux
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for a in auxes:  # summed in layer order, as the reference's scan carries it
+        aux_total = aux_total + a
+    return unembed(cfg, params["embed"], x), aux_total * AUX_LOSS_COEF

@@ -22,7 +22,7 @@ from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
 from repro_torch.kernels.rwkv6 import ops as wkv_ops
 from repro_torch.kernels.rwkv6.ref import wkv6_ref
 from repro_torch.models import decode as dec
-from repro_torch.models import griffin
+from repro_torch.models import griffin, moe
 from repro_torch.models.convert import draw_xattn_gates, tree_map
 from repro_torch.models.transformer import init_params
 
@@ -69,6 +69,11 @@ def cuda_device():
     # and the f32 (CUDA-core) route non-causal at a ragged length
     (4, 12, 12, 1500, 64, torch.bfloat16, {"causal": False}),
     (1, 4, 4, 1100, 64, torch.float32, {"causal": False}),
+    # mixtral's and dbrx's prefill: 48 query heads over 8 KV heads of 128, a
+    # group of 6 (the first on a path that is not a power of two)
+    (4, 48, 8, 512, 128, torch.bfloat16, {}),
+    (1, 48, 8, 300, 128, torch.float32, {}),
+    (1, 48, 8, 700, 128, torch.bfloat16, {"window": 256}),
 ])
 def test_kernel_matches_plain_version(cuda_device, B, H, G, S, dh, dtype, kw):
     """f32 at 1e-4: the kernel sums in another order than the plain version;
@@ -293,9 +298,29 @@ def _leaves(tree) -> list:
     return [tree]
 
 
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "dbrx-132b"])
+def test_moe_layer_on_card_matches_cpu(cuda_device, arch):
+    """The dense MoE layer in f32 at smoke width: output and aux loss on the
+    card against the CPU at 1e-4 (the products sum in another order), the
+    same experts picked."""
+    cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+    p = moe.moe_params(cfg, torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 40, cfg.d_model),
+                                                                  dtype=np.float32))
+    want, want_aux = moe.moe_apply_dense(cfg, p, x)
+    got, got_aux = moe.moe_apply_dense(cfg, tree_map(lambda t: t.to(cuda_device), p),
+                                       x.to(cuda_device))
+    _, want_idx, _ = moe._route(cfg, p["router"], x.reshape(-1, cfg.d_model))
+    _, got_idx, _ = moe._route(cfg, p["router"].to(cuda_device),
+                               x.to(cuda_device).reshape(-1, cfg.d_model))
+    assert torch.equal(got_idx.cpu(), want_idx)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got_aux.cpu(), want_aux, atol=1e-4, rtol=1e-4)
+
+
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "rwkv6-1.6b", "recurrentgemma-9b", "olmo-1b",
                                   "codeqwen1.5-7b", "gemma2-9b", "whisper-small",
-                                  "llama-3.2-vision-11b"])
+                                  "llama-3.2-vision-11b", "mixtral-8x22b", "dbrx-132b"])
 def test_decode_graph_replay_matches_eager(cuda_device, arch):
     """Smoke width in f32: the captured step replayed against the same steps
     run eagerly on the card from a copy of the same caches; logits at each
@@ -304,7 +329,8 @@ def test_decode_graph_replay_matches_eager(cuda_device, arch):
     ``pos % 32`` from the device.  whisper and llama-vision get a frontend
     and XATTN gates in ±[0.3, 1.0) (at their initial zero the layer adds
     nothing); a replayed step reads learned positions, tanh of the gates and
-    the cross K/V on the device."""
+    the cross K/V on the device.  mixtral and dbrx route each token on the
+    device (top-k, the gates scattered into a dense combine weight)."""
     cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
     params = init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0))
     P, N = 40, 6

@@ -1,7 +1,7 @@
 """The decode step with ``pos`` as a device tensor, as the JAX package traces
 it, against the step with ``pos`` as an int, and ``DecodeGraph`` on the CPU.
 
-Smoke widths of all eight archs the port serves, in f32, on JAX's own
+Smoke widths of all ten archs the port serves, in f32, on JAX's own
 weights (``params_from_jax``), prompts and whisper's and llama-vision's
 frontend drawn with numpy, every XATTN gate set non-zero.  The two forms of ``pos``
 run the same operations on the same values, so logits and every cache leaf
@@ -10,7 +10,8 @@ gemma2 at a prompt of 40, which wraps their smoke window of 32 (each LOCAL
 cache is a ring that the tensor slot ``pos % 32`` must hit as the int one
 did), rwkv6 with its WKV state and token shifts, whisper with its learned
 position read at the tensor ``pos`` and its ATTNX caches (a nested ``kv``
-beside the cross K/V).  On the CPU ``DecodeGraph``
+beside the cross K/V), mixtral (a wrapped ring too) and dbrx through their
+MoE layers.  On the CPU ``DecodeGraph``
 runs its step eagerly; its generations and logits must equal the plain
 greedy loop's.
 """
@@ -30,9 +31,9 @@ from repro_torch.models.convert import draw_xattn_gates, params_from_jax
 torch.set_num_threads(1)
 
 ARCHS = ["llama3.2-1b", "rwkv6-1.6b", "recurrentgemma-9b", "olmo-1b", "codeqwen1.5-7b",
-         "gemma2-9b", "whisper-small", "llama-3.2-vision-11b"]
+         "gemma2-9b", "whisper-small", "llama-3.2-vision-11b", "mixtral-8x22b", "dbrx-132b"]
 # prompts longer than the smoke window of 32 where the arch has LOCAL layers
-PROMPT = {"recurrentgemma-9b": 40, "gemma2-9b": 40}
+PROMPT = {"recurrentgemma-9b": 40, "gemma2-9b": 40, "mixtral-8x22b": 40}
 B, STEPS = 2, 6
 
 

@@ -4,7 +4,8 @@ tree with its post-norms (``post_ln1`` after attention, ``post_ln2`` after
 the MLP), the full-sequence ``forward`` in f32 at 1e-4 on JAX's own weights
 with kernels off and on (JAX's Pallas flash kernel in interpret mode, the
 port's plain version on the CPU), and what ``check_supported`` takes and
-refuses (since whisper-small and llama-3.2-vision-11b, only MoE).  Prefill
+refuses (since mixtral-8x22b and dbrx-132b, only a layer kind it does not
+know).  Prefill
 and decode are held in ``test_torch_serve.py``.
 """
 import dataclasses
@@ -91,11 +92,17 @@ MOE = {"n_experts": 4, "top_k": 2}
     {"encoder_layers": 2, **MOE},
     {"groups": (tcfgs.LayerGroup(pattern=("attn", "xattn"), count=2),), **MOE},
     {"groups": (tcfgs.LayerGroup(pattern=("attn_x",), count=2),), **MOE},
+    {"groups": (tcfgs.LayerGroup(pattern=("attn", "ssm"), count=2),), **MOE},
 ])
 def test_check_supported_refuses_moe_encoders_and_cross_attention(change):
-    """Encoders and cross-attention layers are ported (whisper-small,
-    llama-3.2-vision-11b); MoE is not, alone or beside them."""
+    """Encoders and cross-attention layers (whisper-small,
+    llama-3.2-vision-11b) and MoE (mixtral-8x22b, dbrx-132b) are ported:
+    MoE is taken alone and beside the others, with and without experts.
+    What is still refused is a layer kind the port does not know."""
     cfg = dataclasses.replace(tcfgs.get_config("gemma2-9b"), **change)
-    ttf.check_supported(dataclasses.replace(cfg, n_experts=0, top_k=0))
-    with pytest.raises(NotImplementedError):
-        ttf.check_supported(cfg)
+    for c in (cfg, dataclasses.replace(cfg, n_experts=0, top_k=0)):
+        if "ssm" in c.groups[0].pattern:
+            with pytest.raises(NotImplementedError, match="ssm"):
+                ttf.check_supported(c)
+        else:
+            ttf.check_supported(c)

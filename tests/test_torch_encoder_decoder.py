@@ -246,7 +246,9 @@ def _port_config(jc):
 
 
 def test_check_supported_admits_both_and_refuses_mixtral():
-    assert len(tcfgs.ARCHS) == 8
+    """Both archs are taken, and since the MoE layer is ported, mixtral too;
+    mixtral with a layer kind the port does not know is refused."""
+    assert len(tcfgs.ARCHS) == 10
     for arch in ARCHS:
         cfg = tcfgs.get_config(arch)
         assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfgs.get_config(arch))
@@ -255,8 +257,10 @@ def test_check_supported_admits_both_and_refuses_mixtral():
         ttf.check_supported(cfg)
     mixtral = _port_config(jcfgs.get_config("mixtral-8x22b"))
     assert mixtral.is_moe
+    ttf.check_supported(mixtral)
     with pytest.raises(NotImplementedError):
-        ttf.check_supported(mixtral)
+        ttf.check_supported(dataclasses.replace(
+            mixtral, groups=(tcfgs.LayerGroup(pattern=("local", "ssm"), count=2),)))
 
 
 class _Frontend(Exception):

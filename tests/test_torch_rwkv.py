@@ -214,8 +214,9 @@ def test_init_caches_match_reference(cfgs):
 
 def test_check_supported_names_ported_kinds():
     """Any mix of the ported kinds runs (RWKV with ATTN, all RGLRU, RWKV with
-    XATTN or ATTNX); a kind the port does not know and MoE are refused, the
-    refusal naming the ported kinds."""
+    XATTN or ATTNX, MoE); a kind the port does not know is refused, the
+    refusal naming the ported kinds.  Experts go only to ATTN and LOCAL
+    layers: an RWKV layer of a config with experts keeps its channel-mix."""
     cfg = tcfgs.get_config(ARCH)
     ttf.check_supported(cfg)
     ported = dataclasses.replace(cfg, groups=(tcfgs.LayerGroup(pattern=("rwkv", "attn"), count=2),))
@@ -228,8 +229,7 @@ def test_check_supported_names_ported_kinds():
     with pytest.raises(NotImplementedError,
                        match=r"\('attn', 'local', 'xattn', 'attn_x', 'rwkv', 'rglru'\)"):
         ttf.check_supported(mixed)
-    moe = dataclasses.replace(tcfgs.get_config("llama3.2-1b"), n_experts=4, top_k=2)
-    with pytest.raises(NotImplementedError):
-        ttf.check_supported(moe)
-    with pytest.raises(NotImplementedError):
-        ttf.init_params(dataclasses.replace(cfg, n_experts=4, top_k=2), torch.Generator())
+    ttf.check_supported(dataclasses.replace(tcfgs.get_config("llama3.2-1b"), n_experts=4, top_k=2))
+    small = dataclasses.replace(tcfgs.smoke_config(ARCH), n_experts=4, top_k=2)
+    layer = ttf.init_params(small, torch.Generator())["groups"][0][0]
+    assert "tm_cm" in layer and "moe" not in layer
