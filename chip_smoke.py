@@ -44,6 +44,14 @@ Phases, each printing its own lines, any failure ending the run non-zero:
                version, one PyTorch library call where there is one, and the
                card's bound; flash also on its f32 route at llama's shape;
                WKV6's two CUDA kernels each under torch.profiler (in phase 3).
+  8. train   — each kernel wrapper refuses CUDA inputs that require grad;
+               the ten archs' ``train_step`` at smoke width in f32, card
+               against CPU over three steps (kernels off, as the reference
+               trains); llama3.2-1b at full width in bf16 through
+               ``repro_torch.launch.train.run`` in two settings (train.py's
+               defaults, and S=2048 in four microbatches): the loss falls,
+               no kernel launches, step wall, tokens/s, ``mfu``, peak memory,
+               and one step under torch.profiler.
 The second-to-last line is the card as nvidia-smi names it, the last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of ``repro``.
 """
@@ -54,6 +62,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import os
 import re
 import statistics
@@ -112,6 +121,19 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cu
 PROFILE_TRIES = 3
 # the ring run: one sequence whose prompt overruns recurrentgemma's window
 RING_ARCH, P_RING, N_RING = "recurrentgemma-9b", 2560, 16
+# phase 8: smoke-width train steps, card against CPU (warmup 1: all but the
+# first move the weights); full-width training of one arch in two settings,
+# (label, B, S, microbatches, steps, warmup steps): launch/train.py's own
+# defaults, and a sequence of 2048 in four microbatches; model FLOPs share
+# against the bf16 tensor-core peak
+TRAIN_PARITY_STEPS = 3
+TRAIN_ARCH = "llama3.2-1b"
+TRAIN_SETTINGS = [("train.py defaults", 8, 128, 1, 5, 10),
+                  ("S=2048, 4 microbatches", 8, 2048, 4, 3, 1)]
+MFU_PEAK = 989e12
+# train_step's spans (models/steps.py), which the profiler also records as
+# device-side ranges
+TRAIN_SPANS = ("train.grads", "train.update")
 
 
 WKV_SHAPE = dict(B=4, S=512, H=32, K=64, chunk=32, dtype=torch.bfloat16)
@@ -1219,6 +1241,228 @@ def phase_lru_timing(gpu: str, launches: dict, main_err: float) -> dict:
     return row
 
 
+# -- phase 8: training ----------------------------------------------------------
+
+def phase_train_refuses_grad() -> None:
+    """Each kernel wrapper, given CUDA inputs that require grad with grad
+    mode on, raises before launching: its output would carry no grad_fn."""
+    rng = np.random.default_rng(0)
+    inputs = {
+        "flash_attention": [t.transpose(1, 2) for t in model_layout(
+            rng, 1, 2, 2, 64, 64, 64, torch.float32)],
+        "wkv6": list(wkv_inputs(rng, 1, 32, 2, 64, torch.float32, "exp_normal")),
+        "rglru_scan": list(lru_inputs(rng, 1, 64, 32, torch.float32, "uniform")),
+    }
+    for name, (kern, _) in kernel_modules().items():
+        args = [t.clone().requires_grad_() for t in inputs[name]]
+        before = kern.launches
+        try:
+            getattr(kern, name)(*args)
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+            msg = str(e)
+        else:
+            raise AssertionError(f"{name}: inputs that require grad were not refused")
+        if kern.launches != before:
+            raise AssertionError(f"{name}: launched while refusing inputs that require grad")
+        say("train", f"{name} refuses CUDA inputs that require grad: {msg[:100]}...")
+
+
+def _train_data(cfg, B: int, S: int):
+    from repro_torch.data import SyntheticLM
+
+    return SyntheticLM(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B, seed=0,
+                       frontend_tokens=cfg.frontend_tokens,
+                       frontend_dim=(cfg.frontend_dim or cfg.d_model) if cfg.frontend_tokens
+                       else 0)
+
+
+def phase_train_parity(arch: str) -> None:
+    """Smoke-width ``train_step`` in f32 with kernels off, as the reference
+    trains: ``TRAIN_PARITY_STEPS`` steps from one set of weights on the CPU
+    and on the card (``warmup_steps=1``, so all but the first move the
+    weights), on the same ``SyntheticLM`` batches (whisper's and
+    llama-vision's frontend in the model's f32, their XATTN gates drawn
+    non-zero); loss, ce, aux, grad_norm and lr each step within 1e-4 of the
+    CPU's, then every parameter and moment leaf within 1e-4 of the leaf's
+    largest magnitude; no kernel launched, no plain version called."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.kernels import kernels_enabled
+    from repro_torch.models.convert import draw_xattn_gates, tree_leaves, tree_map
+    from repro_torch.models.steps import train_step
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import init_state
+
+    if kernels_enabled():
+        raise AssertionError("kernels are on at the training phase; training runs them off")
+    cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+    B, S = 2, 32
+    run = RunConfig(model=cfg, seq_len=S, global_batch=B, n_microbatches=1, warmup_steps=1,
+                    total_steps=TRAIN_PARITY_STEPS + 1)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    draw_xattn_gates(params, np.random.default_rng(0), torch.from_numpy)
+    gpu_params = tree_map(lambda t: t.to("cuda"), params)
+    sides = {"cpu": (params, init_state(params)), "cuda": (gpu_params, init_state(gpu_params))}
+    data = _train_data(cfg, B, S)
+    zero_counts()
+    worst_metric, lrs = 0.0, []
+    for step in range(TRAIN_PARITY_STEPS):
+        batch = data.batch(step)
+        metrics = {}
+        for dev, (p, o) in sides.items():
+            b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+            p, o, m = train_step(cfg, run, p, o, b)
+            sides[dev] = (p, o)
+            metrics[dev] = {k: float(v) for k, v in m.items()}
+        for k, want in metrics["cpu"].items():
+            got = metrics["cuda"][k]
+            if not (abs(got - want) <= 1e-4 * max(abs(want), 1.0)):
+                raise AssertionError(f"{cfg.name} train step {step}: {k} {got} on the card, "
+                                     f"{want} on the CPU")
+            worst_metric = max(worst_metric, abs(got - want) / max(abs(want), 1.0))
+        lrs.append(metrics["cpu"]["lr"])
+    counts = read_counts()
+    if any(c != (0, 0) for c in counts.values()):
+        raise AssertionError(f"{cfg.name} train steps launched kernels: {counts}")
+    (cp, co), (gp, go) = sides["cpu"], sides["cuda"]
+    worst_leaf = 0.0
+    for want, got in zip(tree_leaves((cp, co.mu, co.nu)), tree_leaves((gp, go.mu, go.nu))):
+        err = float((got.cpu().double() - want.double()).abs().max()
+                    / want.double().abs().max().clamp_min(1e-30))
+        if not err <= 1e-4:
+            raise AssertionError(f"{cfg.name} train: a {tuple(want.shape)} leaf differs by "
+                                 f"{err:.3e} of its largest magnitude")
+        worst_leaf = max(worst_leaf, err)
+    if int(go.step) != TRAIN_PARITY_STEPS or lrs[0] != 0.0 or not lrs[-1] > 0.0:
+        raise AssertionError(f"{cfg.name} train: step {int(go.step)}, lr {lrs}")
+    say("train", f"{cfg.name} f32 B={B} S={S}: {TRAIN_PARITY_STEPS} train steps (lr {lrs}), "
+                 f"CUDA vs CPU metrics {worst_metric:.3e}, parameters and moments "
+                 f"{worst_leaf:.3e} of each leaf's largest magnitude (tol 1e-4), final loss "
+                 f"{metrics['cpu']['loss']:.6f} CPU / {metrics['cuda']['loss']:.6f} CUDA, "
+                 f"launches {({n: c[0] for n, c in counts.items()})}")
+
+
+def phase_train_full(gpu: str, label: str, B: int, S: int, n_micro: int, steps: int,
+                     warmup: int) -> None:
+    """llama3.2-1b at full width in bf16 through ``launch.train.run``: the
+    loss finite and lower at the last step than at the first, every kernel
+    launch count 0 (training runs the plain path).  The step walls are the
+    ones ``run`` returns (what it hands its straggler monitor: batch to the
+    card, ``train_step``, the loss read back); tokens/s and ``mfu``, the model
+    FLOPs 6 N tokens (N the parameter count, the tied head once) over the
+    wall and the card's 989 TFLOP/s, from the steps after the first; peak
+    memory over the run.  Then one more step under torch.profiler on the
+    run's weights and optimizer state (``run`` updates both in place, the
+    step count too): device busy, idle share and the five largest device
+    operations."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch import train
+    from repro_torch.models.convert import tree_leaves
+    from repro_torch.models.steps import train_step
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import init_state
+
+    cfg = get_config(TRAIN_ARCH)
+    run = RunConfig(model=cfg, seq_len=S, global_batch=B, n_microbatches=n_micro,
+                    warmup_steps=warmup, total_steps=steps)
+    torch.cuda.empty_cache()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    opt = init_state(params)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = train.run(cfg, run, seed=0, steps=steps, device="cuda", params=params,
+                              opt_state=opt)
+    peak = torch.cuda.max_memory_allocated()
+    counts = read_counts()
+    check_counts(f"{cfg.name} train", counts, dict.fromkeys(counts, 0))
+    if len(losses) != steps or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{cfg.name} train ({label}): losses {losses}")
+    if int(opt.step) != steps:
+        raise AssertionError(f"{cfg.name} train ({label}): the optimizer's step count reads "
+                             f"{int(opt.step)} after {steps} steps")
+    tokens = B * S
+    steady = walls[1:]
+    med = statistics.median(steady)
+    flops = 6 * n_params * tokens
+    say("train", f"{cfg.name} bf16 ({label}) B={B} S={S} microbatches={n_micro} remat "
+                 f"{run.remat_policy} warmup {warmup}, {steps} steps: losses "
+                 f"{[round(x, 4) for x in losses]}; step 0 {walls[0] * 1e3:.2f} ms; steps "
+                 f"1..{steps - 1} {min(steady) * 1e3:.2f} .. {med * 1e3:.2f} .. "
+                 f"{max(steady) * 1e3:.2f} ms (min .. median .. max), {tokens / med:.0f} tok/s, "
+                 f"mfu {flops / med / MFU_PEAK:.4f} (6 x {n_params / 1e9:.4f} G x {tokens} "
+                 f"tokens = {flops / 1e12:.2f} TFLOP a step over {MFU_PEAK / 1e12:.0f} TFLOP/s), "
+                 f"peak memory {peak / 2**30:.3f} GiB ({peak / 1e9:.3f} GB), launches "
+                 f"{({n: c[0] for n, c in counts.items()})} | {gpu}")
+
+    batch = {k: torch.from_numpy(v).to("cuda")
+             for k, v in _train_data(cfg, B, S).batch(steps).items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(cfg, run, params, opt, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ops = [e for e in events if e.name not in TRAIN_SPANS]
+    if not ops:
+        raise AssertionError(f"{cfg.name} train: the profile shows no device operation")
+    busy_us = sum(e.time_range.elapsed_us() for e in ops)
+    window_us = max(e.time_range.end for e in ops) - min(e.time_range.start for e in ops)
+    say("train", f"{cfg.name} ({label}) one step under torch.profiler: wall {wall_us:.1f} us, "
+                 f"device window {window_us:.1f} us, device busy {busy_us:.1f} us, idle share "
+                 f"{1 - busy_us / wall_us:.4f} of the profiled wall "
+                 f"({1 - busy_us / (med * 1e6):.4f} of the median unprofiled step), "
+                 f"{len(ops)} device operations | {gpu}")
+    # train_step's two parts on the device.  The profiler places each span
+    # over the device operations launched inside it on the calling thread;
+    # backward runs on autograd's own thread, outside ``train.grads``, so the
+    # parts are cut by time: forward and backward from the first device
+    # operation of ``train.grads`` to the first of ``train.update``, the
+    # update from there on (one stream: the update's kernels follow the
+    # backward's).
+    starts = {e.name: e.time_range.start for e in events if e.name in TRAIN_SPANS}
+    if set(starts) == set(TRAIN_SPANS):
+        update_start = starts["train.update"]
+        for name, lo, hi in (("forward and backward", starts["train.grads"], update_start),
+                             ("update", update_start, math.inf)):
+            inside = [e for e in ops if lo <= e.time_range.start < hi]
+            t = sum(e.time_range.elapsed_us() for e in inside)
+            end = max(e.time_range.end for e in inside)
+            say("train", f"  {cfg.name} ({label}) {name}: device window "
+                         f"{end - lo:.1f} us, busy {t:.1f} us ({100 * t / busy_us:.1f}% of the "
+                         f"step's), {len(inside)} device operations")
+    else:
+        say("train", f"  {cfg.name} ({label}) the split into forward and backward and update: "
+                     f"not measured (the profile holds the device ranges {sorted(starts)})")
+    by_name = {}
+    for e in ops:
+        t, c = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
+    for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]:
+        name = re.sub(r"^void |at::native::|\(anonymous namespace\)::", "", name)
+        say("train", f"  {cfg.name} ({label}): {t:10.1f} us {100 * t / busy_us:5.1f}% "
+                     f"x{c:<5d} {name[:160]}")
+    del params, opt, batch
+    torch.cuda.empty_cache()
+
+
+def phase_train(gpu: str) -> None:
+    """Phase 8: the kernels refuse inputs that require grad; the ten archs'
+    train steps, card against CPU; llama3.2-1b at full width."""
+    phase_train_refuses_grad()
+    for arch in ARCHS:
+        phase_train_parity(arch)
+    for setting in TRAIN_SETTINGS:
+        phase_train_full(gpu, *setting)
+
+
 def main() -> int:
     gpu = phase_device()
     phase_build()
@@ -1236,6 +1480,7 @@ def main() -> int:
     rows = [phase_timing(gpu, launches, in_encoder, fa_errs),
             phase_wkv_timing(gpu, launches, wkv_err, wkv_parts),
             phase_lru_timing(gpu, launches, lru_err)]
+    phase_train(gpu)
     print(json.dumps({"kernels": rows}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Model configuration schema, copied from ``repro.configs.base``.
+"""Model and run configuration schema, copied from ``repro.configs.base``.
 
 A model is a sequence of *layer groups*; each group is a repeated
 *superblock* (a short tuple of layer kinds) applied ``count`` times with
@@ -83,3 +83,24 @@ class ModelConfig:
     @property
     def is_moe(self) -> bool:
         return self.n_experts > 0
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """Training run knobs: the fields of the JAX package's ``RunConfig``
+    that ``train_step`` reads, with its defaults.  Its distribution fields
+    come with distribution (ROADMAP.md Queue 1 item 7); the seed and the
+    checkpoint settings are ``launch.train.run``'s arguments."""
+
+    model: ModelConfig
+    seq_len: int = 4096
+    global_batch: int = 256
+    n_microbatches: int = 8
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    remat: bool = True
+    remat_policy: str = "block"  # block | dots | none
+    grad_accum_dtype: str = "float32"  # float32 | bfloat16

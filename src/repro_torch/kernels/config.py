@@ -12,6 +12,8 @@ from __future__ import annotations
 
 from pathlib import Path
 
+import torch
+
 DEFAULT_DEVICE = "cuda"
 
 # nvcc output (shared libraries keyed by a hash of their sources); listed in
@@ -28,3 +30,18 @@ def use_kernels(on: bool) -> None:
 
 def kernels_enabled() -> bool:
     return _USE_KERNELS
+
+
+def refuse_grad(kernel: str, **inputs: torch.Tensor) -> None:
+    """Raise where autograd would need a gradient through ``kernel``: its
+    wrapper fills its outputs outside autograd, so they would carry no
+    ``grad_fn`` and ``backward`` would drop every gradient through the layer
+    without an error."""
+    if not torch.is_grad_enabled():
+        return
+    needing = [name for name, t in inputs.items() if t.requires_grad]
+    if needing:
+        raise RuntimeError(
+            f"{kernel}: {', '.join(needing)} require grad, but the CUDA kernel has no backward; "
+            "the reference's Pallas kernels have no VJP either, and training runs the plain "
+            "path with kernels off (use_kernels(False)) or under torch.no_grad()")

@@ -7,6 +7,8 @@ wrapper checks what the kernel takes, allocates the output, launches on
 PyTorch's current stream and raises on a launch error.  It never computes
 anything itself: a tensor off the card is an error here (``ops.attention``
 routes CPU tensors to the plain version).
+With grad mode on, an input that requires grad is refused
+(``config.refuse_grad``): the kernel has no backward.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.config import refuse_grad
 
 SUPPORTED_DH = (32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -92,6 +95,7 @@ def flash_attention(
     """GQA attention forward on the card; returns (B, H, Sq, dh) in q's dtype
     with q's memory layout (so a transposed model-layout view stays one)."""
     global launches
+    refuse_grad("flash_attention", q=q, k=k, v=v)
     _check(q, k, v)
     B, H, Sq, dh = q.shape
     G, Sk = k.shape[1], k.shape[2]

@@ -7,6 +7,8 @@ workspace of chunk summaries, launches on PyTorch's current stream and
 raises on a launch error.  It never computes anything itself: a tensor off
 the card is an error here (``ops.scan`` routes CPU tensors to the plain
 version).
+With grad mode on, an input that requires grad is refused
+(``config.refuse_grad``): the kernel has no backward.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.config import refuse_grad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SUB = 32  # steps a thread holds in registers; a chunk is a multiple of it
@@ -77,6 +80,7 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     card.  Returns every h_t in a's dtype; the carry is f32.  Any S and W:
     ragged edges are masked in the kernel."""
     global launches
+    refuse_grad("rglru_scan", a=a, b=b)
     _check(a, b)
     B, S, W = a.shape
     L, C = chunking(S)

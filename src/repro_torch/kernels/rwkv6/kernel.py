@@ -8,6 +8,8 @@ allocates y, the final state and the scratch, launches on PyTorch's current
 stream and raises on a launch error.  It never computes anything itself: a
 tensor off the card is an error here (``ops.wkv`` routes CPU tensors to the
 plain version).
+With grad mode on, an input that requires grad is refused
+(``config.refuse_grad``): the kernel has no backward.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.config import refuse_grad
 
 SUPPORTED_K = (32, 64)
 SUPPORTED_CHUNK = (16, 32)
@@ -96,6 +99,7 @@ def wkv6(
     y (B, S, H, K) in r's dtype and the final state (B, H, K, K) in f32.
     Any S: a partial last chunk is handled in the kernel."""
     global launches
+    refuse_grad("wkv6", r=r, k=k, v=v, log_w=log_w, u=u)
     _check(r, k, v, log_w, u, chunk)
     B, S, H, K = r.shape
     y = torch.empty((B, S, H, K), dtype=r.dtype, device=r.device)

@@ -1,29 +1,66 @@
-"""Carry parameter trees from the JAX package into the port.
+"""Carry parameter trees from the JAX package into the port, and the
+port's tree helpers.
 
 ``params_from_jax`` takes the JAX tree with every leaf already a numpy array
 (the caller runs ``jax.tree.map(np.asarray, params)``; this module imports
 no JAX) and returns the same dict/tuple structure with torch leaves.  numpy
 has no native bfloat16: a bf16 leaf (ml_dtypes) goes through float32, which
 holds every bf16 value exactly, and back to ``torch.bfloat16``, so the
-conversion is bit-exact.
+conversion is bit-exact.  ``opt_state_from_jax`` carries an AdamW state the
+same way.  A tree is dicts, tuples, lists and NamedTuples over tensor
+leaves, a None standing for no leaf (a non-parametric norm's parameters),
+as in JAX's pytrees.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Any, Callable
 
 import numpy as np
 import torch
 
 
 def tree_map(fn: Callable, tree):
-    """Apply ``fn`` to every leaf of a dict/tuple/list tree (None stays None)."""
+    """Apply ``fn`` to every leaf of a tree (None stays None)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):  # a NamedTuple
+        return type(tree)(*(tree_map(fn, v) for v in tree))
     if isinstance(tree, (tuple, list)):
         return type(tree)(tree_map(fn, v) for v in tree)
     if tree is None:
         return None
     return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves in JAX's order: dict keys sorted, sequences and NamedTuple
+    fields in order, None skipped."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in tree_leaves(v)]
+    if tree is None:
+        return []
+    return [tree]
+
+
+def tree_unflatten(like, leaves) -> Any:
+    """A tree of ``like``'s structure whose leaves are ``leaves``, taken in
+    ``tree_leaves`` order."""
+    return _unflatten(like, iter(leaves))
+
+
+def _unflatten(like, it):
+    if isinstance(like, dict):
+        filled = {k: _unflatten(like[k], it) for k in sorted(like)}
+        return {k: filled[k] for k in like}
+    if isinstance(like, tuple) and hasattr(like, "_fields"):
+        return type(like)(*(_unflatten(v, it) for v in like))
+    if isinstance(like, (tuple, list)):
+        return type(like)(_unflatten(v, it) for v in like)
+    if like is None:
+        return None
+    return next(it)
 
 
 def array_to_torch(a: np.ndarray, device="cpu") -> torch.Tensor:
@@ -36,6 +73,16 @@ def array_to_torch(a: np.ndarray, device="cpu") -> torch.Tensor:
 def params_from_jax(tree, device="cpu"):
     """numpy tree (JAX package layout) -> torch tree on ``device``."""
     return tree_map(lambda a: array_to_torch(a, device), tree)
+
+
+def opt_state_from_jax(state, device="cpu"):
+    """numpy AdamW state (the JAX package's ``AdamWState``) -> the port's,
+    on ``device``: ``step``, ``mu`` and ``nu`` bit for bit."""
+    from repro_torch.optim.adamw import AdamWState
+
+    return AdamWState(step=array_to_torch(state.step, device),
+                      mu=params_from_jax(state.mu, device),
+                      nu=params_from_jax(state.nu, device))
 
 
 def draw_xattn_gates(params: dict, rng: np.random.Generator, leaf: Callable = np.asarray) -> int:

@@ -1,0 +1,135 @@
+"""Step functions, ported from ``repro.models.steps``.
+
+``train_step`` — forward + loss + backward + AdamW update (+ optional
+microbatch gradient accumulation), on one device.  Serving's steps are
+``models.decode.prefill`` and ``decode_step``.
+
+The reference trains on its plain path (its Pallas kernels have no VJP), so
+training here runs plain PyTorch with the kernels off; the kernel wrappers
+refuse inputs that require grad.  ``train_step`` takes gradients with
+``torch.autograd.grad`` over detached leaves that share the parameters'
+storage, then updates the parameters and the optimizer's state in place
+(``optim.adamw.apply_updates``) and returns the same trees.  Its two
+parts are ``train.grads`` (forward and backward, every microbatch) and
+``train.update`` (clip, schedule, AdamW) spans, which are also profiler
+ranges.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.models.common import dtype_of
+from repro_torch.models.convert import tree_leaves, tree_unflatten
+from repro_torch.models.transformer import forward
+from repro_torch.obs import trace
+from repro_torch.optim import adamw
+from repro_torch.optim.schedule import warmup_cosine
+
+
+def next_token_loss(
+    cfg: ModelConfig,
+    params: dict,
+    tokens: torch.Tensor,  # (B, S)
+    *,
+    frontend: Optional[torch.Tensor] = None,
+    remat=False,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean next-token cross-entropy (+ MoE aux loss)."""
+    logits, aux = forward(cfg, params, tokens, frontend=frontend, remat=remat)
+    logp = torch.log_softmax(logits[:, :-1].to(torch.float32), dim=-1)
+    labels = tokens[:, 1:].long()
+    nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+    ce = nll.mean()
+    loss = ce + aux
+    return loss, {"loss": loss, "ce": ce, "aux": aux}
+
+
+def check_frontend(cfg: ModelConfig, frontend: Optional[torch.Tensor]) -> None:
+    """Refuse a frontend in another dtype than the model's, as the reference
+    fails on one: its ``forward``'s ``lax.scan`` stops because an f32
+    frontend promotes the bf16 carry to f32 (``repro.launch.train --arch
+    whisper-small`` or ``llama-3.2-vision-11b`` in bf16)."""
+    if frontend is not None and frontend.dtype != dtype_of(cfg):
+        raise ValueError(
+            f"{cfg.name}: frontend is {frontend.dtype}, the model is {dtype_of(cfg)}; the "
+            "reference's train step fails on this input (an f32 frontend promotes its "
+            "lax.scan carry from bf16 to f32), so the port refuses it: cast the frontend "
+            "to the model's dtype")
+
+
+def _loss_and_grads(cfg, params, leaves, tokens, frontend, remat):
+    """(loss, metrics, one gradient for each of ``leaves`` in their dtypes)."""
+    loss, metrics = next_token_loss(cfg, params, tokens, frontend=frontend, remat=remat)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, list(grads)
+
+
+def train_step(
+    cfg: ModelConfig,
+    run: RunConfig,
+    params: dict,
+    opt_state: adamw.AdamWState,
+    batch: Dict[str, torch.Tensor],  # {"tokens": (B,S)[, "frontend": ...]}
+) -> Tuple[dict, adamw.AdamWState, Dict[str, torch.Tensor]]:
+    """One optimizer step.  ``run.n_microbatches > 1`` accumulates gradients
+    over microbatches in ``run.grad_accum_dtype`` (activation memory
+    O(microbatch)), used only where it divides the batch, as in the
+    reference; the metrics then hold only the mean loss."""
+    tokens = batch["tokens"]
+    frontend = batch.get("frontend")
+    check_frontend(cfg, frontend)
+    remat_mode = run.remat_policy if run.remat else "none"
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    diff_params = tree_unflatten(params, leaves)
+
+    with trace.span("train.grads", microbatches=run.n_microbatches):
+        metrics, grads = _grads(cfg, run, diff_params, leaves, tokens, frontend, remat_mode)
+    with trace.span("train.update"):
+        grads, gnorm = adamw.clip_by_global_norm(grads, run.grad_clip)
+        lr = warmup_cosine(
+            opt_state.step,
+            peak_lr=run.learning_rate,
+            warmup_steps=run.warmup_steps,
+            total_steps=run.total_steps,
+        )
+        params, opt_state = adamw.apply_updates(
+            adamw.AdamWConfig(
+                lr=run.learning_rate,
+                weight_decay=run.weight_decay,
+                grad_clip=run.grad_clip,
+            ),
+            params,
+            grads,
+            opt_state,
+            lr=lr,
+        )
+    metrics = dict(metrics, grad_norm=gnorm, lr=lr)
+    return params, opt_state, metrics
+
+
+def _grads(cfg, run, params, leaves, tokens, frontend, remat):
+    """(metrics, one gradient for each of ``leaves``): over the whole batch,
+    or summed over microbatches in ``run.grad_accum_dtype`` and divided in
+    f32 where ``run.n_microbatches`` divides the batch (the metrics then
+    hold only the mean loss), as the reference does."""
+    n_micro = max(run.n_microbatches, 1)
+    B = tokens.shape[0]
+    if n_micro > 1 and B % n_micro == 0:
+        acc_dt = torch.bfloat16 if run.grad_accum_dtype == "bfloat16" else torch.float32
+        acc = [torch.zeros(p.shape, dtype=acc_dt, device=p.device) for p in leaves]
+        tot_l = 0.0
+        for i in range(n_micro):
+            sl = slice(i * (B // n_micro), (i + 1) * (B // n_micro))
+            l, _, g = _loss_and_grads(cfg, params, leaves, tokens[sl],
+                                      None if frontend is None else frontend[sl], remat)
+            tot_l = tot_l + l
+            for a, gi in zip(acc, g):
+                a.add_(gi.to(acc_dt))
+            del g
+        # f32 accumulators are divided in place (``to`` returns them as they are)
+        return {"loss": tot_l / n_micro}, [a.to(torch.float32).div_(n_micro) for a in acc]
+    _, metrics, grads = _loss_and_grads(cfg, params, leaves, tokens, frontend, remat)
+    return metrics, grads

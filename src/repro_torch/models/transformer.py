@@ -17,6 +17,7 @@ import functools
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import (
     ATTN,
@@ -155,6 +156,25 @@ def layer_params(gp: tuple, i: int) -> tuple:
     return tuple(_take(p, i) for p in gp)
 
 
+def _unstack(tree, count: int) -> list:
+    if tree is None:
+        return [None] * count
+    if isinstance(tree, dict):
+        per_key = {k: _unstack(v, count) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(count)]
+    return list(torch.unbind(tree, 0))
+
+
+def unstack_params(gp: tuple, count: int) -> list:
+    """Every repetition's ``layer_params`` at once, each stacked leaf split by
+    one ``torch.unbind``: its backward writes the stacked gradient once,
+    where ``count`` separate selects would each write a zero-filled
+    gradient of the whole stack (the counterpart of the JAX package's scan,
+    which writes each repetition's gradient into its slice)."""
+    per_kind = [_unstack(p, count) for p in gp]
+    return [tuple(kind[i] for kind in per_kind) for i in range(count)]
+
+
 # --------------------------------------------------------------------------
 # Forward (full sequence).
 # --------------------------------------------------------------------------
@@ -254,8 +274,7 @@ def _run_encoder(cfg: ModelConfig, params: dict, frontend: torch.Tensor) -> torc
     T = frontend.shape[1]
     x = frontend + enc_p["pos"][None, :T]
     positions = torch.arange(T, dtype=torch.int32, device=frontend.device)
-    for i in range(cfg.encoder_layers):
-        p = _take(enc_p["layers"], i)
+    for p in _unstack(enc_p["layers"], cfg.encoder_layers):
         h = apply_norm(cfg, x, p["ln1"])
         x = x + attn.self_attention(cfg, p["attn"], h, positions, causal=False)
         h = apply_norm(cfg, x, p["ln2"])
@@ -275,26 +294,62 @@ def frontend_states(cfg: ModelConfig, params: dict,
     return None
 
 
+def _block(cfg: ModelConfig, pattern: Tuple[str, ...], x: torch.Tensor, aux: torch.Tensor,
+           p_block: tuple, positions: torch.Tensor,
+           enc: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One repetition of a group's pattern, the unit remat recomputes:
+    (x, aux plus the MoE layers' aux losses in layer order).  The aux
+    losses are collected here and returned, so a re-run in backward adds
+    nothing twice."""
+    auxes = []
+    for kind, p in zip(pattern, p_block):
+        x = _apply_layer_full(cfg, kind, p, x, positions, enc, auxes)
+    for a in auxes:  # summed in layer order, as the reference's scan carries it
+        aux = aux + a
+    return x, aux
+
+
+def _save_mm_outputs():
+    """Selective checkpointing's contexts for ``remat="dots"``: keep the
+    outputs of ``aten.mm`` (the projections, products with no batch
+    dimensions) and recompute the rest, ``bmm`` included: the counterpart
+    of JAX's ``dots_with_no_batch_dims_saveable``."""
+    return create_selective_checkpoint_contexts([torch.ops.aten.mm.default])
+
+
+def _remat_block(remat, block):
+    """``block`` under the remat policy of the JAX package's ``forward``:
+    ``True`` / ``"block"`` recomputes the whole repetition in backward,
+    ``"dots"`` keeps the projections' outputs, anything else keeps
+    everything."""
+    if remat in (True, "block"):
+        return functools.partial(checkpoint, block, use_reentrant=False)
+    if remat == "dots":
+        return functools.partial(checkpoint, block, use_reentrant=False,
+                                 context_fn=_save_mm_outputs)
+    return block
+
+
 def forward(
     cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     frontend: Optional[torch.Tensor] = None,  # (B, T, frontend_dim) stub embeddings
+    remat=False,  # False / "none" | True / "block" | "dots"
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B, S, V) f32, aux_loss scalar): the MoE routers' aux
     losses summed over the layers, times ``AUX_LOSS_COEF``; zero without
-    experts."""
+    experts.  ``remat`` checkpoints each repetition of a group's pattern
+    (``torch.utils.checkpoint``, non-reentrant), as the JAX package's
+    ``jax.checkpoint`` around its scan body."""
     check_supported(cfg)
     S = tokens.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     enc = frontend_states(cfg, params, frontend)
     x = _embed_tokens(cfg, params, tokens)
     x = _positions_embed(cfg, params, x, positions)
-    auxes = []
-    for group, gp in zip(cfg.groups, params["groups"]):
-        for i in range(group.count):
-            for kind, p in zip(group.pattern, layer_params(gp, i)):
-                x = _apply_layer_full(cfg, kind, p, x, positions, enc, auxes)
-    x = apply_norm(cfg, x, params["final_norm"])
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for a in auxes:  # summed in layer order, as the reference's scan carries it
-        aux_total = aux_total + a
+    for group, gp in zip(cfg.groups, params["groups"]):
+        body = _remat_block(remat, functools.partial(_block, cfg, group.pattern))
+        for p_block in unstack_params(gp, group.count):
+            x, aux_total = body(x, aux_total, p_block, positions, enc)
+    x = apply_norm(cfg, x, params["final_norm"])
     return unembed(cfg, params["embed"], x), aux_total * AUX_LOSS_COEF

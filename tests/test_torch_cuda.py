@@ -395,3 +395,32 @@ def test_decode_graph_raises_when_the_step_cannot_be_captured(cuda_device, monke
         steps.step()
     assert steps.graph is None
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "wkv6", "rglru_scan"])
+def test_kernel_refuses_inputs_that_require_grad(cuda_device, name):
+    """With grad mode on, a CUDA input that requires grad is refused before
+    any launch (the kernel has no backward: its output would carry no
+    grad_fn); under no_grad the same inputs launch once.  Inputs are drawn
+    with numpy: a failed capture earlier in the file leaves torch's CUDA
+    generator unusable."""
+    rng = np.random.default_rng(0)
+
+    def draw(*shape):
+        return torch.from_numpy(rng.uniform(0.1, 0.9, shape).astype(np.float32)).to(cuda_device)
+
+    fn, module, inputs = {
+        "flash_attention": (kernel.flash_attention, kernel, [draw(1, 2, 64, 64) for _ in range(3)]),
+        "wkv6": (wkv_kernel.wkv6, wkv_kernel,
+                 list(_wkv_inputs(cuda_device, 1, 32, 2, 64, torch.float32))),
+        "rglru_scan": (lru_kernel.rglru_scan, lru_kernel, [draw(1, 64, 32) for _ in range(2)]),
+    }[name]
+    inputs = [t.clone().requires_grad_() for t in inputs]
+    before = module.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        fn(*inputs)
+    assert module.launches == before
+    with torch.no_grad():
+        fn(*inputs)
+    torch.cuda.synchronize()
+    assert module.launches == before + 1

@@ -1,0 +1,19 @@
+"""``train_step`` of the port against the JAX package's, f32, smoke width:
+gemma2-9b, whisper-small, llama-3.2-vision-11b, mixtral-8x22b and dbrx-132b
+(the other five archs are in ``test_torch_train_archs_a.py``).  Two steps
+with ``warmup_steps=1``: the first at lr 0 (moments only), the second
+moves every weight.  Loss, ce, aux, grad_norm and lr each step, then every
+parameter, ``mu`` and ``nu`` leaf at 1e-4 of the leaf's largest magnitude:
+both sides compute in f32 and differ in the order of their sums."""
+import pytest
+import torch
+
+from _torch_train_parity import check_train_step
+
+torch.set_num_threads(1)
+
+
+@pytest.mark.parametrize("arch", ["gemma2-9b", "whisper-small", "llama-3.2-vision-11b",
+                                  "mixtral-8x22b", "dbrx-132b"])
+def test_train_step_matches_reference(arch):
+    check_train_step(arch)
