@@ -52,6 +52,14 @@ Phases, each printing its own lines, any failure ending the run non-zero:
                defaults, and S=2048 in four microbatches): the loss falls,
                no kernel launches, step wall, tokens/s, ``mfu``, peak memory,
                and one step under torch.profiler.
+  9. fit     — the paper's measure -> fit -> register -> plan loop through
+               ``repro_torch.core`` on the card: the host -> device copy
+               (``bench_host_device_roundtrip``) and the other copy tiers one
+               card has (host -> device pinned, device -> host pinned and
+               pageable, device -> device) timed and fitted to postal models,
+               each beside the registry's summit and gh200 copy tiers; the
+               host -> device fit registered as ``h100_fitted``, which must
+               plan ``gpudirect``; its fit residuals and drift summary.
 The second-to-last line is the card as nvidia-smi names it, the last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of ``repro``.
 """
@@ -134,6 +142,10 @@ MFU_PEAK = 989e12
 # train_step's spans (models/steps.py), which the profiler also records as
 # device-side ranges
 TRAIN_SPANS = ("train.grads", "train.update")
+# phase 9: the fitted card's registry name; the registry's machines whose
+# copy tiers (paper Table II, and a representative GH200) the card's stand beside
+FIT_NAME = "h100_fitted"
+FIT_COMPARE = ("summit", "gh200")
 
 
 WKV_SHAPE = dict(B=4, S=512, H=32, K=64, chunk=32, dtype=torch.bfloat16)
@@ -1463,6 +1475,90 @@ def phase_train(gpu: str) -> None:
         phase_train_full(gpu, *setting)
 
 
+def copy_tiers(dev: torch.device) -> dict:
+    """The copy tiers one card has beside the pageable host -> device copy,
+    as ``bench_transfer``'s (make_buffer, transfer) pairs: each buffer is a
+    (source, destination) pair made once a size, each transfer one copy
+    that ends when the card has finished it."""
+
+    def tier(src_on, dst_on, pinned):
+        def make(s: int):
+            def buf(on):
+                if on == "card":
+                    return torch.zeros(s, dtype=torch.uint8, device=dev)
+                return torch.zeros(s, dtype=torch.uint8, pin_memory=pinned)
+            return buf(src_on), buf(dst_on)
+
+        def transfer(pair):
+            src, dst = pair
+            dst.copy_(src, non_blocking=pinned)
+            torch.cuda.synchronize(dev)
+
+        return make, transfer
+
+    return {"copy_h2d pinned": ("copy_h2d", tier("host", "card", True)),
+            "copy_d2h pinned": ("copy_d2h", tier("card", "host", True)),
+            "copy_d2h pageable": ("copy_d2h", tier("card", "host", False)),
+            "copy_d2d": (None, tier("card", "card", False))}
+
+
+def fit_line(label: str, res, gpu: str) -> str:
+    """alpha, beta and 1/beta of one fitted tier, failing the run on a fit
+    that is negative, zero in beta or not finite."""
+    a, b = res.fitted.alpha, res.fitted.beta
+    if not (math.isfinite(a) and math.isfinite(b) and a >= 0 and b > 0):
+        raise AssertionError(f"{label}: fitted alpha={a!r} beta={b!r}")
+    return (f"{label}: alpha={a:.4e} s beta={b:.4e} s/B 1/beta={1e-9 / b:.3f} GB/s "
+            f"(sizes {res.sizes[0]}-{res.sizes[-1]} B) | {gpu}")
+
+
+def phase_fit(gpu: str) -> None:
+    """Phase 9: the paper's §VI loop on the card through the port's planner:
+    measure the copy tiers, fit each, register the host -> device fit as a
+    machine, plan on it, and print the fit's residuals and drift."""
+    from repro_torch.analysis import check_fit_residuals
+    from repro_torch.core import get_machine, plan_messages, registered_machines
+    from repro_torch.core.benchmark import (bench_host_device_roundtrip, bench_transfer,
+                                            spec_from_measurements)
+    from repro_torch.obs import drift
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    drift.reset()
+    h2d = bench_host_device_roundtrip()
+    for row in h2d.csv_rows("h2d"):
+        say("fit", f"{row} | {gpu}")
+    fits = {"copy_h2d pageable (bench_host_device_roundtrip)": ("copy_h2d", h2d)}
+    for label, (reg_tier, (make, transfer)) in copy_tiers(dev).items():
+        fits[label] = (reg_tier, bench_transfer(make, transfer))
+    specs = {name: get_machine(name) for name in FIT_COMPARE}
+    for label, (reg_tier, res) in fits.items():
+        say("fit", fit_line(label, res, gpu))
+        for size, t in zip(res.sizes, res.times):
+            beside = " ".join(
+                f"{name} {reg_tier}:on-socket {float(spec.tiers[f'{reg_tier}:on-socket'].time(float(size))):.3e} s"
+                for name, spec in specs.items()) if reg_tier else "no registry tier"
+            say("fit", f"  {label} {size} B: card {t:.3e} s | {beside}")
+
+    spec = spec_from_measurements(FIT_NAME, h2d, injectors_per_node=1)
+    plan = plan_messages(spec, 65536.0, 4)
+    say("fit", f"{FIT_NAME}: registered={FIT_NAME in registered_machines()} "
+               f"plan(64 KiB x 4)={plan.strategy} t={plan.predicted_time:.4e} s "
+               f"alternatives={list(plan.alternatives)} | {gpu}")
+    if FIT_NAME not in registered_machines() or plan.strategy != "gpudirect" \
+            or not plan.predicted_time > 0:
+        raise AssertionError(f"{FIT_NAME} did not register and plan gpudirect "
+                             f"with a positive time: {plan}")
+    found = check_fit_residuals(spec, {"gpu_net": list(zip(h2d.sizes, h2d.times))})
+    for f in found:
+        say("fit", f"residual warning: {f.check} {f.detail}")
+    say("fit", f"{len(found)} fit-residual warning(s) (printed, not gated)")
+    summary = drift.summary()
+    tiers = {k: v for k, v in summary["tiers"].items() if k.startswith(f"{FIT_NAME}/")}
+    say("fit", f"drift {json.dumps(tiers, sort_keys=True)}")
+    say("fit", f"ok in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     gpu = phase_device()
     phase_build()
@@ -1481,6 +1577,7 @@ def main() -> int:
             phase_wkv_timing(gpu, launches, wkv_err, wkv_parts),
             phase_lru_timing(gpu, launches, lru_err)]
     phase_train(gpu)
+    phase_fit(gpu)
     print(json.dumps({"kernels": rows}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -424,3 +424,26 @@ def test_kernel_refuses_inputs_that_require_grad(cuda_device, name):
         fn(*inputs)
     torch.cuda.synchronize()
     assert module.launches == before + 1
+
+
+def test_host_device_copy_fit_on_card(cuda_device):
+    """The paper's §VI measurement on the card: the host -> device copy at the
+    reference's sizes, fitted to a postal model with a positive per-byte cost."""
+    from repro_torch.core.benchmark import bench_host_device_roundtrip
+
+    res = bench_host_device_roundtrip()
+    assert all(np.isfinite(t) and t > 0 for t in res.times)
+    assert np.isfinite(res.fitted.alpha) and res.fitted.alpha >= 0
+    assert np.isfinite(res.fitted.beta) and res.fitted.beta > 0
+
+
+def test_fitted_card_registers_and_plans_gpudirect(cuda_device):
+    from repro_torch.core import get_machine, plan_messages, registered_machines
+    from repro_torch.core.benchmark import bench_host_device_roundtrip, spec_from_measurements
+
+    res = bench_host_device_roundtrip()
+    spec = spec_from_measurements("h100_fitted_test", res, injectors_per_node=1)
+    assert "h100_fitted_test" in registered_machines()
+    assert get_machine("h100_fitted_test") is spec
+    plan = plan_messages(spec, 65536.0, 4)
+    assert plan.strategy == "gpudirect" and plan.predicted_time > 0
