@@ -60,6 +60,17 @@ Phases, each printing its own lines, any failure ending the run non-zero:
                each beside the registry's summit and gh200 copy tiers; the
                host -> device fit registered as ``h100_fitted``, which must
                plan ``gpudirect``; its fit residuals and drift summary.
+ 10. drills  — serve's per-step planner consult and its failure drills (run
+               before phase 9, which then starts from the registry's
+               built-in machines and a fresh link-health monitor):
+               llama3.2-1b at full width through ``serve.run`` three times
+               after a warm run (the replayed step's wall with the consult
+               on, the consult's host time, 16 flash launches a request);
+               the degradation drill with a host loss shed (the batch cut
+               to 3 and the step captured again) and shrunk; the same
+               drills at smoke width in f32, card against CPU (the same
+               drill lines and planner counters, the shed rows equal to
+               the unshed run's); and a seeded scenario, card against CPU.
 The second-to-last line is the card as nvidia-smi names it, the last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of ``repro``.
 """
@@ -146,6 +157,20 @@ TRAIN_SPANS = ("train.grads", "train.update")
 # copy tiers (paper Table II, and a representative GH200) the card's stand beside
 FIT_NAME = "h100_fitted"
 FIT_COMPARE = ("summit", "gh200")
+# phase 10: the arch served with the drills; the runs after the warm one;
+# the degradation and host-loss steps; the seeded scenario's arguments
+# (runtime.scenarios.generate); the smoke-width runs' shape; the metric
+# families whose values the card must share with the CPU; serve's drill lines
+DRILL_ARCH, DRILL_RUNS = "llama3.2-1b", 3
+DEGRADE_AT, FAIL_AT = 8, 16
+SCENARIO_ARGS = dict(seed=3, total_steps=12, hosts=4, n_events=4, tiers=("dcn",))
+DRILL_SMOKE = dict(batch=4, prompt_len=16, new_tokens=24)
+SHARED_METRICS = ("plan_cache.", "lowering_memo.", "engine.", "health.", "runtime.",
+                  "serve.decode.tokens", "serve.batch.live", "serve.simulated_makespan_s")
+DRILL_LINE = re.compile(r"^\[serve\] (link|host|scenario|per-step plan)")
+# llama3.2-1b's replayed decode step wall before serve consulted the planner
+# (PERF.md section 5, the same card at 700 W), ms
+REPLAY_BEFORE_MS = (4.209, 4.229)
 
 
 WKV_SHAPE = dict(B=4, S=512, H=32, K=64, chunk=32, dtype=torch.bfloat16)
@@ -1559,6 +1584,173 @@ def phase_fit(gpu: str) -> None:
     say("fit", f"ok in {time.perf_counter() - t0:.1f} s")
 
 
+def fresh_planner() -> None:
+    """The registry's built-in ``tpu_v5e`` (a drill re-registers it degraded
+    or shrunk), empty plan and lowering caches, and cold observability
+    (metrics off and empty, no tracer, no drift, a fresh link-health
+    monitor)."""
+    from repro_torch import obs
+    from repro_torch.comms.autotune import clear_plan_cache
+    from repro_torch.core.machine import register_machine, tpu_machine_spec
+    from repro_torch.core.schedule import clear_schedule_cache
+
+    register_machine("tpu_v5e", tpu_machine_spec)
+    clear_plan_cache()
+    clear_schedule_cache()
+    obs.reset_all()
+
+
+def drill_run(cfg, device: str, **kw) -> dict:
+    """One ``serve.run`` of ``cfg`` from a fresh planner, seed 0: its
+    generations, printed lines, drill lines, metrics, the values of
+    ``SHARED_METRICS``, the launch counts and the health snapshot."""
+    from repro_torch.launch import serve
+    from repro_torch.obs import health, metrics
+
+    fresh_planner()
+    zero_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        gen = serve.run(cfg, seed=0, device=device, **kw)
+    text = buf.getvalue()
+    snap = metrics.to_json()
+    shared = {k: v for kind in ("counters", "gauges") for k, v in snap[kind].items()
+              if k.startswith(SHARED_METRICS)}
+    return {"gen": gen, "text": text, "snap": snap, "shared": shared,
+            "lines": [ln for ln in text.splitlines() if DRILL_LINE.match(ln)],
+            "counts": read_counts(), "health": health.monitor().snapshot()}
+
+
+def same_drill(what: str, card: dict, cpu: dict) -> None:
+    """The card's run printed the CPU's drill lines and ended with its
+    values of ``SHARED_METRICS``."""
+    if card["lines"] != cpu["lines"]:
+        raise AssertionError(f"{what}: drill lines differ, card {card['lines']} "
+                             f"CPU {cpu['lines']}")
+    if card["shared"] != cpu["shared"]:
+        raise AssertionError(f"{what}: metrics differ, card {card['shared']} "
+                             f"CPU {cpu['shared']}")
+
+
+def check_shed(what: str, gen: np.ndarray, batch: int, fail_at: int) -> None:
+    """The last row holds tokens up to the step it was shed at and -1 after
+    it; no other entry is -1."""
+    if not ((gen[batch - 1, fail_at + 1:] == -1).all() and (gen[batch - 1, :fail_at + 1] >= 0).all()
+            and (gen[:batch - 1] >= 0).all()):
+        raise AssertionError(f"{what}: the -1 layout is wrong: {gen.tolist()}")
+
+
+def phase_drills(gpu: str) -> None:
+    """Phase 10: serve's per-step consult and its drills on the card."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.runtime.scenarios import generate
+
+    t0 = time.perf_counter()
+    cfg = serve_config(DRILL_ARCH)
+    B, P, N = B_SERVE, P_SERVE, N_SERVE
+    full = dict(batch=B, prompt_len=P, new_tokens=N)
+    want = prefill_launches(cfg)
+    torch.cuda.empty_cache()
+
+    # (a) the consult on the main path
+    drill_run(cfg, "cuda", **full)  # warm
+    replays, consult = [], []
+    for r in range(1, DRILL_RUNS + 1):
+        run = drill_run(cfg, "cuda", **full)
+        check_counts(f"{DRILL_ARCH} serve with the consult", run["counts"], want)
+        h = run["snap"]["histograms"]
+        plan = h["plan.select_allreduce_strategy.seconds"]
+        if plan["count"] != N or run["lines"] != ["[serve] per-step plan: flat"]:
+            raise AssertionError(f"the consult ran {plan['count']} times, expected {N}; "
+                                 f"lines {run['lines']}")
+        replay = (h["serve.decode.seconds"]["sum"]
+                  - h["serve.decode.first_step.seconds"]["sum"]) / (N - 1)
+        replays.append(replay)
+        consult.append(plan["mean"])
+        say("drills", f"{cfg.name} bf16 B={B} prompt={P} new={N} run {r}: replayed step "
+                      f"{replay * 1e3:.4f} ms, plan.select_allreduce_strategy "
+                      f"{plan['count']} calls, mean {plan['mean'] * 1e6:.3f} us "
+                      f"(min {plan['min'] * 1e6:.3f}, max {plan['max'] * 1e6:.3f}), "
+                      f"launches {({n: c[0] for n, c in run['counts'].items()})} | {gpu}")
+    lo, hi = min(replays) * 1e3, max(replays) * 1e3
+    say("drills", f"replayed step with the consult {lo:.4f}-{hi:.4f} ms over {DRILL_RUNS} runs "
+                  f"({lo / REPLAY_BEFORE_MS[0] - 1:+.2%} .. {hi / REPLAY_BEFORE_MS[1] - 1:+.2%} "
+                  f"against {REPLAY_BEFORE_MS[0]}-{REPLAY_BEFORE_MS[1]} ms before it); consult "
+                  f"mean {statistics.mean(consult) * 1e6:.3f} us a step | {gpu}")
+
+    # (b) the drills at full width
+    degrade = dict(degrade_at=DEGRADE_AT, fail_at=FAIL_AT)
+    card_full = {}
+    # shed twice, to read the second capture's time twice in one process
+    for mode in ("shed", "shrink", "shed"):
+        run = card_full[mode] = drill_run(cfg, "cuda", **full, **degrade, fail_mode=mode)
+        check_counts(f"{DRILL_ARCH} {mode} drill", run["counts"], want)
+        gauges, h = run["snap"]["gauges"], run["snap"]["histograms"]
+        if not any(ln.startswith(f"[serve] link tpu_v5e/dcn degraded at decode step")
+                   for ln in run["lines"]) or gauges.get("health.links.degraded") != 1:
+            raise AssertionError(f"{mode} drill: the link did not degrade: {run['lines']}, "
+                                 f"health.links.degraded={gauges.get('health.links.degraded')}")
+        for ln in run["lines"]:
+            say("drills", f"{mode}: {ln}")
+        if mode == "shed":
+            check_shed("full-width shed", run["gen"], B, FAIL_AT)
+            recapture = h.get("serve.decode.recapture.seconds", {"count": 0})
+            if gauges.get("serve.batch.live") != B - 1 or recapture["count"] != 1:
+                raise AssertionError(f"shed: serve.batch.live={gauges.get('serve.batch.live')}, "
+                                     f"{recapture['count']} second captures")
+            say("drills", f"shed at step {FAIL_AT}: second capture at B={B - 1} "
+                          f"{recapture['sum'] * 1e3:.3f} ms, first capture at B={B} "
+                          f"{h['serve.decode.capture.seconds']['sum'] * 1e3:.3f} ms, step 0 "
+                          f"with it {h['serve.decode.first_step.seconds']['sum'] * 1e3:.3f} ms; "
+                          f"decode {h['serve.decode.seconds']['sum'] * 1e3:.3f} ms for {N} "
+                          f"steps | {gpu}")
+        say("drills", f"{mode}: health {json.dumps(run['health'], sort_keys=True)}")
+
+    # (c) agreement at smoke width, f32: card against CPU in this process
+    scfg = dataclasses.replace(smoke_config(DRILL_ARCH), dtype="float32")
+    base = drill_run(scfg, "cuda", **DRILL_SMOKE)
+    for mode in ("shed", "shrink"):
+        card = drill_run(scfg, "cuda", **DRILL_SMOKE, **degrade, fail_mode=mode)
+        cpu = drill_run(scfg, "cpu", **DRILL_SMOKE, **degrade, fail_mode=mode)
+        same_drill(f"smoke {mode} drill", card, cpu)
+        if card["health"]["links"] != cpu["health"]["links"]:
+            raise AssertionError(f"smoke {mode} drill: health differs")
+        if mode == "shed":
+            b = DRILL_SMOKE["batch"]
+            check_shed("smoke shed", card["gen"], b, FAIL_AT)
+            if not np.array_equal(card["gen"][:b - 1], base["gen"][:b - 1]):
+                raise AssertionError(f"smoke shed: rows 0..{b - 2} differ from the unshed run's")
+        if card_full[mode]["lines"] != cpu["lines"]:
+            raise AssertionError(f"{mode}: the full-width drill lines {card_full[mode]['lines']} "
+                                 f"differ from the CPU's {cpu['lines']}")
+        say("drills", f"smoke f32 {mode}: card and CPU print the same {len(cpu['lines'])} "
+                      f"drill lines and end with the same {len(cpu['shared'])} planner, "
+                      f"health and runtime metrics; the full-width lines equal them"
+                      + (f"; rows 0..{DRILL_SMOKE['batch'] - 2} equal the unshed run's"
+                         if mode == "shed" else ""))
+
+    # (d) the seeded scenario
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "scenario.json")
+        generate(SCENARIO_ARGS["seed"], SCENARIO_ARGS["total_steps"],
+                 hosts=SCENARIO_ARGS["hosts"], n_events=SCENARIO_ARGS["n_events"],
+                 tiers=SCENARIO_ARGS["tiers"]).save(path)
+        card_full_sc = drill_run(cfg, "cuda", **full, scenario=path)
+        card = drill_run(scfg, "cuda", **DRILL_SMOKE, scenario=path)
+        cpu = drill_run(scfg, "cpu", **DRILL_SMOKE, scenario=path)
+    check_counts(f"{DRILL_ARCH} scenario", card_full_sc["counts"], want)
+    same_drill("smoke scenario", card, cpu)
+    if card_full_sc["lines"] != cpu["lines"]:
+        raise AssertionError(f"scenario: full-width lines {card_full_sc['lines']} differ "
+                             f"from the CPU's {cpu['lines']}")
+    for ln in card_full_sc["lines"]:
+        say("drills", f"scenario: {ln}")
+    fresh_planner()
+    say("drills", f"ok in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     gpu = phase_device()
     phase_build()
@@ -1577,6 +1769,7 @@ def main() -> int:
             phase_wkv_timing(gpu, launches, wkv_err, wkv_parts),
             phase_lru_timing(gpu, launches, lru_err)]
     phase_train(gpu)
+    phase_drills(gpu)
     phase_fit(gpu)
     print(json.dumps({"kernels": rows}))
     print(gpu_line())

@@ -15,8 +15,7 @@ Layers:
               path, bottleneck_report (DESIGN.md §4)
   schedule  — declarative collective schedules: strategy lowering, the
               ring/Bruck/recursive/node-aware library, schedule search
-  planner   — strategy selection (the reference's ``repro.comms`` consumes it;
-              the port's ``comms`` is not written yet)
+  planner   — strategy selection consumed by repro_torch.comms
   benchmark — live measurement harness feeding `fitting`; fitted machines
               register via `spec_from_measurements` and plan like built-ins
 """

@@ -224,10 +224,9 @@ class SimResult:
         )
 
 
-# Observability seam.  This module never imports repro_torch.obs; when
-# metrics or tracing are on, the reference's repro/obs/__init__.py installs a
-# sink here (the port's obs installs none yet) and run_schedule feeds it every
-# result.  The quiet-path cost is one `is not None` check per run — measured
+# Observability seam (see repro_torch/obs/__init__.py).  This module never
+# imports repro_torch.obs; when metrics or tracing are on, obs installs a sink
+# here and run_schedule feeds it every result.  The quiet-path cost is one `is not None` check per run — measured
 # (not asserted) in the reference's benchmarks/planner_speed.py.
 _OBS_SINK = None
 # engine op counts from the most recent _run_schedule_impl call; module

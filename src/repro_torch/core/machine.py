@@ -231,7 +231,7 @@ class MachineSpec:
         Two specs with equal fingerprints lower to identical schedules and
         make identical plan picks, so the fingerprint (not ``name``) is the
         cache key for lowering memoization (:mod:`repro_torch.core.schedule`) and
-        the plan cache (the reference's ``repro.comms.autotune``).  Live-fitted machines
+        the plan cache (:mod:`repro_torch.comms.autotune`).  Live-fitted machines
         from ``spec_from_measurements`` reuse a registry name but carry new
         postal parameters — their fingerprints differ, so re-registering a
         refit spec can never serve a stale cached plan.

@@ -99,7 +99,7 @@ def make_simple(alpha: float, beta: float) -> SimplePostalModel:
 class ScaledPostalModel:
     """A base postal model with multiplicative (alpha, beta) degradation.
 
-    The congestion fitter (the reference's ``repro.obs.congestion``) expresses a sagging
+    The congestion fitter (:mod:`repro_torch.obs.congestion`) expresses a sagging
     link as scale factors on the healthy model rather than a fresh fit: the
     protocol segmentation (short/eager/rendezvous thresholds) of the base
     model is preserved, only the per-segment latency/bandwidth terms move.

@@ -22,7 +22,7 @@ finite.  This module provides the three layers on top of the raw engine:
 3. :func:`search_schedules` / :func:`best_schedule` — enumerate every
    applicable schedule for a problem, execute each on the event engine, and
    rank by simulated makespan; :func:`repro_torch.core.planner.plan_schedule_search`
-   and the reference's ``repro.comms.autotune`` consume this.
+   and :mod:`repro_torch.comms.autotune` consume this.
 
 4. :func:`compose_schedules` / :func:`chain_schedules` — merge step DAGs
    onto ONE shared resource pool (namespaced steps, resources merged by

@@ -126,7 +126,7 @@ def run(cfg: ModelConfig, run_cfg: RunConfig, *, seed: int, steps: int, device,
         dt = time.perf_counter() - t0
         losses.append(loss)
         walls.append(dt)
-        mon.record(dt)
+        mon.record(step, dt)
         if step % log_every == 0:
             print(
                 f"[train] step {step} loss {loss:.4f} lr {float(metrics['lr']):.2e} "

@@ -67,7 +67,9 @@ def init_caches(cfg: ModelConfig, batch: int, capacity: int, device=None) -> tup
     groups = []
     for g in cfg.groups:
         single = [_layer_cache(cfg, kind, batch, capacity, device) for kind in g.pattern]
-        groups.append(tree_map(lambda t: t.unsqueeze(0).repeat(g.count, *([1] * t.dim())),
+        # a broadcast copy, not repeat: on the meta device repeat (and clone)
+        # import sympy, about a second that a shed would pay mid-request
+        groups.append(tree_map(lambda t: t.new_empty((g.count, *t.shape)).copy_(t),
                                tuple(single)))
     return tuple(groups)
 
@@ -229,6 +231,29 @@ def decode_step(
     return unembed(cfg, params["embed"], x[:, -1]), caches
 
 
+def _cut(live, target):
+    if isinstance(live, dict):
+        return {k: _cut(v, target[k]) for k, v in live.items()}
+    if isinstance(live, (tuple, list)):
+        return type(live)(_cut(v, t) for v, t in zip(live, target))
+    out = live
+    for ax in range(out.dim()):
+        if out.shape[ax] != target.shape[ax]:
+            out = out.narrow(ax, 0, target.shape[ax])
+    return out.clone(memory_format=torch.contiguous_format)
+
+
+def cut_caches(cfg: ModelConfig, caches: tuple, batch: int, capacity: int) -> tuple:
+    """Prefill's (or decode's) caches cut to their first ``batch`` rows: the
+    counterpart of the JAX serve loop's shed, which slices each leaf to the
+    shape ``jax.eval_shape`` of prefill gives at the smaller batch.  The
+    target shapes come from ``init_caches`` on the meta device.  The batch
+    axis is not always first (leaves are stacked over each group's count),
+    so every axis whose size differs is cut.  Every leaf of the result is a
+    new contiguous tensor: a captured graph holds its inputs' addresses."""
+    return _cut(caches, init_caches(cfg, batch, capacity, device="meta"))
+
+
 class DecodeGraph:
     """Greedy decode of one batch, each step after the first one replay of a
     captured CUDA graph: the counterpart of the JAX package's jitted,
@@ -246,6 +271,13 @@ class DecodeGraph:
     advances ``pos``), then captures it into one ``torch.cuda.CUDAGraph``;
     every later ``step()`` is one ``replay()``.  A capture that fails raises;
     nothing runs eagerly instead.  On the CPU every step runs eagerly.
+
+    ``shed(caches)`` drops the last live sequence between two steps and goes
+    on with the remaining steps at the smaller batch: on the card the old
+    graph is released and the next ``step()`` warms up and captures again
+    (``recapture_seconds``).  The shed row of ``tokens`` keeps the token it
+    was fed for the next step and reads -1 after it, the JAX serve loop's
+    padding.
     """
 
     def __init__(self, cfg: ModelConfig, params: dict, caches: tuple, token: torch.Tensor,
@@ -258,11 +290,40 @@ class DecodeGraph:
         self.start = self.pos.clone()
         self.tokens = torch.zeros((token.shape[0], n_steps), dtype=token.dtype,
                                   device=token.device)
+        self.live = self.tokens  # the rows still decoding
         self.graph = self.static_logits = None
         self.first_step_seconds = self.capture_seconds = 0.0
+        self.recapture_seconds: list = []
+
+    @property
+    def batch(self) -> int:
+        return self.token.shape[0]
+
+    def shed(self, caches: tuple) -> None:
+        """Drop the last live sequence before the next step: ``caches`` are
+        the live caches cut to ``batch - 1`` rows (``cut_caches``).  The
+        shed row records the token it was to be fed at this step and -1 for
+        every later step.  On the card this synchronises the device and
+        releases the captured graph (two graphs' pools and two sets of
+        caches would otherwise stay alive); the next ``step()`` captures the
+        step again at the smaller batch."""
+        b, i = self.batch, self.steps
+        if i == self.n_steps:
+            raise RuntimeError(f"DecodeGraph.shed: all {self.n_steps} steps have run")
+        if b < 2:
+            raise ValueError("DecodeGraph.shed: the batch is already 1")
+        self.tokens[b - 1, i] = self.token[b - 1, 0]
+        self.tokens[b - 1, i + 1:] = -1
+        if self.graph is not None:
+            torch.cuda.synchronize(self.token.device)
+            self.graph.reset()
+            self.graph = self.static_logits = None
+        self.caches = caches
+        self.token = self.token[: b - 1].clone()
+        self.live = self.tokens[: b - 1]
 
     def _step(self) -> torch.Tensor:
-        self.tokens.index_copy_(1, (self.pos - self.start).view(1).long(), self.token)
+        self.live.index_copy_(1, (self.pos - self.start).view(1).long(), self.token)
         logits, _ = decode_step(self.cfg, self.params, self.caches, self.token, self.pos)
         self.token.copy_(logits.argmax(dim=-1, keepdim=True))
         self.pos.add_(1)
@@ -292,13 +353,18 @@ class DecodeGraph:
             logits = self._step()  # step 0: the warm-up is a real step
         main.wait_stream(side)
         logits.record_stream(main)
-        if self.n_steps > 1:
+        if self.steps < self.n_steps:
             torch.cuda.synchronize(device)
             t1 = time.perf_counter()
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph):  # records the step; runs nothing
                 static_logits = self._step()
-            self.capture_seconds = time.perf_counter() - t1
+            seconds = time.perf_counter() - t1
+            if self.steps == 1:
+                self.capture_seconds = seconds
+            else:
+                self.recapture_seconds.append(seconds)
             self.graph, self.static_logits = graph, static_logits
-        self.first_step_seconds = time.perf_counter() - t0
+        if self.steps == 1:
+            self.first_step_seconds = time.perf_counter() - t0
         return logits

@@ -9,7 +9,7 @@ samples, ``measured_autotune`` timing a candidate the model also priced)
 drops a :class:`DriftRecord` here, and :func:`summary` reduces them to
 per-transport-tier relative-error statistics that the reference's
 ``benchmarks/run.py`` exports and ``--compare`` gates.  When the model silently diverges from
-measurement, CI sees it — and the reference's ``repro.obs.health`` subscribes through
+measurement, CI sees it — and :mod:`repro_torch.obs.health` subscribes through
 :data:`_on_record` to turn sustained divergence into degradation state.
 
 Recording is unconditional (no enable flag): the feeding paths already
@@ -66,7 +66,7 @@ class DriftRecord:
 
 _RECORDS: Deque[DriftRecord] = deque()
 _N_EVICTED = 0
-# single observer hook (the reference's repro.obs.health installs its monitor here); kept a
+# single observer hook (repro_torch.obs.health installs its monitor here); kept a
 # plain module global so the record() hot path is one None check
 _on_record: Optional[Callable[[DriftRecord], None]] = None
 

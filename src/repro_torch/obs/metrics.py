@@ -1,21 +1,40 @@
 """Process-global counters / gauges / histograms with a disabled fast path.
 
-A copy of the part of ``repro.obs.metrics`` that the serve loop uses:
-disabled (the default), every entry point is one flag check; enabled, a dict
-probe plus an update.  Histograms keep count/sum/min/max and log2 buckets,
-not samples.
+The planner, caches, engine and serve loop are *hot* paths — a metrics
+layer they cannot afford is a metrics layer nobody enables.  The contract
+here (measured in the reference's ``benchmarks/planner_speed.py``
+``tracing_overhead`` section; DESIGN.md §8):
+
+* **disabled** (the default): every entry point is one module-flag check
+  and an immediate return — no allocation, no dict probe, no lock;
+* **enabled**: a dict probe plus an integer/float update.  Histograms keep
+  count/sum/min/max and log2 value buckets, not samples, so memory is O(1)
+  per metric no matter how many observations arrive.
+
+Everything lives in one process-global :class:`Registry` because the
+instrumented modules (``repro_torch.core.events``, ``repro_torch.comms.autotune``, the
+serve loop) have no shared object to thread a registry through — the same
+reason the machine registry is global.  ``reset()`` restores a pristine
+state (the test fixture calls it).
+
+``enable()`` / ``disable()`` invoke ``_on_state_change`` when set;
+:mod:`repro_torch.obs` uses that to install/remove the engine sink in
+``repro_torch.core.events`` so a fully-disabled process never even reaches this
+module from the engine.  A copy of ``repro.obs.metrics``.
 """
 from __future__ import annotations
 
 import json
 import math
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 _ENABLED = False
+# repro_torch.obs sets this to its refresh hook; called after enable()/disable()
+_on_state_change: Optional[Callable[[], None]] = None
 
 
 class Counter:
-    """Monotonic count (events, tokens)."""
+    """Monotonic count (events, hits, misses)."""
 
     __slots__ = ("name", "value")
 
@@ -28,7 +47,7 @@ class Counter:
 
 
 class Gauge:
-    """Last-write-wins value."""
+    """Last-write-wins value (cache sizes, queue depths)."""
 
     __slots__ = ("name", "value")
 
@@ -41,7 +60,12 @@ class Gauge:
 
 
 class Histogram:
-    """O(1)-memory distribution: count/sum/min/max + log2 value buckets."""
+    """O(1)-memory distribution: count/sum/min/max + log2 value buckets.
+
+    Bucket key is ``floor(log2(v))`` (clamped to [-40, 40]; v <= 0 lands in
+    a single underflow bucket) — coarse, but enough to tell a microsecond
+    cache probe from a millisecond lower-and-simulate pass at a glance.
+    """
 
     __slots__ = ("name", "count", "total", "min", "max", "buckets")
 
@@ -57,8 +81,10 @@ class Histogram:
         v = float(v)
         self.count += 1
         self.total += v
-        self.min = min(self.min, v)
-        self.max = max(self.max, v)
+        if v < self.min:
+            self.min = v
+        if v > self.max:
+            self.max = v
         b = -99 if v <= 0.0 else min(max(int(math.floor(math.log2(v))), -40), 40)
         self.buckets[b] = self.buckets.get(b, 0) + 1
 
@@ -101,26 +127,66 @@ def registry() -> Registry:
     return _REGISTRY
 
 
+def enabled() -> bool:
+    return _ENABLED
+
+
 def enable() -> None:
     """Turn collection on (idempotent)."""
     global _ENABLED
     _ENABLED = True
+    if _on_state_change is not None:
+        _on_state_change()
 
+
+def disable() -> None:
+    """Turn collection off; existing values are kept until :func:`reset`."""
+    global _ENABLED
+    _ENABLED = False
+    if _on_state_change is not None:
+        _on_state_change()
+
+
+def reset() -> None:
+    """Drop every metric (does not change the enabled flag)."""
+    global _REGISTRY
+    _REGISTRY = Registry()
+
+
+def swap_registry(reg: Optional[Registry] = None) -> Registry:
+    """Swap in ``reg`` (a fresh registry when ``None``); return the old one.
+
+    Lets a diagnostic section (the reference's
+    ``benchmarks/observability.py`` ``metrics_health``) run against a clean slate and then restore the
+    process-cumulative metrics it would otherwise have destroyed.
+    """
+    global _REGISTRY
+    old = _REGISTRY
+    _REGISTRY = reg if reg is not None else Registry()
+    return old
+
+
+# -- hot-path entry points (no-ops while disabled) --------------------------
 
 def inc(name: str, n: float = 1.0) -> None:
-    if _ENABLED:
-        _REGISTRY.counter(name).inc(n)
+    if not _ENABLED:
+        return
+    _REGISTRY.counter(name).inc(n)
 
 
 def gauge(name: str, v: float) -> None:
-    if _ENABLED:
-        _REGISTRY.gauge(name).set(v)
+    if not _ENABLED:
+        return
+    _REGISTRY.gauge(name).set(v)
 
 
 def observe(name: str, v: float) -> None:
-    if _ENABLED:
-        _REGISTRY.histogram(name).observe(v)
+    if not _ENABLED:
+        return
+    _REGISTRY.histogram(name).observe(v)
 
+
+# -- snapshots ---------------------------------------------------------------
 
 def to_json() -> dict:
     """JSON-serializable snapshot of every metric (stable key order)."""
@@ -143,17 +209,44 @@ def to_json() -> dict:
     }
 
 
+def dump() -> str:
+    """Human-readable multi-line snapshot."""
+    snap = to_json()
+    lines = [f"metrics (enabled={snap['enabled']}):"]
+    for k, v in snap["counters"].items():
+        lines.append(f"  counter   {k:<40} {v:g}")
+    for k, v in snap["gauges"].items():
+        lines.append(f"  gauge     {k:<40} {v:g}")
+    for k, h in snap["histograms"].items():
+        lines.append(
+            f"  histogram {k:<40} n={h['count']} mean={h['mean']:.3e} "
+            f"min={h['min'] if h['min'] is None else format(h['min'], '.3e')} "
+            f"max={h['max'] if h['max'] is None else format(h['max'], '.3e')}"
+        )
+    return "\n".join(lines)
+
+
 def summary_line(prefixes: Optional[List[str]] = None) -> str:
-    """One-line ``k=v`` digest (counters verbatim, histograms as n@mean)."""
+    """One-line ``k=v`` digest (counters verbatim, histograms as n@mean).
+
+    ``prefixes`` filters to metric names starting with any given prefix —
+    the serve loop prints only its own families at exit.
+    """
 
     def keep(name: str) -> bool:
         return prefixes is None or any(name.startswith(p) for p in prefixes)
 
-    r = _REGISTRY
-    parts = [f"{k}={c.value:g}" for k, c in sorted(r.counters.items()) if keep(k)]
-    parts += [f"{k}={g.value:g}" for k, g in sorted(r.gauges.items()) if keep(k)]
+    parts = [
+        f"{k}={c.value:g}"
+        for k, c in sorted(_REGISTRY.counters.items()) if keep(k)
+    ]
     parts += [
-        f"{k}={h.count}@{h.mean:.2e}s" for k, h in sorted(r.histograms.items()) if keep(k)
+        f"{k}={g.value:g}"
+        for k, g in sorted(_REGISTRY.gauges.items()) if keep(k)
+    ]
+    parts += [
+        f"{k}={h.count}@{h.mean:.2e}s"
+        for k, h in sorted(_REGISTRY.histograms.items()) if keep(k)
     ]
     return " ".join(parts) if parts else "(no metrics)"
 

@@ -397,6 +397,72 @@ def test_decode_graph_raises_when_the_step_cannot_be_captured(cuda_device, monke
     torch.cuda.synchronize()
 
 
+def _llama_smoke_on(device, batch: int, P: int, N: int):
+    """f32 smoke llama3.2-1b drawn on the CPU, then moved: weights, prompts,
+    prefill logits and caches on ``device``."""
+    cfg = dataclasses.replace(smoke_config("llama3.2-1b"), dtype="float32")
+    params = tree_map(lambda t: t.to(device), init_params(cfg, torch.Generator().manual_seed(0)))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        2, cfg.vocab_size, size=(batch, P))).to(device)
+    logits, caches = dec.prefill(cfg, params, tokens, capacity=P + N)
+    return cfg, params, logits, caches
+
+
+def test_decode_graph_shed_recaptures_at_the_smaller_batch(cuda_device):
+    """A shed between two replays releases the graph; the next step warms up
+    and captures again at B-1 (one ``recapture_seconds``), from caches cut
+    to new contiguous tensors.  The kept rows equal an unshed run's, the
+    shed row keeps its token of the shed step and reads -1 after it."""
+    B, P, N, at = 3, 16, 8, 3
+    cfg, params, logits, caches = _llama_smoke_on(cuda_device, B, P, N)
+    tok = logits.argmax(-1)[:, None]
+    unshed = dec.DecodeGraph(cfg, params, _clone(caches), tok, P, N)
+    for _ in range(N):
+        unshed.step()
+    steps = dec.DecodeGraph(cfg, params, caches, tok, P, N)
+    for _ in range(at):
+        steps.step()
+    assert steps.graph is not None and steps.recapture_seconds == []
+    steps.shed(dec.cut_caches(cfg, steps.caches, B - 1, P + N))
+    assert steps.graph is None and steps.batch == B - 1
+    assert all(t.is_contiguous() for t in _leaves(steps.caches))
+    for _ in range(at, N):
+        steps.step()
+    assert steps.graph is not None and len(steps.recapture_seconds) == 1
+    got, want = steps.tokens.cpu(), unshed.tokens.cpu()
+    assert torch.equal(got[:B - 1], want[:B - 1])
+    assert torch.equal(got[B - 1, :at + 1], want[B - 1, :at + 1])
+    assert (got[B - 1, at + 1:] == -1).all()
+
+
+def test_consult_between_replays_keeps_the_cpu_tokens(cuda_device):
+    """serve's per-step consult (the plan span, the link probe into the
+    health monitor) between replays reads nothing from the device: the
+    replayed generations equal the same steps run eagerly on the CPU."""
+    from repro_torch import obs
+    from repro_torch.comms.autotune import select_allreduce_strategy
+    from repro_torch.obs import drift, health, trace
+
+    B, P, N = 2, 16, 10
+    gens = []
+    for device in ("cpu", cuda_device):
+        obs.reset_all()
+        obs.metrics.enable()
+        cfg, params, logits, caches = _llama_smoke_on(device, B, P, N)
+        steps = dec.DecodeGraph(cfg, params, caches, logits.argmax(-1)[:, None], P, N)
+        for i in range(N):
+            with trace.span("plan"):
+                pick = select_allreduce_strategy({"data": 1, "model": 1}, 4096.0 * (P + i + 1))
+            drift.record("tpu_v5e", "dcn", "probe", 1e6, 1e-3, (10.0 if i > 3 else 1.0) * 1e-3)
+            steps.step()
+        gens.append(steps.tokens.cpu())
+        assert pick == "flat" and health.monitor().link("tpu_v5e", "dcn").state == "degraded"
+        assert obs.metrics.to_json()["histograms"][
+            "plan.select_allreduce_strategy.seconds"]["count"] == N
+    obs.reset_all()
+    assert torch.equal(gens[0], gens[1])
+
+
 @pytest.mark.parametrize("name", ["flash_attention", "wkv6", "rglru_scan"])
 def test_kernel_refuses_inputs_that_require_grad(cuda_device, name):
     """With grad mode on, a CUDA input that requires grad is refused before

@@ -8,6 +8,7 @@ training tests); ``run`` started from weights carried over from JAX
 follows the reference's ``launch.train.main``; ``--mesh-shape`` over more than one device
 is refused.
 """
+import dataclasses
 import json
 import os
 
@@ -23,6 +24,7 @@ import repro_torch.configs as tcfgs
 import repro_torch.optim as topt
 from repro.checkpoint import Checkpointer as JCheckpointer
 from repro.launch import train as jtrain
+from repro.runtime.straggler import EwmaZScore as JEwmaZScore
 from repro.runtime.straggler import StragglerMonitor as JStragglerMonitor
 from repro.models import init_params as jinit_params
 from repro_torch.checkpoint import Checkpointer as TCheckpointer
@@ -30,6 +32,7 @@ from repro_torch.configs.base import RunConfig as TRunConfig
 from repro_torch.launch import train as ttrain
 from repro_torch.models.convert import opt_state_from_jax, params_from_jax, tree_leaves
 from repro_torch.models.transformer import init_params as tinit_params
+from repro_torch.runtime import EwmaZScore as TEwmaZScore
 from repro_torch.runtime import StragglerMonitor as TStragglerMonitor
 
 torch.set_num_threads(1)
@@ -154,7 +157,8 @@ def test_async_save_is_a_snapshot(tmp_path, monkeypatch):
 def test_straggler_monitor_matches_reference(kw):
     """The same step walls into both packages' monitors: a constant start
     (no variance yet), noise, single hiccups and runs of slow steps; after
-    each, the same verdict, EWMA, streak and advice."""
+    each, the same event (step, wall, EWMA, z), EWMA, streak and advice, and
+    the same list of events at the end."""
     rng = np.random.default_rng(0)
     walls = np.concatenate([np.full(6, 0.5), 0.5 + 0.01 * rng.standard_normal(60)])
     walls[[10, 25]] += 0.2
@@ -163,12 +167,40 @@ def test_straggler_monitor_matches_reference(kw):
     jmon, tmon = JStragglerMonitor(**kw), TStragglerMonitor(**kw)
     advised = 0
     for step, w in enumerate(walls.tolist()):
-        slow = jmon.record(step, w) is not None
-        assert tmon.record(w) == slow, step
+        jev, tev = jmon.record(step, w), tmon.record(step, w)
+        assert (tev is None) == (jev is None), step
+        if jev is not None:
+            assert dataclasses.asdict(tev) == dataclasses.asdict(jev), step
         assert (tmon.ewma, tmon.consecutive_slow) == (jmon.ewma, jmon.consecutive_slow), step
         assert tmon.should_mitigate == jmon.should_mitigate, step
         advised += tmon.should_mitigate
     assert len(jmon.events) >= 4 and advised > 0
+    assert [dataclasses.asdict(e) for e in tmon.events] == \
+        [dataclasses.asdict(e) for e in jmon.events]
+
+
+@pytest.mark.parametrize("kw", [{}, dict(alpha=0.3, z_threshold=2.0, warmup=2)])
+def test_ewma_zscore_matches_reference(kw):
+    """One series into both packages' ``EwmaZScore.update``: the same z,
+    ``ewma``, ``ewvar`` and ``consecutive`` after each sample, and the same
+    verdicts through ``is_anomalous``/``note_*`` (the link-health monitor's
+    way of driving it)."""
+    rng = np.random.default_rng(1)
+    series = np.concatenate([np.full(4, 2.0), 2.0 + 0.05 * rng.standard_normal(40)])
+    series[[12, 30, 31, 32]] += 1.0
+    jdet, tdet = JEwmaZScore(**kw), TEwmaZScore(**kw)
+    flagged = 0
+    for i, v in enumerate(series.tolist()):
+        assert tdet.zscore(v) == jdet.zscore(v) and tdet.is_anomalous(v) == jdet.is_anomalous(v)
+        assert tdet.update(v) == jdet.update(v), i
+        assert (tdet.ewma, tdet.ewvar, tdet.n, tdet.consecutive) == \
+            (jdet.ewma, jdet.ewvar, jdet.n, jdet.consecutive), i
+        flagged += tdet.consecutive > 0
+    assert flagged >= 3
+    for det in (jdet, tdet):
+        det.note_anomaly()
+        det.note_normal(2.0)
+    assert dataclasses.asdict(tdet) == dataclasses.asdict(jdet)
 
 
 def test_train_loss_decreases():
