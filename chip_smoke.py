@@ -71,6 +71,19 @@ Phases, each printing its own lines, any failure ending the run non-zero:
                drills at smoke width in f32, card against CPU (the same
                drill lines and planner counters, the shed rows equal to
                the unshed run's); and a seeded scenario, card against CPU.
+ 11. collectives — ``repro_torch.comms`` across four ranks on the one card
+               (``launch.mesh.run_world``; gloo, since NCCL takes one rank
+               a device): (a) the route table; (b) every wrapper and
+               ``*_inner`` at the reference's check shapes on meshes
+               (2, 2) and (1, 4), the card world against a host world;
+               (c) llama3.2-1b's whole f32 gradient, rank r giving (r + 1)
+               g, reduced in 64 chunks by flat, hierarchical, ring (on
+               (1, 4): it reduces one axis) and auto, each exactly 10 g,
+               with its wall, rate and peak memory; (d) each strategy timed
+               at 4 KiB to 64 MiB a rank and fitted to α and β,
+               ``bench_allreduce``, and ``measured_autotune`` at 1 and 64
+               MiB beside the model's pick; (e) NCCL at world 1, each
+               strategy returning its input.
 The second-to-last line is the card as nvidia-smi names it, the last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of ``repro``.
 """
@@ -79,6 +92,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import math
@@ -157,6 +171,11 @@ TRAIN_SPANS = ("train.grads", "train.update")
 # copy tiers (paper Table II, and a representative GH200) the card's stand beside
 FIT_NAME = "h100_fitted"
 FIT_COMPARE = ("summit", "gh200")
+# the sizes of the copy on the card: bench_transfer's up to 16 MiB, which
+# the card copies in a few microseconds, under the ~20 us a synchronise
+# takes, and on to 1 GiB, where the bytes and not the synchronise set the
+# time and beta is resolved
+D2D_SIZES = tuple(1 << j for j in (10, 13, 16, 19, 22, 24, 26, 28, 30))
 # phase 10: the arch served with the drills; the runs after the warm one;
 # the degradation and host-loss steps; the seeded scenario's arguments
 # (runtime.scenarios.generate); the smoke-width runs' shape; the metric
@@ -168,6 +187,14 @@ DRILL_SMOKE = dict(batch=4, prompt_len=16, new_tokens=24)
 SHARED_METRICS = ("plan_cache.", "lowering_memo.", "engine.", "health.", "runtime.",
                   "serve.decode.tokens", "serve.batch.live", "serve.simulated_makespan_s")
 DRILL_LINE = re.compile(r"^\[serve\] (link|host|scenario|per-step plan)")
+# phase 11: the collectives' world on the card (gloo: NCCL takes one rank a
+# device); llama3.2-1b's f32 gradient reduced in chunks of equal size, all
+# of them; the strategies timed at 4 KiB to 64 MiB a rank, 4x apart, and
+# measured_autotune at two sizes; a world's limit in seconds
+COLL_WORLD, COLL_CHUNKS = 4, 64
+COLL_FIT_SIZES = tuple(4096 * 4 ** j for j in range(8))
+COLL_AUTOTUNE_SIZES = (1 << 20, 1 << 26)
+COLL_TIMEOUT = 900.0
 # llama3.2-1b's replayed decode step wall before serve consulted the planner
 # (PERF.md section 5, the same card at 700 W), ms
 REPLAY_BEFORE_MS = (4.209, 4.229)
@@ -1502,9 +1529,10 @@ def phase_train(gpu: str) -> None:
 
 def copy_tiers(dev: torch.device) -> dict:
     """The copy tiers one card has beside the pageable host -> device copy,
-    as ``bench_transfer``'s (make_buffer, transfer) pairs: each buffer is a
-    (source, destination) pair made once a size, each transfer one copy
-    that ends when the card has finished it."""
+    as ``bench_transfer``'s (make_buffer, transfer) pairs with their sizes
+    (None: ``bench_transfer``'s own): each buffer is a (source, destination)
+    pair made once a size, each transfer one copy that ends when the card
+    has finished it."""
 
     def tier(src_on, dst_on, pinned):
         def make(s: int):
@@ -1521,10 +1549,10 @@ def copy_tiers(dev: torch.device) -> dict:
 
         return make, transfer
 
-    return {"copy_h2d pinned": ("copy_h2d", tier("host", "card", True)),
-            "copy_d2h pinned": ("copy_d2h", tier("card", "host", True)),
-            "copy_d2h pageable": ("copy_d2h", tier("card", "host", False)),
-            "copy_d2d": (None, tier("card", "card", False))}
+    return {"copy_h2d pinned": ("copy_h2d", tier("host", "card", True), None),
+            "copy_d2h pinned": ("copy_d2h", tier("card", "host", True), None),
+            "copy_d2h pageable": ("copy_d2h", tier("card", "host", False), None),
+            "copy_d2d": (None, tier("card", "card", False), D2D_SIZES)}
 
 
 def fit_line(label: str, res, gpu: str) -> str:
@@ -1554,8 +1582,10 @@ def phase_fit(gpu: str) -> None:
     for row in h2d.csv_rows("h2d"):
         say("fit", f"{row} | {gpu}")
     fits = {"copy_h2d pageable (bench_host_device_roundtrip)": ("copy_h2d", h2d)}
-    for label, (reg_tier, (make, transfer)) in copy_tiers(dev).items():
-        fits[label] = (reg_tier, bench_transfer(make, transfer))
+    for label, (reg_tier, (make, transfer), sizes) in copy_tiers(dev).items():
+        res = bench_transfer(make, transfer, sizes) if sizes else bench_transfer(make, transfer)
+        fits[label] = (reg_tier, res)
+        torch.cuda.empty_cache()
     specs = {name: get_machine(name) for name in FIT_COMPARE}
     for label, (reg_tier, res) in fits.items():
         say("fit", fit_line(label, res, gpu))
@@ -1751,6 +1781,89 @@ def phase_drills(gpu: str) -> None:
     say("drills", f"ok in {time.perf_counter() - t0:.1f} s")
 
 
+def phase_collectives(gpu: str) -> None:
+    """Phase 11: the collectives across ranks on the card (see the module
+    docstring)."""
+    from repro_torch.comms import checks, routes
+    from repro_torch.comms.autotune import select_allreduce_strategy
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import run_world
+    from repro_torch.models.convert import tree_leaves
+    from repro_torch.models.transformer import init_params
+
+    t0 = time.perf_counter()
+    fresh_planner()
+    # (a) the route table
+    for (backend, dev, op), route in sorted(routes.ROUTES.items()):
+        say("collectives", f"route backend={backend} device={dev} op={op}: {route}")
+    # the gradient's size: llama3.2-1b's parameters, drawn on the card and freed
+    params = init_params(get_config(TRAIN_ARCH), torch.Generator(device="cuda").manual_seed(0))
+    n = sum(t.numel() for t in tree_leaves(params))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("collectives", f"{COLL_WORLD} gloo ranks on the card, CUDA tensors; {TRAIN_ARCH}'s "
+                       f"gradient {n} f32 elements = {4 * n / 1e9:.3f} GB a rank; card memory "
+                       f"held by this process {torch.cuda.memory_reserved() / 1e9:.2f} GB")
+    card = run_world(checks.card_run, COLL_WORLD, COLL_WORLD, n, COLL_CHUNKS, COLL_FIT_SIZES,
+                     COLL_AUTOTUNE_SIZES, device="cuda", timeout=COLL_TIMEOUT)
+    cpu = run_world(checks.run_checks, COLL_WORLD, COLL_WORLD, device="cpu", timeout=300.0)
+
+    # (b) every wrapper and *_inner, card world against host world
+    kinds = checks.hold(COLL_WORLD)
+    for name in sorted(kinds):
+        why = [checks.disagreement(name, card[r]["checks"][name], cpu[r][name],
+                                   COLL_WORLD) for r in range(COLL_WORLD)]
+        if any(why):
+            raise AssertionError(f"card against host: {[w for w in why if w]}")
+    say("collectives", f"card world = host world on {len(kinds)} checks, meshes (2, 2) and "
+                       f"(1, 4): {sum(k == 'equal' for k in kinds.values())} equal, "
+                       f"{sum(k == '1e-5' for k in kinds.values())} at 1e-5, compression at "
+                       f"the reference's bound and 1e-6")
+
+    # (c) the full-width gradient, each strategy
+    full = [c["full"] for c in card]
+    for s in full[0]["walls"]:
+        if not all(f["exact"][s] for f in full):
+            raise AssertionError(f"full width {s}: a rank's sum is not 10 g")
+        walls = [f["walls"][s] for f in full]
+        say("collectives", f"full width {s}: exact on every rank; wall {max(walls):.3f} s "
+                           f"(ranks {', '.join(f'{w:.3f}' for w in walls)}), "
+                           f"{full[0]['bytes'] / max(walls) / 1e9:.4f} GB/s a rank, "
+                           f"{COLL_CHUNKS} chunks of {full[0]['bytes'] / COLL_CHUNKS / 1e6:.2f} MB"
+                           f" | {gpu}")
+    say("collectives", f"full width auto picked {full[0]['auto']}; peak memory a rank "
+                       f"{', '.join('%.3f' % (f['peak_bytes'] / 1e9) for f in full)} GB")
+
+    # (d) the fits and the measured autotune
+    fit = card[0]["fit"]
+    for s in (*checks.STRATEGIES, "flat_host", "bench_allreduce"):
+        f = fit[s]
+        a, b = f["alpha"], f["beta"]
+        if not (math.isfinite(a) and math.isfinite(b) and b > 0):
+            raise AssertionError(f"{s}: fitted alpha={a!r} beta={b!r}")
+        times = ", ".join(f"{sz}: {t * 1e6:.1f}" for sz, t in zip(f["sizes"], f["times"]))
+        say("collectives", f"fit {s}: alpha={a * 1e6:.2f} us beta={b:.4e} s/B "
+                           f"1/beta={1e-9 / b:.4f} GB/s a rank; times (B: us) {times} | {gpu}")
+    for i, rec in enumerate(fit["autotune"]):
+        want = select_allreduce_strategy({"pod": 2, "data": COLL_WORLD // 2},
+                                         float(rec["nbytes"]))
+        picks = [c["fit"]["autotune"][i]["pick"] for c in card]
+        say("collectives", f"measured_autotune {rec['nbytes']} B a rank: measured "
+                           f"{ {k: round(v * 1e6, 1) for k, v in rec['measured'].items()} } us, "
+                           f"pick {rec['pick']} (ranks {picks}), model pick {rec['model_pick']} "
+                           f"(here {want}), agreed {rec['agreed']}; reported, not registered "
+                           f"| {gpu}")
+
+    # (e) NCCL at world 1
+    ident = run_world(checks.identity, 1, device="cuda", backend="nccl", timeout=300.0)[0]
+    if not all(ident.values()):
+        raise AssertionError(f"NCCL world of 1: not the input: {ident}")
+    say("collectives", f"NCCL world of 1 on a (1, 1) mesh: {sorted(ident)} each return the "
+                       f"input; more ranks need more cards")
+    say("collectives", f"ok in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     gpu = phase_device()
     phase_build()
@@ -1771,6 +1884,7 @@ def main() -> int:
     phase_train(gpu)
     phase_drills(gpu)
     phase_fit(gpu)
+    phase_collectives(gpu)
     print(json.dumps({"kernels": rows}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -10,9 +10,10 @@ deployment target.  An optional measured-autotune path benchmarks the
 candidates live and records which one the model would have picked
 (model-vs-measurement is the paper's validation loop).
 
-A copy of ``repro.comms.autotune``.  The collective wrappers it names
-(``comms.allreduce``, ``comms.alltoall``) are not ported yet; the serve loop
-consults :func:`select_allreduce_strategy` every decode step.
+A copy of ``repro.comms.autotune``.  The wrappers it picks for
+(``comms.allreduce``, ``comms.alltoall``) consult it with ``strategy="auto"``,
+and the serve loop consults :func:`select_allreduce_strategy` every decode
+step.
 """
 from __future__ import annotations
 

@@ -11,9 +11,10 @@ measured tiers become a registered :class:`~repro_torch.core.machine.MachineSpec
 so a live-fitted machine plans (``repro_torch.core.planner``) exactly like
 the built-in table-driven entries.
 
-The reference's ``bench_jitted_allreduce`` (a collective timed across
-devices) is not here: it needs more than one device, and comes with the
-port's distribution work (ROADMAP.md, Queue 1 item 4).
+A collective is timed by every rank of a ``torch.distributed`` world at
+once (:func:`bench_collective`, :func:`bench_allreduce`): the ranks agree on
+each repetition count, since a rank that made one call fewer than the others
+would leave them waiting in it for ever.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.fitting import fit_postal, fit_transport_model
 from repro_torch.core.machine import (
@@ -110,6 +112,78 @@ def bench_host_device_roundtrip(
             torch.cuda.synchronize(dev)
 
     return bench_transfer(make, put, sizes)
+
+
+def bench_collective(
+    make_buffer: Callable[[int], torch.Tensor],
+    collective: Callable[[torch.Tensor], object],
+    sizes: Sequence[int],
+) -> BenchResult:
+    """:func:`bench_transfer` for a collective that every rank of the world
+    runs: each rank calibrates as ``_time_call`` does (20 ms a trial, at
+    most 200 calls), an all-reduce (MAX) settles one repetition count for
+    all, and a barrier starts each trial.  A call ends when the card has
+    finished it.  A collective between processes takes milliseconds and
+    varies from call to call with the host's scheduling, so a trial lasts
+    20 ms, not ``_time_call``'s 2 ms: several calls, not one."""
+    from repro_torch.comms import routes
+
+    times: List[float] = []
+    for s in sizes:
+        buf = make_buffer(s)
+
+        def go():
+            collective(buf)
+            if buf.device.type == "cuda":
+                torch.cuda.synchronize(buf.device)
+
+        trials = []
+        for _ in range(3):
+            dist.barrier()
+            t0 = time.perf_counter()
+            go()
+            once = max(time.perf_counter() - t0, 1e-9)
+            reps = torch.tensor([min(max(2e-2 / once, 1.0), 200)],
+                                dtype=torch.float64, device=buf.device)
+            routes.all_reduce(reps, dist.group.WORLD, op=dist.ReduceOp.MAX)
+            n = int(reps.item())
+            dist.barrier()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                go()
+            trials.append((time.perf_counter() - t0) / n)
+        times.append(min(trials))
+    return BenchResult(sizes=list(sizes), times=times, fitted=fit_postal(list(sizes), times))
+
+
+def bench_allreduce(
+    sizes: Sequence[int] = (1 << 12, 1 << 16, 1 << 20),
+    device: Union[str, torch.device] = "cuda",
+) -> Dict[str, BenchResult]:
+    """The counterpart of the reference's ``bench_jitted_allreduce``: the
+    flat all-reduce over the whole world, timed by every rank at once, for
+    f32 buffers of ``sizes`` bytes a rank.  Call it on every rank of an
+    initialised world (``repro_torch.launch.mesh.run_world``).  The default
+    is the card; without a visible GPU that raises rather than timing the
+    host (``device="cpu"`` times a world on the host)."""
+    from repro_torch.comms import routes
+
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"bench_allreduce: device {str(dev)!r} asked for but no CUDA GPU is visible; "
+            "pass device='cpu' to time a world on the host")
+    if not dist.is_initialized():
+        raise RuntimeError("bench_allreduce: torch.distributed is not initialised "
+                           "(start a world with repro_torch.launch.mesh.run_world)")
+
+    def make(s: int) -> torch.Tensor:
+        return torch.zeros(max(s // 4, 1), dtype=torch.float32, device=dev)
+
+    def flat(buf: torch.Tensor) -> None:
+        routes.all_reduce(buf, dist.group.WORLD)
+
+    return {"allreduce_flat": bench_collective(make, flat, sizes)}
 
 
 # --------------------------------------------------------------------------

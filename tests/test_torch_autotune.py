@@ -150,12 +150,16 @@ def test_measured_autotune_matches_reference():
 
 
 def test_comms_package_exports_autotune_only():
+    """The package exports autotune's selectors, and with the collectives
+    ported every public name of the reference's ``repro.comms``."""
+    import repro.comms as rc
     import repro_torch.comms as tc
 
     public = {k for k in dir(tc) if not k.startswith("_")}
     assert {"select_allreduce_strategy", "select_alltoall_strategy", "select_schedule",
             "explain_bottleneck", "clear_plan_cache"} <= public
-    assert not {"allreduce", "alltoall", "allgather", "p2p", "overlap"} & public
+    assert {k for k in dir(rc) if not k.startswith("_")} <= public
+    assert callable(tc.allreduce) and callable(tc.alltoall)
     assert t_autotune._DEFAULT_MACHINE == r_autotune._DEFAULT_MACHINE == "tpu_v5e"
     assert t_autotune._BUCKETS_PER_OCTAVE == r_autotune._BUCKETS_PER_OCTAVE
     for s in SIZES + NUDGED + [0.0, 0.5, 1.0, 3.0]:

@@ -513,3 +513,29 @@ def test_fitted_card_registers_and_plans_gpudirect(cuda_device):
     assert get_machine("h100_fitted_test") is spec
     plan = plan_messages(spec, 65536.0, 4)
     assert plan.strategy == "gpudirect" and plan.predicted_time > 0
+
+
+def test_collectives_card_world_matches_host_world(cuda_device):
+    """A 2-rank gloo world on CUDA tensors (the one card: every message
+    staged through the host) runs every collective check, flat, ring and the
+    hierarchical all-to-all among them, and agrees with a 2-rank world on
+    the host as ``checks.hold`` says."""
+    from repro_torch.comms import checks
+    from repro_torch.launch.mesh import run_world
+
+    card = run_world(checks.run_checks, 2, 2, device="cuda", timeout=300)
+    host = run_world(checks.run_checks, 2, 2, device="cpu", timeout=300)
+    assert {"allreduce_flat", "allreduce_ring", "alltoall_hierarchical_1x2",
+            "alltoall_hierarchical_2x1"} <= set(checks.hold(2))
+    for name in checks.hold(2):
+        for r in range(2):
+            why = checks.disagreement(name, card[r][name], host[r][name], 2)
+            assert not why, f"rank {r}: {why}"
+
+
+def test_collectives_nccl_world_of_one_returns_the_input(cuda_device):
+    from repro_torch.comms import checks
+    from repro_torch.launch.mesh import run_world
+
+    same = run_world(checks.identity, 1, device="cuda", backend="nccl", timeout=300)[0]
+    assert same and all(same.values()), same
