@@ -84,6 +84,18 @@ Phases, each printing its own lines, any failure ending the run non-zero:
                ``bench_allreduce``, and ``measured_autotune`` at 1 and 64
                MiB beside the model's pick; (e) NCCL at world 1, each
                strategy returning its input.
+ 12. ranks   — the model across gloo ranks on the one card: (a)
+               mixtral-8x22b at full width and serve depth over 8 expert
+               ranks (``serve.run`` with mesh (1, 8): each rank draws its
+               expert, runs flash in its prefill and every decode step
+               eagerly), held to the dense path's run of the same weights
+               (tokens, logits within 0.1 while the fed tokens agree,
+               prefill's routes), with the walls, each layer's all-to-all
+               spans, flash launches and peak memory of each rank;
+               (b) llama3.2-1b at full width trained 3 steps over a (2, 2)
+               world, its first loss within 2e-2 of phase 8's; (c) the CPU
+               tests' world programs (expert-parallel cases, sharded train
+               steps) at smoke width, a card world against a host world.
 The second-to-last line is the card as nvidia-smi names it, the last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of ``repro``.
 """
@@ -192,6 +204,23 @@ DRILL_LINE = re.compile(r"^\[serve\] (link|host|scenario|per-step plan)")
 # of them; the strategies timed at 4 KiB to 64 MiB a rank, 4x apart, and
 # measured_autotune at two sizes; a world's limit in seconds
 COLL_WORLD, COLL_CHUNKS = 4, 64
+# phase 12: the model across gloo ranks on the one card
+EP_ARCH, EP_MESH, EP_RANKS = "mixtral-8x22b", "1,8", 8
+# capacity factor E / top_k: a slice's capacity is then its own size, so no
+# token can be dropped and the expert-parallel layer computes the dense one
+EP_CF = 4.0
+# test_torch_serve.py's mixtral bf16 bound (its distance to the f32 logits).
+# On the card the two paths' expert products are GEMMs of other shapes and
+# round apart by a bf16 ulp now and then; a router near-tie then picks
+# another expert for a token (0.5% of prefill's routes from layer 3 on),
+# which moves that position's logits by O(1).  So the bound holds the
+# median position, the routes must agree at the serve test's 95%, and a
+# generated token may differ only at a near-tie of the dense logits.
+EP_TOL = 0.1
+EP_ROUTES = 0.95
+SHARD_MESH, SHARD_RANKS, SHARD_STEPS, SHARD_WARMUP = "2,2", 4, 3, 1
+SHARD_LOSS_TOL = 2e-2  # the reference's (tests/_multidevice_checks.py:164)
+RANKS_TIMEOUT = 900.0
 COLL_FIT_SIZES = tuple(4096 * 4 ** j for j in range(8))
 COLL_AUTOTUNE_SIZES = (1 << 20, 1 << 26)
 COLL_TIMEOUT = 900.0
@@ -1409,7 +1438,7 @@ def phase_train_parity(arch: str) -> None:
 
 
 def phase_train_full(gpu: str, label: str, B: int, S: int, n_micro: int, steps: int,
-                     warmup: int) -> None:
+                     warmup: int) -> list:
     """llama3.2-1b at full width in bf16 through ``launch.train.run``: the
     loss finite and lower at the last step than at the first, every kernel
     launch count 0 (training runs the plain path).  The step walls are the
@@ -1420,7 +1449,7 @@ def phase_train_full(gpu: str, label: str, B: int, S: int, n_micro: int, steps: 
     memory over the run.  Then one more step under torch.profiler on the
     run's weights and optimizer state (``run`` updates both in place, the
     step count too): device busy, idle share and the five largest device
-    operations."""
+    operations.  Returns the run's losses."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1515,16 +1544,17 @@ def phase_train_full(gpu: str, label: str, B: int, S: int, n_micro: int, steps: 
                      f"x{c:<5d} {name[:160]}")
     del params, opt, batch
     torch.cuda.empty_cache()
+    return losses
 
 
-def phase_train(gpu: str) -> None:
+def phase_train(gpu: str) -> dict:
     """Phase 8: the kernels refuse inputs that require grad; the ten archs'
-    train steps, card against CPU; llama3.2-1b at full width."""
+    train steps, card against CPU; llama3.2-1b at full width.  Returns each
+    full-width setting's losses by its label."""
     phase_train_refuses_grad()
     for arch in ARCHS:
         phase_train_parity(arch)
-    for setting in TRAIN_SETTINGS:
-        phase_train_full(gpu, *setting)
+    return {setting[0]: phase_train_full(gpu, *setting) for setting in TRAIN_SETTINGS}
 
 
 def copy_tiers(dev: torch.device) -> dict:
@@ -1864,6 +1894,202 @@ def phase_collectives(gpu: str) -> None:
     say("collectives", f"ok in {time.perf_counter() - t0:.1f} s")
 
 
+def _per_rank(values, fmt: str = "{:.3f}") -> str:
+    return ", ".join(fmt.format(v) for v in values)
+
+
+def phase_ranks_serve(gpu: str) -> None:
+    """12(a): mixtral at full width and serve depth over 8 expert ranks on
+    the card (``serve.run`` with ``--mesh-shape 1,8``), held to the dense
+    path's run of the same weights in this process."""
+    from repro_torch.comms import routes as comm_routes
+    from repro_torch.launch import serve
+
+    from repro_torch.sharding import tp_adapt
+
+    cfg = dataclasses.replace(serve_config(EP_ARCH), capacity_factor=EP_CF)
+    L, B, P, N = cfg.n_layers, B_SERVE, P_SERVE, N_SERVE
+    if tp_adapt(cfg, EP_RANKS) != (cfg, 1):  # else the world would draw other weights
+        raise AssertionError(f"tp_adapt changes {cfg.name} at tp {EP_RANKS}")
+    fresh_planner()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense = []
+    with contextlib.redirect_stdout(io.StringIO()):
+        dense_gen = serve.run(cfg, batch=B, prompt_len=P, new_tokens=N, seed=0, device="cuda",
+                              report=dense)
+    gc.collect()
+    torch.cuda.empty_cache()
+    (dense,) = dense
+    say("ranks", f"dense {cfg.name} (capacity factor {EP_CF}) served in this process as in "
+                 f"phase 5, then freed: card memory this process holds "
+                 f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved | {gpu}")
+    for op in ("all_to_all", "all_gather", "all_reduce"):
+        say("ranks", f"route gloo cuda {op}: {comm_routes.ROUTES[('gloo', 'cuda', op)]}")
+    t0 = time.perf_counter()
+    ranks = []
+    ep_gen = serve.run(cfg, batch=B, prompt_len=P, new_tokens=N, seed=0, device="cuda",
+                       mesh_shape=EP_MESH, report=ranks)
+    wall = time.perf_counter() - t0
+    if len(ranks) != EP_RANKS:
+        raise AssertionError(f"{len(ranks)} rank reports, expected {EP_RANKS}")
+    got, want = ranks[0]["logits"], dense["logits"]
+    for r, rep in enumerate(ranks):
+        if not np.array_equal(rep["logits"], got):
+            raise AssertionError(f"rank {r}'s logits differ from rank 0's")
+        if rep["launches"] != {"flash_attention": (L, 0), "wkv6": (0, 0), "rglru_scan": (0, 0)}:
+            raise AssertionError(f"rank {r} launched {rep['launches']}, expected flash {L} "
+                                 "times (each prefill layer) and no plain call")
+    # the routes of prefill: the ranks' slices in rank order against the dense path's
+    ep_routes = [np.concatenate([np.sort(rep["routes"][i], -1) for rep in ranks])
+                 for i in range(L)]
+    agree = [float(np.mean(np.sort(d, -1) == e)) for d, e in zip(dense["routes"], ep_routes)]
+    # tokens and logits: a row's logits at step s are comparable while its fed
+    # tokens agree; a token may differ only where the dense logits' top two
+    # lie within two tolerances of each other (bf16 may round the tie apart)
+    same = dense_gen == ep_gen
+    dists, means, flips, last = [], [], [], []
+    for b in range(B):
+        for step in range(N + 1):
+            if step and not same[b, :step].all():
+                break
+            d = np.abs(got[step, b] - want[step, b])
+            dists.append(float(d.max()))
+            means.append(float(d.mean()))
+            if step in (0, N):
+                last.append(f"row {b} step {step}: {d.max():.4f}")
+            if step < N and not same[b, step]:
+                top = np.sort(want[step, b])[-2:]
+                flips.append((b, step, float(top[1] - top[0])))
+    say("ranks", f"{cfg.name} B={B} prompt={P} new={N} bf16 over {EP_RANKS} gloo ranks (mesh "
+                 f"{EP_MESH}), against the dense path: tokens agree {int(same.sum())}/{same.size}"
+                 f" (rows diverging at (row, step, dense top-2 margin) {flips}); logits where "
+                 f"the fed tokens agree ({len(dists)} (step, row)): largest distance a "
+                 f"position median {statistics.median(dists):.4f} (tol {EP_TOL}), max "
+                 f"{max(dists):.4f}, {sum(x > EP_TOL for x in dists)} above the tolerance; "
+                 f"mean distance {statistics.mean(means):.5f}; prefill's and the last step's "
+                 f"{'; '.join(last)}; prefill routes agreeing per layer "
+                 f"{_per_rank(agree, '{:.4f}')}; every rank's logits equal rank 0's | {gpu}")
+    median = statistics.median(dists)
+    if not median <= EP_TOL or min(agree) < EP_ROUTES:
+        raise AssertionError(f"expert-parallel logits: median distance {median:.4f} from the "
+                             f"dense path's (tolerance {EP_TOL}), prefill routes agreeing "
+                             f"{min(agree)} (at least {EP_ROUTES})")
+    if any(margin >= 2 * EP_TOL for _, _, margin in flips):
+        raise AssertionError(f"a token differs where the dense logits' top two lie "
+                             f"{2 * EP_TOL} or more apart: {flips}")
+    steps = ranks[0]["step_seconds"]
+    say("ranks", f"{cfg.name} expert-parallel: prefill {ranks[0]['prefill_seconds'] * 1e3:.1f} "
+                 f"ms (ranks {_per_rank([r['prefill_seconds'] * 1e3 for r in ranks], '{:.1f}')}), "
+                 f"decode {ranks[0]['decode_seconds']:.3f} s, {N} eager steps "
+                 f"{min(steps) * 1e3:.1f} .. {statistics.median(steps) * 1e3:.1f} .. "
+                 f"{max(steps) * 1e3:.1f} ms (min .. median .. max); dense path prefill "
+                 f"{dense['prefill_seconds'] * 1e3:.1f} ms, decode {dense['decode_seconds']:.3f} "
+                 f"s; world wall {wall:.1f} s | {gpu}")
+    moe = [(name, which, sec) for name, which, sec in ranks[0]["spans"]
+           if name.startswith("moe.")]
+    if len(moe) != 3 * L * (N + 1):
+        raise AssertionError(f"{len(moe)} MoE collective spans, expected {3 * L * (N + 1)}")
+    per = [moe[3 * i:3 * i + 3] for i in range(L * (N + 1))]
+    a2a = [1e3 * (c[0][2] + c[1][2]) for c in per]
+    gather = [1e3 * c[2][2] for c in per]
+    say("ranks", f"rank 0's all-to-all spans (dispatch + combine, ms) in prefill per layer "
+                 f"{_per_rank(a2a[:L], '{:.2f}')}, all-gather {_per_rank(gather[:L], '{:.2f}')};"
+                 f" in decode per layer (mean of {N} steps) "
+                 f"{_per_rank([statistics.mean(a2a[L + l::L]) for l in range(L)], '{:.2f}')}, "
+                 f"all-gather "
+                 f"{_per_rank([statistics.mean(gather[L + l::L]) for l in range(L)], '{:.2f}')}"
+                 f"; {100 * sum(a2a[L:] + gather[L:]) / 1e3 / ranks[0]['decode_seconds']:.1f}% "
+                 f"of rank 0's decode wall | {gpu}")
+    say("ranks", f"flash launches a rank {[r['launches']['flash_attention'][0] for r in ranks]}"
+                 f"; peak memory a rank (GB) {_per_rank([r['peak_bytes'] / 1e9 for r in ranks])}"
+                 f" | {gpu}")
+
+
+def phase_ranks_train(gpu: str, single_loss0: float) -> None:
+    """12(b): llama3.2-1b at full width trained over a (2, 2) world on the
+    card, its first loss held to phase 8's single-device step."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch.mesh import run_entry_world
+    from repro_torch.sharding import checks as shard_checks
+
+    cfg = get_config(TRAIN_ARCH)
+    B, S = TRAIN_SETTINGS[0][1:3]
+    run_cfg = RunConfig(model=cfg, seq_len=S, global_batch=B, n_microbatches=1,
+                        warmup_steps=SHARD_WARMUP, total_steps=SHARD_STEPS)
+    kw = dict(seed=0, steps=SHARD_STEPS, checkpoint_dir="", checkpoint_every=50, log_every=1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = run_entry_world(shard_checks.train_world_report, SHARD_RANKS, cfg, run_cfg,
+                          SHARD_MESH, 1, kw, device="cuda")
+    wall = time.perf_counter() - t0
+    losses = out[0]["losses"]
+    if any(o["losses"] != losses for o in out) or not all(np.isfinite(losses)):
+        raise AssertionError(f"sharded train losses {[o['losses'] for o in out]}")
+    dist0 = abs(losses[0] - single_loss0)
+    if not dist0 < SHARD_LOSS_TOL:
+        raise AssertionError(f"sharded first loss {losses[0]} against phase 8's "
+                             f"{single_loss0}: {dist0} (tol {SHARD_LOSS_TOL})")
+    spans = collections.defaultdict(list)
+    for name, sec in out[0]["spans"]:
+        spans[name].append(sec * 1e3)
+    say("ranks", f"{cfg.name} bf16 B={B} S={S} over {SHARD_RANKS} gloo ranks (mesh "
+                 f"{SHARD_MESH}), {SHARD_STEPS} steps warmup {SHARD_WARMUP}: losses "
+                 f"{[round(x, 4) for x in losses]}; first loss {losses[0]:.6f} against phase 8's "
+                 f"single-device {single_loss0:.6f}: {dist0:.2e} (tol {SHARD_LOSS_TOL}) | {gpu}")
+    say("ranks", f"{cfg.name} sharded step walls (s) {_per_rank(out[0]['walls'])}; per step "
+                 f"(ms) gather {_per_rank(spans['train.gather'], '{:.1f}')}, forward and "
+                 f"backward {_per_rank(spans['train.grads'], '{:.1f}')}, gradient reduce "
+                 f"{_per_rank(spans['train.reduce'], '{:.1f}')}, update "
+                 f"{_per_rank(spans['train.update'], '{:.1f}')}; peak memory a rank (GB) "
+                 f"{_per_rank([o['peak_bytes'] / 1e9 for o in out])}; world wall {wall:.1f} s "
+                 f"| {gpu}")
+
+
+def phase_ranks_checks(gpu: str) -> None:
+    """12(c): the CPU tests' world programs at smoke width, a world on CUDA
+    tensors against a world on the host (``sharding.checks.compare_moe``
+    and ``compare_train``): the expert-parallel cases rank by rank and two
+    sharded steps through the expert layer, the sharded train step's blocks
+    and metrics."""
+    from repro_torch.launch.mesh import run_world
+    from repro_torch.sharding import checks as shard_checks
+
+    W = shard_checks.WORLD
+    for name, program, inputs, compare, bounds in (
+            ("expert-parallel", shard_checks.moe_program, shard_checks.moe_inputs,
+             shard_checks.compare_moe,
+             f"logits and aux f32 {shard_checks.CARD_TOL['float32']}, bf16 "
+             f"{shard_checks.CARD_TOL['bfloat16']}; the train steps' blocks "
+             f"{shard_checks.EP_TRAIN_TOL} of a leaf's largest magnitude; refused layouts "
+             "raise the same ValueError on both"),
+            ("sharded train", shard_checks.train_program, shard_checks.train_inputs,
+             shard_checks.compare_train,
+             f"f32 blocks 1e-4 of a leaf's largest magnitude; bf16 parameters and loss "
+             f"{shard_checks.TRAIN_BF16}")):
+        card = run_world(program, W, inputs(), device="cuda", timeout=RANKS_TIMEOUT)
+        host = run_world(program, W, inputs(), device="cpu", timeout=RANKS_TIMEOUT)
+        worst, bad = compare(card, host)
+        if bad:
+            raise AssertionError(f"{name} checks, card against host: {bad}")
+        say("ranks", f"{name} checks, {W} ranks on the card against {W} on the host: "
+                     f"largest gap of each case "
+                     f"{ {k: float(f'{v:.3e}') for k, v in worst.items()} } ({bounds}) | {gpu}")
+
+
+def phase_ranks(gpu: str, single_loss0: float) -> None:
+    """Phase 12: the model across ranks on the card (see the module
+    docstring)."""
+    t0 = time.perf_counter()
+    phase_ranks_serve(gpu)
+    phase_ranks_train(gpu, single_loss0)
+    phase_ranks_checks(gpu)
+    say("ranks", f"ok in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     gpu = phase_device()
     phase_build()
@@ -1881,10 +2107,11 @@ def main() -> int:
     rows = [phase_timing(gpu, launches, in_encoder, fa_errs),
             phase_wkv_timing(gpu, launches, wkv_err, wkv_parts),
             phase_lru_timing(gpu, launches, lru_err)]
-    phase_train(gpu)
+    train_losses = phase_train(gpu)
     phase_drills(gpu)
     phase_fit(gpu)
     phase_collectives(gpu)
+    phase_ranks(gpu, train_losses[TRAIN_SETTINGS[0][0]][0])
     print(json.dumps({"kernels": rows}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -88,9 +88,11 @@ class ModelConfig:
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
     """Training run knobs: the fields of the JAX package's ``RunConfig``
-    that ``train_step`` reads, with its defaults.  Its distribution fields
-    come with distribution (ROADMAP.md Queue 1 item 7); the seed and the
-    checkpoint settings are ``launch.train.run``'s arguments."""
+    that ``train_step`` reads and its distribution fields, with its
+    defaults; the seed and the checkpoint settings are
+    ``launch.train.run``'s arguments.  As in the reference, nothing reads
+    the distribution fields (FSDP acts through
+    ``sharding.param_shardings(fsdp=)``)."""
 
     model: ModelConfig
     seq_len: int = 4096
@@ -101,6 +103,11 @@ class RunConfig:
     total_steps: int = 1000
     weight_decay: float = 0.1
     grad_clip: float = 1.0
+    # distribution
+    fsdp: bool = True
     remat: bool = True
     remat_policy: str = "block"  # block | dots | none
     grad_accum_dtype: str = "float32"  # float32 | bfloat16
+    grad_allreduce: str = "auto"  # auto | flat | hierarchical (multi-pod)
+    moe_alltoall: str = "auto"  # auto | direct | hierarchical
+    grad_compression: str = "none"  # none | int8

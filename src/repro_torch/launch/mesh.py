@@ -80,6 +80,29 @@ def make_production_mesh(*, multi_pod: bool = False, device: str = "cuda") -> De
     return make_mesh(shape, axes, device)
 
 
+def mesh_dims(arg: str, world: int) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
+    """The shape and axis names the reference's ``build_mesh`` gives
+    ``--mesh-shape`` ``arg`` ("4,2" => data=4, model=2; three numbers add
+    "pod" in front), or, for an empty ``arg``, a world of ``world``
+    devices: (1, 1) for one, (n/2, 2) for an even n, else (n, 1)."""
+    if arg:
+        dims = tuple(int(x) for x in arg.split(","))
+    else:
+        n = world
+        dims = (max(n // 1, 1), 1) if n == 1 else (n // 2, 2) if n % 2 == 0 else (n, 1)
+    if not 1 <= len(dims) <= 3 or min(dims) < 1:
+        raise ValueError(f"--mesh-shape {arg!r}: one to three positive sizes, "
+                         "for (pod,) data, model")
+    return dims, ("pod", "data", "model")[-len(dims):]
+
+
+def build_mesh(arg: str, device: str = "cuda") -> DeviceMesh:
+    """The reference's ``build_mesh`` (``repro.launch.train``) over the
+    initialised world: :func:`mesh_dims` of ``arg`` and the world's size."""
+    dims, names = mesh_dims(arg, dist.get_world_size())
+    return make_mesh(dims, names, device)
+
+
 def mesh_axes(mesh: DeviceMesh) -> dict:
     """Axis name -> size."""
     return dict(zip(mesh.mesh_dim_names, mesh.shape))
@@ -211,3 +234,19 @@ def run_world(fn: Callable, world_size: int, *args, device: str = "cuda",
         _kill(procs)
         results.close()
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# a served or trained world's whole run, start to end: at full width its
+# gathers and all-to-alls through the host take seconds a step
+ENTRY_TIMEOUT = 3600.0
+
+
+def run_entry_world(fn: Callable, world_size: int, *args, device: str) -> List[Any]:
+    """``run_world`` for the entry points' ``--mesh-shape``: gloo when the
+    machine has fewer cards than ranks (several ranks then share a card) or
+    on the CPU, NCCL when each rank has its own card."""
+    if device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda but no CUDA device is visible; pass --device cpu")
+    backend = "nccl" if device == "cuda" and torch.cuda.device_count() >= world_size else "gloo"
+    return run_world(fn, world_size, *args, device=device, backend=backend,
+                     timeout=ENTRY_TIMEOUT)

@@ -25,19 +25,34 @@ degrades; ``--fail-at`` and ``--scenario`` lose hosts, which shrinks and
 re-registers the machine (``--fail-mode shrink``) or sheds the last
 in-flight sequence (``--fail-mode shed``: the caches are cut to B-1 and the
 step is captured again).  At the end ``explain_bottleneck`` runs the last
-payload through the event engine under a ``simulate`` span.  The plan shape
-is one device's, ``{"data": 1, "model": 1}``; ``--mesh-shape`` comes with
-distribution.
+payload through the event engine under a ``simulate`` span.  On one device
+the plan shape is ``{"data": 1, "model": 1}``.
+
+``--mesh-shape`` of more than one device serves across that many ranks, as
+the reference does: ``tp_adapt`` for the model axis, a ``DistContext``, each
+rank on its slot of the batch over the data axes, the experts over the
+expert axes (a rank draws only its virtual expert of each MoE layer: the
+same values the one-device draw gives it), everything else whole on each
+rank.  The ranks are processes (``launch.mesh.run_entry_world``, or the
+world already initialised under torchrun).  Each decode step's plan shape
+is the mesh's.  A world's collectives run on the host or outside any
+captured graph, so every decode step of a world runs eagerly
+(``decode_step``), and the log says so.  The generations are gathered to
+rank 0, which prints the lines.  The drills stay on one device: under a
+mesh they are refused.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import math
 import time
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 
 from repro_torch.comms.autotune import (
     active_machine,
@@ -47,11 +62,21 @@ from repro_torch.comms.autotune import (
 from repro_torch.configs import ARCHS, get_config, smoke_config
 from repro_torch.core.machine import get_machine
 from repro_torch.kernels.config import DEFAULT_DEVICE, kernels_enabled, use_kernels
+from repro_torch.launch.mesh import (
+    axes_index,
+    build_mesh,
+    dp_axes_of,
+    mesh_axes,
+    mesh_dims,
+    run_entry_world,
+)
 from repro_torch.models import decode as dec
-from repro_torch.models.transformer import init_params
+from repro_torch.models.moe import check_ep_layout
+from repro_torch.models.transformer import DistContext, batch_gather, batch_slot, init_params
 from repro_torch.obs import drift, health, metrics, trace
 from repro_torch.runtime.elastic import shrink_and_replan
 from repro_torch.runtime.scenarios import HOST_DROP, Scenario, ScenarioInjector
+from repro_torch.sharding.specs import tp_adapt
 
 # the JAX loop's plan shape on one device (its build_mesh(""))
 PLAN_SHAPE = {"data": 1, "model": 1}
@@ -83,6 +108,8 @@ def main(argv=None) -> np.ndarray:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=32)
+    ap.add_argument("--mesh-shape", default="",
+                    help="e.g. 1,8 => data=1, model=8: serve across 8 ranks")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=DEFAULT_DEVICE,
                     help="torch device to serve on (default: cuda)")
@@ -141,26 +168,60 @@ def main(argv=None) -> np.ndarray:
                metrics_out=args.metrics_out, health_out=args.health_out,
                degrade_at=args.degrade_at, degrade_tier=args.degrade_tier,
                degrade_factor=args.degrade_factor, fail_at=args.fail_at,
-               fail_host=args.fail_host, fail_mode=args.fail_mode, scenario=args.scenario)
+               fail_host=args.fail_host, fail_mode=args.fail_mode, scenario=args.scenario,
+               mesh_shape=args.mesh_shape)
 
 
 def run(cfg, *, batch: int, prompt_len: int, new_tokens: int, seed: int, device,
         trace_path: str = "", metrics_out: str = "", health_out: str = "",
         degrade_at: int = -1, degrade_tier: str = "dcn", degrade_factor: float = 10.0,
         fail_at: int = -1, fail_host: int = 0, fail_mode: str = "shrink",
-        scenario: str = "") -> np.ndarray:
+        scenario: str = "", mesh_shape: str = "",
+        report: Optional[list] = None) -> np.ndarray:
     """Serve ``cfg`` with random weights and prompts from ``seed``: batched
     prefill, then greedy decode of ``new_tokens``; returns the generations
     (B, new_tokens) int32, a shed sequence's row padded with -1 after the
     step it was shed at.  ``trace_path``, ``metrics_out`` and
     ``health_out``, where given, receive the Chrome trace, the metrics
     snapshot and the link-health snapshot; the other keywords are the drill
-    flags of ``main``."""
+    flags of ``main``.  ``mesh_shape`` of more than one device serves
+    across ranks (see the module docstring).  ``report``, where given, gets
+    one dict a rank (one on one device): the logits of prefill's last
+    position and of every decode step (1 + new_tokens, B, V) f32, the
+    prefill and decode seconds, the kernels' launch counts, the peak device
+    memory, the top-k experts of every MoE router call of prefill (on the
+    rank's token slice in a world), and in a world the trace spans of the
+    MoE collectives."""
     if fail_mode not in ("shrink", "shed"):
         raise ValueError(f"fail_mode {fail_mode!r}: one of 'shrink', 'shed'")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but no CUDA device is visible; pass --device cpu")
+    in_world = tdist.is_initialized()
+    dims, names = mesh_dims(mesh_shape, tdist.get_world_size() if in_world else 1)
+    world = math.prod(dims)
+    if world > 1:
+        drills = {"--degrade-at": degrade_at >= 0, "--fail-at": fail_at >= 0,
+                  "--scenario": bool(scenario)}
+        if any(drills.values()):
+            raise ValueError(
+                f"{', '.join(k for k, v in drills.items() if v)} under --mesh-shape "
+                f"{mesh_shape}: the drills run on one device; under a mesh they need fault "
+                "recovery and reshard-on-restore (ROADMAP.md Queue 1 item 4)")
+        cfg, ep_shards = tp_adapt(cfg, dict(zip(names, dims)).get("model", 1))
+        if cfg.is_moe:  # before any collective
+            check_ep_layout(cfg, dict(zip(names, dims))["model"], ep_shards)
+        kw = dict(batch=batch, prompt_len=prompt_len, new_tokens=new_tokens, seed=seed,
+                  trace_path=trace_path, metrics_out=metrics_out, health_out=health_out,
+                  want_report=report is not None)
+        if in_world:
+            out = [world_serve(device, cfg, mesh_shape, ep_shards, kw)]
+        else:
+            out = run_entry_world(world_serve, world, cfg, mesh_shape, ep_shards, kw,
+                                  device=device.type)
+        if report is not None:
+            report.extend(r for _, r in out)
+        return out[0][0]
 
     metrics.enable()
     tracer = trace.start(name="serve") if trace_path else None
@@ -178,7 +239,8 @@ def run(cfg, *, batch: int, prompt_len: int, new_tokens: int, seed: int, device,
         if device.type == "cuda":
             torch.cuda.synchronize(device)  # weights and prompts are in place
         t0 = time.perf_counter()
-        with trace.span("prefill", batch=B, prompt_len=P_len):
+        routes = [] if report is not None and cfg.is_moe else None
+        with trace.span("prefill", batch=B, prompt_len=P_len), _recording_routes(routes):
             logits, caches = dec.prefill(cfg, params, tokens, frontend=frontend,
                                          capacity=capacity)
             _check_finite(logits, "prefill")  # waits for the device
@@ -187,6 +249,10 @@ def run(cfg, *, batch: int, prompt_len: int, new_tokens: int, seed: int, device,
         print(f"[serve] prefill {B}x{P_len} in {t_prefill:.3f}s "
               f"({B * P_len / t_prefill:.0f} tok/s)")
 
+        seen = None
+        if report is not None:  # every step's logits, copied on the device
+            seen = logits.new_empty((N + 1,) + tuple(logits.shape))
+            seen[0].copy_(logits)
         steps = dec.DecodeGraph(cfg, params, caches, logits.argmax(dim=-1)[:, None], P_len, N)
         del caches  # the graph holds them; a shed replaces them
         drills = _Drills(cfg, capacity, steps, degrade_at=degrade_at,
@@ -203,6 +269,8 @@ def run(cfg, *, batch: int, prompt_len: int, new_tokens: int, seed: int, device,
                         collective = select_allreduce_strategy(
                             PLAN_SHAPE, token_bytes * (P_len + i + 1))
                     logits = steps.step()
+                    if seen is not None:
+                        seen[i + 1].copy_(logits)
                 metrics.inc("serve.decode.tokens", steps.batch)
             _check_finite(logits, "decode")  # waits for the device
         t_dec = time.perf_counter() - t0
@@ -224,10 +292,14 @@ def run(cfg, *, batch: int, prompt_len: int, new_tokens: int, seed: int, device,
     # per-resource timeline and bottleneck attribution of what the plan means
     # in simulated time (on one device the selector runs no engine)
     with trace.span("simulate"):
-        report = explain_bottleneck(None, token_bytes * (P_len + N), n_msgs=1)
-    metrics.gauge("serve.simulated_makespan_s", report.makespan)
+        bottleneck = explain_bottleneck(None, token_bytes * (P_len + N), n_msgs=1)
+    metrics.gauge("serve.simulated_makespan_s", bottleneck.makespan)
 
     gen = steps.tokens.to(torch.int32).cpu().numpy()
+    if report is not None:
+        report.append({"logits": seen.cpu().numpy(), "prefill_seconds": t_prefill,
+                       "decode_seconds": t_dec, "launches": launch_counts(),
+                       "peak_bytes": _peak_bytes(device), "routes": routes})
     print(f"[serve] decoded {N} tokens x {B} seqs in {t_dec:.3f}s "
           f"({B * N / t_dec:.1f} tok/s)")
     print("[serve] sample generations (first 3 rows):")
@@ -250,6 +322,150 @@ def run(cfg, *, batch: int, prompt_len: int, new_tokens: int, seed: int, device,
           metrics.summary_line(prefixes=["serve.", "plan_cache.", "lowering_memo.",
                                          "engine.", "health.", "runtime."]))
     return gen
+
+
+@contextlib.contextmanager
+def _recording_routes(routes: Optional[list]):
+    """While on, every MoE router call appends its top-k expert indices (a
+    host copy) to ``routes``; None records nothing."""
+    if routes is None:
+        yield
+        return
+    from repro_torch.models import moe
+
+    route = moe._route
+
+    def recording(cfg, router_w, x):
+        gates, idx, aux = route(cfg, router_w, x)
+        routes.append(idx.cpu())
+        return gates, idx, aux
+
+    moe._route = recording
+    try:
+        yield
+    finally:
+        moe._route = route
+
+
+def launch_counts() -> dict:
+    """Kernel name -> (launches, plain-version calls) in this process."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel, ops as fa_ops
+    from repro_torch.kernels.rglru import kernel as lru_kernel, ops as lru_ops
+    from repro_torch.kernels.rwkv6 import kernel as wkv_kernel, ops as wkv_ops
+
+    return {"flash_attention": (fa_kernel.launches, fa_ops.plain_calls),
+            "wkv6": (wkv_kernel.launches, wkv_ops.plain_calls),
+            "rglru_scan": (lru_kernel.launches, lru_ops.plain_calls)}
+
+
+def _peak_bytes(device: torch.device) -> int:
+    return torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+
+
+def world_serve(device: torch.device, cfg, mesh_shape: str, ep_shards: int,
+                kw: dict) -> tuple:
+    """One rank's serve run in a world: (the whole generations, this
+    rank's report or None)."""
+    mesh = build_mesh(mesh_shape, device.type)
+    dist = DistContext(mesh=mesh, dp_axes=dp_axes_of(mesh) or ("data",), ep_shards=ep_shards)
+    log = tdist.get_rank() == 0
+    B, P_len, N, seed = kw["batch"], kw["prompt_len"], kw["new_tokens"], kw["seed"]
+    capacity = P_len + N
+    plan_shape = mesh_axes(mesh)
+    metrics.enable()
+    tracer = trace.start(name="serve") if kw["trace_path"] or kw["want_report"] else None
+    block = None
+    if cfg.is_moe:  # this rank's virtual expert of each MoE layer
+        per = cfg.n_experts * ep_shards // dist.ep_size
+        block = (axes_index(mesh, dist.ep_axes) * per, per)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(seed),
+                         ep_shards=ep_shards, expert_block=block)
+    if device.type == "cuda":  # the draw's f32 scratch: ranks share the card
+        torch.cuda.empty_cache()
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(2, cfg.vocab_size, size=(B, P_len), dtype=np.int32)
+    tokens = batch_slot(dist, torch.from_numpy(prompts).to(device))
+    frontend = frontend_stub(cfg, rng, B, device)
+    if frontend is not None:
+        frontend = batch_slot(dist, frontend)
+
+    was_on = kernels_enabled()
+    use_kernels(True)
+    seen = []
+    try:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        routes = [] if kw["want_report"] and cfg.is_moe else None
+        with trace.span("prefill", batch=B, prompt_len=P_len), _recording_routes(routes):
+            logits, caches = dec.prefill(cfg, params, tokens, frontend=frontend,
+                                         capacity=capacity, dist=dist)
+            _check_finite(logits, "prefill")
+        t_prefill = time.perf_counter() - t0
+        metrics.observe("serve.prefill.seconds", t_prefill)
+        if log:
+            print(f"[serve] prefill {B}x{P_len} in {t_prefill:.3f}s "
+                  f"({B * P_len / t_prefill:.0f} tok/s) on {tdist.get_world_size()} ranks, "
+                  f"mesh {plan_shape}", flush=True)
+        token_bytes = float(B * cfg.d_model) * 2  # bf16 activations per token
+        tok = logits.argmax(dim=-1, keepdim=True)
+        gen = torch.empty((tok.shape[0], N), dtype=torch.int32, device=device)
+        seen.append(logits)
+        walls = []
+        t0 = time.perf_counter()
+        with trace.span("decode", new_tokens=N):
+            for i in range(N):
+                t1 = time.perf_counter()
+                with trace.span("decode.step", token=i):
+                    with trace.span("plan"):
+                        collective = select_allreduce_strategy(
+                            plan_shape, token_bytes * (P_len + i + 1))
+                    gen[:, i] = tok[:, 0]
+                    logits, caches = dec.decode_step(cfg, params, caches, tok, P_len + i,
+                                                     dist=dist)
+                    tok = logits.argmax(dim=-1, keepdim=True)
+                    seen.append(logits)
+                    _check_finite(logits, "decode")  # waits for the device
+                walls.append(time.perf_counter() - t1)
+                metrics.inc("serve.decode.tokens", B)
+        t_dec = time.perf_counter() - t0
+    finally:
+        use_kernels(was_on)
+    metrics.observe("serve.decode.seconds", t_dec)
+    whole = batch_gather(dist, gen, B)
+    if tracer is not None:
+        trace.stop()
+    rep = None
+    if kw["want_report"]:
+        spans = [(e["name"], e.get("args", {}).get("which", ""), e["dur"] * 1e-6)
+                 for e in tracer.events if e.get("ph") == "X" and e.get("pid") == 0]
+        rep = {"logits": batch_gather(dist, torch.stack(seen), B).float(),
+               "prefill_seconds": t_prefill, "decode_seconds": t_dec, "step_seconds": walls,
+               "launches": launch_counts(), "peak_bytes": _peak_bytes(device),
+               "spans": spans, "routes": routes}
+    if log:
+        print(f"[serve] per-step plan: {collective} (plan shape {plan_shape})")
+        print(f"[serve] decode ran eagerly on every step: a world's collectives run outside "
+              f"a CUDA graph ({tdist.get_world_size()} ranks)")
+        print(f"[serve] decoded {N} tokens x {B} seqs in {t_dec:.3f}s "
+              f"({B * N / t_dec:.1f} tok/s)")
+        print("[serve] sample generations (first 3 rows):")
+        for row in whole[:3].cpu().numpy():
+            print("   ", row[:16].tolist())
+        if tracer is not None and kw["trace_path"]:
+            tracer.write(kw["trace_path"])
+            print(f"[serve] trace written to {kw['trace_path']} ({len(tracer.events)} events)")
+        if kw["metrics_out"]:
+            metrics.write(kw["metrics_out"])
+            print(f"[serve] metrics written to {kw['metrics_out']}")
+        if kw["health_out"]:
+            with open(kw["health_out"], "w") as f:
+                json.dump(health.monitor().snapshot(), f, indent=2)
+                f.write("\n")
+            print(f"[serve] health written to {kw['health_out']}")
+        print("[serve] metrics:", metrics.summary_line(prefixes=["serve.", "plan_cache."]),
+              flush=True)
+    return whole, rep
 
 
 class _Drills:

@@ -117,10 +117,28 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 def dense_init(
     gen: torch.Generator, shape: Tuple[int, ...], dtype: torch.dtype, fan_in: int
 ) -> torch.Tensor:
-    """Normal(0, 1/fan_in) in f32, cast to ``dtype``, on the generator's device."""
+    """Normal(0, 1/fan_in) in f32, cast to ``dtype``, on the generator's device
+    (``META_GEN`` gives the shape and dtype on the meta device, drawing
+    nothing)."""
     std = 1.0 / max(fan_in, 1) ** 0.5
-    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
-    return (w * std).to(dtype)
+    w = torch.randn(shape, generator=real_generator(gen), dtype=torch.float32,
+                    device=gen.device)
+    return w.mul_(std).to(dtype)  # in place: one f32 temporary of the shape, not two
+
+
+class _MetaGenerator:
+    """Stands in for a ``torch.Generator`` where only shapes are wanted:
+    torch has no generator on the meta device."""
+
+    device = torch.device("meta")
+
+
+META_GEN = _MetaGenerator()
+
+
+def real_generator(gen) -> Optional[torch.Generator]:
+    """``gen``, or None for ``META_GEN`` (a meta draw needs no generator)."""
+    return None if gen is META_GEN else gen
 
 
 def mlp_params(cfg: ModelConfig, gen: torch.Generator, lead: Tuple[int, ...] = ()) -> dict:

@@ -32,6 +32,20 @@ def tree_map(fn: Callable, tree):
     return fn(tree)
 
 
+def tree_map2(fn: Callable, a, b):
+    """``fn(a_leaf, b_leaf)`` over two trees of one structure (``a``'s None
+    stays None)."""
+    if isinstance(a, dict):
+        return {k: tree_map2(fn, v, b[k]) for k, v in a.items()}
+    if isinstance(a, tuple) and hasattr(a, "_fields"):
+        return type(a)(*(tree_map2(fn, x, y) for x, y in zip(a, b)))
+    if isinstance(a, (tuple, list)):
+        return type(a)(tree_map2(fn, x, y) for x, y in zip(a, b))
+    if a is None:
+        return None
+    return fn(a, b)
+
+
 def tree_leaves(tree) -> list:
     """The leaves in JAX's order: dict keys sorted, sequences and NamedTuple
     fields in order, None skipped."""

@@ -16,6 +16,12 @@ per-layer views) and hands back the same cache object; the JAX package
 returns a new one.  Its ``pos`` is a device tensor, so that ``DecodeGraph``
 can capture a whole step as one CUDA graph, the counterpart of the JAX
 package's jitted decode step.
+
+``prefill`` and ``decode_step`` take a ``DistContext`` (``dist``): each rank
+then works on its slot of the batch, and the MoE layer runs over the
+expert axes.  A world's collectives run on the host (gloo) or outside any
+captured graph, so a step of a world is run eagerly; ``DecodeGraph`` is
+for ``dist=None``.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ from repro_torch.models import griffin, rwkv
 from repro_torch.models.common import apply_norm, dtype_of, mlp_apply, unembed
 from repro_torch.models.convert import tree_map
 from repro_torch.models.transformer import (
+    DistContext,
     _embed_tokens,
     _positions_embed,
     check_supported,
@@ -88,7 +95,7 @@ def _stack(per_rep: list) -> tuple:
 
 def _prefill_layer(
     cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, positions: torch.Tensor,
-    enc: Optional[torch.Tensor], capacity: int,
+    enc: Optional[torch.Tensor], capacity: int, dist: Optional[DistContext] = None,
 ) -> Tuple[torch.Tensor, dict]:
     if kind in (ATTN, LOCAL):
         window = cfg.window if kind == LOCAL else 0
@@ -99,7 +106,8 @@ def _prefill_layer(
         o = attn.attend(cfg, q, k, v, positions, positions, window=window)
         x = x + post_norm(cfg, p, "post_ln1", attn.out_proj(p["attn"], o))
         h = apply_norm(cfg, x, p["ln2"])
-        return x + post_norm(cfg, p, "post_ln2", feed_forward(cfg, p, h)[0]), cache
+        m = feed_forward(cfg, p, h, dist, with_aux=False)[0]
+        return x + post_norm(cfg, p, "post_ln2", m), cache
     if kind == XATTN:
         ck, cv = attn.cross_kv(cfg, p["xattn"], enc)
         h = apply_norm(cfg, x, p["ln1"])
@@ -142,8 +150,10 @@ def prefill(
     *,
     frontend: Optional[torch.Tensor] = None,  # (B, T, frontend_dim) stub embeddings
     capacity: Optional[int] = None,
+    dist: Optional[DistContext] = None,
 ) -> Tuple[torch.Tensor, tuple]:
-    """Returns (logits of the last position (B, V) f32, caches)."""
+    """Returns (logits of the last position (B, V) f32, caches); with
+    ``dist``, of this rank's slot of the batch."""
     check_supported(cfg)
     S = tokens.shape[1]
     capacity = capacity or S
@@ -158,7 +168,7 @@ def prefill(
         for i in range(group.count):
             outs = []
             for kind, p in zip(group.pattern, layer_params(gp, i)):
-                x, c = _prefill_layer(cfg, kind, p, x, positions, enc, capacity)
+                x, c = _prefill_layer(cfg, kind, p, x, positions, enc, capacity, dist)
                 outs.append(c)
             per_rep.append(outs)
         caches.append(_stack(per_rep))
@@ -168,7 +178,8 @@ def prefill(
 
 
 def _decode_layer(
-    cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, pos: torch.Tensor, cache: dict
+    cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, pos: torch.Tensor, cache: dict,
+    dist: Optional[DistContext] = None,
 ) -> torch.Tensor:
     if kind in (ATTN, LOCAL):
         h = apply_norm(cfg, x, p["ln1"])
@@ -176,7 +187,8 @@ def _decode_layer(
                                      window=cfg.window if kind == LOCAL else 0)
         x = x + post_norm(cfg, p, "post_ln1", a)
         h = apply_norm(cfg, x, p["ln2"])
-        return x + post_norm(cfg, p, "post_ln2", feed_forward(cfg, p, h)[0])
+        m = feed_forward(cfg, p, h, dist, with_aux=False)[0]
+        return x + post_norm(cfg, p, "post_ln2", m)
     if kind == XATTN:
         h = apply_norm(cfg, x, p["ln1"])
         a = attn.cross_attention(cfg, p["xattn"], h, (cache["ck"], cache["cv"]))
@@ -213,8 +225,10 @@ def decode_step(
     caches: tuple,
     token: torch.Tensor,  # (B, 1)
     pos: Union[int, torch.Tensor],  # absolute position of this token
+    dist: Optional[DistContext] = None,
 ) -> Tuple[torch.Tensor, tuple]:
-    """Returns (logits (B, V) f32, caches) with ``caches`` updated in place.
+    """Returns (logits (B, V) f32, caches) with ``caches`` updated in place;
+    with ``dist``, ``token`` and the caches are this rank's slot.
 
     ``pos`` is a 0-d int32 tensor on the token's device, as the JAX package
     traces it, or an int, which becomes such a tensor here.  Given a tensor,
@@ -226,7 +240,7 @@ def decode_step(
     for group, gp, gc in zip(cfg.groups, params["groups"], caches):
         for i in range(group.count):
             for kind, p, c in zip(group.pattern, layer_params(gp, i), layer_params(gc, i)):
-                x = _decode_layer(cfg, kind, p, x, pos, c)
+                x = _decode_layer(cfg, kind, p, x, pos, c, dist)
     x = apply_norm(cfg, x, params["final_norm"])
     return unembed(cfg, params["embed"], x[:, -1]), caches
 

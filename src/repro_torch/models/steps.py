@@ -13,6 +13,17 @@ storage, then updates the parameters and the optimizer's state in place
 parts are ``train.grads`` (forward and backward, every microbatch) and
 ``train.update`` (clip, schedule, AdamW) spans, which are also profiler
 ranges.
+
+With ``dist`` it is the sharded step.  Each rank holds its block of every
+parameter and AdamW moment (by ``sharding.param_shardings``) and its slot
+of the batch.  The step gathers every leaf whole (``train.gather``), runs
+forward and backward on the slot, sums the gradients over the data axes
+and divides (``train.reduce``), keeps the rank's block and applies AdamW
+to the blocks, so that each rank ends with its block of what the
+single-device step computes.  Along the model axis the ranks compute alike
+on the same slot: a leaf is stored split there and computed whole.  The
+global gradient norm counts each element once: a block held by several
+ranks adds its squares divided by their number.
 """
 from __future__ import annotations
 
@@ -23,7 +34,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models.common import dtype_of
 from repro_torch.models.convert import tree_leaves, tree_unflatten
-from repro_torch.models.transformer import forward
+from repro_torch.models.transformer import DistContext, forward, param_shapes
 from repro_torch.obs import trace
 from repro_torch.optim import adamw
 from repro_torch.optim.schedule import warmup_cosine
@@ -35,10 +46,11 @@ def next_token_loss(
     tokens: torch.Tensor,  # (B, S)
     *,
     frontend: Optional[torch.Tensor] = None,
+    dist: Optional[DistContext] = None,
     remat=False,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean next-token cross-entropy (+ MoE aux loss)."""
-    logits, aux = forward(cfg, params, tokens, frontend=frontend, remat=remat)
+    logits, aux = forward(cfg, params, tokens, frontend=frontend, dist=dist, remat=remat)
     logp = torch.log_softmax(logits[:, :-1].to(torch.float32), dim=-1)
     labels = tokens[:, 1:].long()
     nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
@@ -60,9 +72,10 @@ def check_frontend(cfg: ModelConfig, frontend: Optional[torch.Tensor]) -> None:
             "to the model's dtype")
 
 
-def _loss_and_grads(cfg, params, leaves, tokens, frontend, remat):
+def _loss_and_grads(cfg, params, leaves, tokens, frontend, remat, dist):
     """(loss, metrics, one gradient for each of ``leaves`` in their dtypes)."""
-    loss, metrics = next_token_loss(cfg, params, tokens, frontend=frontend, remat=remat)
+    loss, metrics = next_token_loss(cfg, params, tokens, frontend=frontend, dist=dist,
+                                    remat=remat)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, list(grads)
 
@@ -73,22 +86,49 @@ def train_step(
     params: dict,
     opt_state: adamw.AdamWState,
     batch: Dict[str, torch.Tensor],  # {"tokens": (B,S)[, "frontend": ...]}
+    *,
+    dist: Optional[DistContext] = None,
+    shardings=None,
 ) -> Tuple[dict, adamw.AdamWState, Dict[str, torch.Tensor]]:
     """One optimizer step.  ``run.n_microbatches > 1`` accumulates gradients
     over microbatches in ``run.grad_accum_dtype`` (activation memory
     O(microbatch)), used only where it divides the batch, as in the
-    reference; the metrics then hold only the mean loss."""
+    reference; the metrics then hold only the mean loss.
+
+    With ``dist``: ``params`` and ``opt_state``'s moments are this rank's
+    blocks by ``shardings`` (default: ``param_shardings`` of the config's
+    shapes over ``dist.mesh``), ``batch`` is its slot; the metrics are
+    global (averaged over the data axes)."""
     tokens = batch["tokens"]
     frontend = batch.get("frontend")
     check_frontend(cfg, frontend)
     remat_mode = run.remat_policy if run.remat else "none"
-    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    sh = None
+    if dist is None:
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    else:
+        from repro_torch.sharding.specs import param_shardings
+
+        if shardings is None:
+            shardings = param_shardings(param_shapes(cfg, dist.ep_shards), dist.mesh)
+        sh = tree_leaves(shardings)
+        _sync_if_traced(tokens)
+        with trace.span("train.gather"):
+            leaves = [s.gather(p.detach()).requires_grad_()
+                      for s, p in zip(sh, tree_leaves(params))]
     diff_params = tree_unflatten(params, leaves)
 
     with trace.span("train.grads", microbatches=run.n_microbatches):
-        metrics, grads = _grads(cfg, run, diff_params, leaves, tokens, frontend, remat_mode)
+        metrics, grads = _grads(cfg, run, diff_params, leaves, tokens, frontend, remat_mode,
+                                dist)
+    del diff_params, leaves
+    gnorm = None
+    if dist is not None:
+        _sync_if_traced(tokens)
+        with trace.span("train.reduce"):
+            metrics, grads, gnorm = _reduce(dist, sh, metrics, grads)
     with trace.span("train.update"):
-        grads, gnorm = adamw.clip_by_global_norm(grads, run.grad_clip)
+        grads, gnorm = adamw.clip_by_global_norm(grads, run.grad_clip, gnorm)
         lr = warmup_cosine(
             opt_state.step,
             peak_lr=run.learning_rate,
@@ -110,7 +150,42 @@ def train_step(
     return params, opt_state, metrics
 
 
-def _grads(cfg, run, params, leaves, tokens, frontend, remat):
+def _sync_if_traced(t: torch.Tensor) -> None:
+    """With a tracer on, a sharded step's ``train.gather`` and
+    ``train.reduce`` spans start on an idle card, so each holds its
+    collectives and not the device work enqueued before it."""
+    if trace.is_active() and t.is_cuda:
+        torch.cuda.synchronize(t.device)
+
+
+def _reduce(dist: DistContext, shardings: list, metrics: dict, grads: list):
+    """The sharded step's reductions: (metrics averaged over the data axes,
+    this rank's block of each gradient summed over the data axes and
+    divided, the global norm of the whole gradient)."""
+    import torch.distributed as tdist
+
+    from repro_torch.comms import routes
+    from repro_torch.launch.mesh import axes_group
+
+    dp = dist.dp_size
+    if dp > 1:
+        group = axes_group(dist.mesh, dist.dp_axes)
+        for g in grads:
+            routes.all_reduce(g, group)
+            g.div_(dp)
+        vals = torch.stack([v.detach().float().reshape(()) for v in metrics.values()])
+        routes.all_reduce(vals, group)
+        metrics = dict(zip(metrics, (vals / dp).unbind()))
+    blocks = [s.shard(g) for s, g in zip(shardings, grads)]
+    # each element once: a block held by n ranks adds its squares over n
+    sq = torch.zeros((1,), dtype=torch.float32, device=blocks[0].device)
+    for s, b in zip(shardings, blocks):
+        sq += torch.sum(torch.square(b.to(torch.float32))) / s.replicas
+    routes.all_reduce(sq, tdist.group.WORLD)
+    return metrics, blocks, torch.sqrt(sq[0])
+
+
+def _grads(cfg, run, params, leaves, tokens, frontend, remat, dist=None):
     """(metrics, one gradient for each of ``leaves``): over the whole batch,
     or summed over microbatches in ``run.grad_accum_dtype`` and divided in
     f32 where ``run.n_microbatches`` divides the batch (the metrics then
@@ -124,12 +199,12 @@ def _grads(cfg, run, params, leaves, tokens, frontend, remat):
         for i in range(n_micro):
             sl = slice(i * (B // n_micro), (i + 1) * (B // n_micro))
             l, _, g = _loss_and_grads(cfg, params, leaves, tokens[sl],
-                                      None if frontend is None else frontend[sl], remat)
+                                      None if frontend is None else frontend[sl], remat, dist)
             tot_l = tot_l + l
             for a, gi in zip(acc, g):
                 a.add_(gi.to(acc_dt))
             del g
         # f32 accumulators are divided in place (``to`` returns them as they are)
         return {"loss": tot_l / n_micro}, [a.to(torch.float32).div_(n_micro) for a in acc]
-    _, metrics, grads = _loss_and_grads(cfg, params, leaves, tokens, frontend, remat)
+    _, metrics, grads = _loss_and_grads(cfg, params, leaves, tokens, frontend, remat, dist)
     return metrics, grads

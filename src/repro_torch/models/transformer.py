@@ -4,17 +4,26 @@ Ported from ``repro.models.transformer`` for ATTN, LOCAL, XATTN (gated
 cross-attention, llama-vision), ATTNX (self + cross, whisper's decoder),
 RWKV and RGLRU layers, with or without post-norms (gemma2), whisper's
 encoder, and the MoE layer in place of the MLP of ATTN and LOCAL layers
-(mixtral, dbrx: ``moe.moe_apply_dense``, the reference's single-device
-branch of ``_moe_call``), on one device (``dist=None``).  The parameter tree keeps the JAX
-package's keys and its stacking over a group's ``count``
-(``_superblock_params``), so a JAX tree carried across by
-``convert.params_from_jax`` runs here unchanged; the layer loop replaces
-``lax.scan`` over the stack.
+(mixtral, dbrx).  The parameter tree keeps the JAX package's keys and its
+stacking over a group's ``count`` (``_superblock_params``), so a JAX tree
+carried across by ``convert.params_from_jax`` runs here unchanged; the
+layer loop replaces ``lax.scan`` over the stack.
+
+Distribution: ``DistContext`` carries the mesh (a ``DeviceMesh`` from
+``repro_torch.launch.mesh``) and its axis names.  Each rank is a process
+that runs ``forward`` on its slot of the batch (its share over the data
+axes where they divide the batch, else the whole batch; ``_dp_spec``) and
+returns its slot of the reference's output.  Dense compute runs whole on
+every rank.  The MoE layer runs ``moe.moe_apply_sharded_inner`` over the
+expert axes with the rank's virtual expert (``_moe_call``); with
+``dist=None`` it is the dense single-device path, the reference's branch.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
-from typing import Optional, Tuple
+import math
+from typing import Any, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
@@ -36,14 +45,65 @@ from repro_torch.models.common import (
     dtype_of,
     embed_params,
     gemma_forms,
+    META_GEN,
     mlp_apply,
     mlp_params,
+    real_generator,
     unembed,
 )
+from repro_torch.sharding.specs import PartitionSpec, Sharding, mesh_shape
 
 
 PORTED_KINDS = (ATTN, LOCAL, XATTN, ATTNX, RWKV, RGLRU)
 AUX_LOSS_COEF = 0.01
+
+
+@dataclasses.dataclass(frozen=True)
+class DistContext:
+    """Static distribution context threaded through the model."""
+
+    mesh: Any  # repro_torch.launch.mesh's DeviceMesh
+    dp_axes: Tuple[str, ...] = ("data",)
+    model_axis: str = "model"
+    ep_shards: int = 1
+    moe_strategy: str = "direct"  # direct | chunked | hierarchical
+    a2a_chunks: int = 1
+    # mesh axes carrying virtual experts; ("data", "model") is the serving
+    # layout whose dispatch is the paper's two-hop Alltoall case study
+    ep_axes: Tuple[str, ...] = ("model",)
+
+    @property
+    def ep_size(self) -> int:
+        sizes = mesh_shape(self.mesh)
+        return math.prod(sizes[a] for a in self.ep_axes)
+
+    @property
+    def dp_size(self) -> int:
+        sizes = mesh_shape(self.mesh)
+        return math.prod(sizes[a] for a in self.dp_axes)
+
+
+def _dp_spec(dist: Optional[DistContext], batch: int, ndim: int = 3) -> PartitionSpec:
+    """Batch-sharded spec when the batch divides the DP extent, else
+    replicated (long-context decode with batch 1)."""
+    if dist is None or dist.dp_size == 1 or batch % dist.dp_size:
+        return PartitionSpec(*([None] * ndim))
+    return PartitionSpec(dist.dp_axes, *([None] * (ndim - 1)))
+
+
+def batch_slot(dist: Optional[DistContext], x: torch.Tensor) -> torch.Tensor:
+    """This rank's slot of the global batch ``x`` (leading dim the batch)."""
+    if dist is None:
+        return x
+    return Sharding(dist.mesh, _dp_spec(dist, x.shape[0], x.ndim)).shard(x)
+
+
+def batch_gather(dist: Optional[DistContext], x: torch.Tensor, batch: int) -> torch.Tensor:
+    """The global batch (``batch`` rows) from every rank's slot ``x``:
+    collective over the mesh."""
+    if dist is None:
+        return x
+    return Sharding(dist.mesh, _dp_spec(dist, batch, x.ndim)).gather(x)
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -73,12 +133,13 @@ def norm_params(cfg: ModelConfig, lead: Tuple[int, ...], device) -> dict:
 
 
 def _layer_params(cfg: ModelConfig, kind: str, gen: torch.Generator,
-                  lead: Tuple[int, ...]) -> dict:
+                  lead: Tuple[int, ...], ep_shards: int = 1,
+                  expert_block: Optional[Tuple[int, int]] = None) -> dict:
     p = {"ln1": norm_params(cfg, lead, gen.device), "ln2": norm_params(cfg, lead, gen.device)}
     if kind in (ATTN, LOCAL):
         p["attn"] = attn.attn_params(cfg, gen, lead)
         if cfg.is_moe:
-            p["moe"] = moe.moe_params(cfg, gen, lead)
+            p["moe"] = moe.moe_params(cfg, gen, lead, ep_shards, expert_block)
         else:
             p["mlp"] = mlp_params(cfg, gen, lead)
         if cfg.post_norms:
@@ -105,9 +166,11 @@ def _layer_params(cfg: ModelConfig, kind: str, gen: torch.Generator,
     return p
 
 
-def _superblock_params(cfg: ModelConfig, group: LayerGroup, gen: torch.Generator) -> tuple:
+def _superblock_params(cfg: ModelConfig, group: LayerGroup, gen: torch.Generator,
+                       ep_shards: int = 1,
+                       expert_block: Optional[Tuple[int, int]] = None) -> tuple:
     """One dict per layer kind of the pattern, leaves stacked over ``count``."""
-    return tuple(_layer_params(cfg, kind, gen, (group.count,))
+    return tuple(_layer_params(cfg, kind, gen, (group.count,), ep_shards, expert_block)
                  for kind in group.pattern)
 
 
@@ -115,7 +178,8 @@ def _encoder_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     """Whisper's encoder: ``layers`` one dict whose leaves are stacked over
     ``encoder_layers``, its final norm and learned positions (std 0.02)."""
     lead = (cfg.encoder_layers,)
-    pos = 0.02 * torch.randn((max(cfg.frontend_tokens, 1), cfg.d_model), generator=gen,
+    pos = 0.02 * torch.randn((max(cfg.frontend_tokens, 1), cfg.d_model),
+                             generator=real_generator(gen),
                              dtype=torch.float32, device=gen.device)
     return {
         "layers": {
@@ -129,17 +193,28 @@ def _encoder_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     }
 
 
-def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
-    """Random weights on ``gen``'s device."""
+def init_params(cfg: ModelConfig, gen: torch.Generator, ep_shards: int = 1,
+                expert_block: Optional[Tuple[int, int]] = None) -> dict:
+    """Random weights on ``gen``'s device, the MoE experts in the virtual
+    layout of ``ep_shards``.  ``expert_block`` (start, n) keeps only those
+    virtual experts of each MoE layer (a rank's block over the expert
+    axes); every other leaf, and every value kept, is what the whole draw
+    gives."""
     check_supported(cfg)
     params = {
         "embed": embed_params(cfg, gen),
-        "groups": tuple(_superblock_params(cfg, g, gen) for g in cfg.groups),
+        "groups": tuple(_superblock_params(cfg, g, gen, ep_shards, expert_block)
+                        for g in cfg.groups),
         "final_norm": norm_params(cfg, (), gen.device),
     }
     if cfg.encoder_layers:
         params["encoder"] = _encoder_params(cfg, gen)
     return params
+
+
+def param_shapes(cfg: ModelConfig, ep_shards: int = 1) -> dict:
+    """``init_params``'s tree on the meta device: shapes and dtypes only."""
+    return init_params(cfg, META_GEN, ep_shards)
 
 
 def _take(tree, i: int):
@@ -215,12 +290,63 @@ def post_norm(cfg: ModelConfig, p: dict, key: str, y: torch.Tensor) -> torch.Ten
     return apply_norm(cfg, y, p[key]) if cfg.post_norms else y
 
 
-def feed_forward(cfg: ModelConfig, p: dict,
-                 h: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+def _moe_call(cfg: ModelConfig, p: dict, x: torch.Tensor, dist: Optional[DistContext],
+              with_aux: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The MoE layer: dense on one device; over the expert axes with this
+    rank's virtual expert in a world.  ``p``'s expert leaves are the
+    rank's block (one virtual expert) or whole (E·r; the rank's row is
+    taken).  Where an expert axis is also a data axis (the serving layout),
+    x enters whole: the slots are gathered over the data axes first and the
+    rank's slot is taken back after; that layout is forward-only.
+    ``with_aux=False`` skips the aux loss's means across ranks (None)."""
+    if dist is None:
+        return moe.moe_apply_dense(cfg, p, x)
+    from repro_torch.launch.mesh import axes_group, axes_index
+
+    sizes = mesh_shape(dist.mesh)
+    ax = moe.MoEAxis(dist.ep_axes, dist.ep_size, dist.ep_shards,
+                     axis_sizes=tuple(sizes[a] for a in dist.ep_axes))
+    moe.check_ep_layout(cfg, ax.size, ax.ep_shards)
+    m = axes_index(dist.mesh, ax.names)
+    w = {"router": p["router"]}
+    for key in ("w_in", "w_out"):
+        leaf = p[key]
+        if leaf.shape[0] == ax.size:  # whole: take this rank's virtual expert
+            leaf = leaf.narrow(0, m, 1)
+        elif leaf.shape[0] != 1:
+            raise ValueError(f"moe/{key} {tuple(leaf.shape)}: neither whole ({ax.size} "
+                             "virtual experts) nor this rank's one")
+        w[key] = leaf
+    dp = dist.dp_size
+    dp_clash = dp > 1 and any(a in dist.ep_axes for a in dist.dp_axes)
+    xl = x
+    if dp_clash:
+        if torch.is_grad_enabled() and x.requires_grad:
+            raise NotImplementedError(
+                "gradients through the expert layer need expert axes apart from the data "
+                f"axes; ep_axes {dist.ep_axes} share {dist.dp_axes}")
+        xl = batch_gather(dist, x, x.shape[0] * dp)
+    y, aux = moe.moe_apply_sharded_inner(cfg, w, xl, ax, dist.mesh,
+                                         strategy=dist.moe_strategy,
+                                         a2a_chunks=dist.a2a_chunks, with_aux=with_aux)
+    if dp_clash:
+        y = batch_slot(dist, y)
+    if dp > 1 and with_aux:
+        # aux is already averaged over the expert axes; average the data
+        # axes too so it is the same on every rank (the losses it joins are
+        # averaged over the data axes afterwards: backward passes it on)
+        aux = moe.mean_over(aux, axes_group(dist.mesh, dist.dp_axes), 1.0)
+    return y, aux
+
+
+def feed_forward(cfg: ModelConfig, p: dict, h: torch.Tensor,
+                 dist: Optional[DistContext] = None, with_aux: bool = True
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """An ATTN or LOCAL layer's MLP, or its MoE layer where the config has
-    experts: (output, the router's aux loss, or None for the MLP)."""
+    experts: (output, the router's aux loss, or None for the MLP).  Serving
+    drops the aux loss (``with_aux=False``: a world then skips its means)."""
     if cfg.is_moe:
-        return moe.moe_apply_dense(cfg, p["moe"], h)
+        return _moe_call(cfg, p["moe"], h, dist, with_aux)
     return mlp_apply(cfg, p["mlp"], h), None
 
 
@@ -228,6 +354,7 @@ def _apply_layer_full(
     cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, positions: torch.Tensor,
     enc: Optional[torch.Tensor] = None,  # what XATTN / ATTNX layers attend to
     aux: Optional[list] = None,  # collects each MoE layer's aux loss
+    dist: Optional[DistContext] = None,
 ) -> torch.Tensor:
     if kind in (ATTN, LOCAL):
         h = apply_norm(cfg, x, p["ln1"])
@@ -236,7 +363,7 @@ def _apply_layer_full(
         )
         x = x + post_norm(cfg, p, "post_ln1", a)
         h = apply_norm(cfg, x, p["ln2"])
-        m, layer_aux = feed_forward(cfg, p, h)
+        m, layer_aux = feed_forward(cfg, p, h, dist)
         if aux is not None and layer_aux is not None:
             aux.append(layer_aux)
         return x + post_norm(cfg, p, "post_ln2", m)
@@ -294,8 +421,8 @@ def frontend_states(cfg: ModelConfig, params: dict,
     return None
 
 
-def _block(cfg: ModelConfig, pattern: Tuple[str, ...], x: torch.Tensor, aux: torch.Tensor,
-           p_block: tuple, positions: torch.Tensor,
+def _block(cfg: ModelConfig, pattern: Tuple[str, ...], dist: Optional[DistContext],
+           x: torch.Tensor, aux: torch.Tensor, p_block: tuple, positions: torch.Tensor,
            enc: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
     """One repetition of a group's pattern, the unit remat recomputes:
     (x, aux plus the MoE layers' aux losses in layer order).  The aux
@@ -303,7 +430,7 @@ def _block(cfg: ModelConfig, pattern: Tuple[str, ...], x: torch.Tensor, aux: tor
     nothing twice."""
     auxes = []
     for kind, p in zip(pattern, p_block):
-        x = _apply_layer_full(cfg, kind, p, x, positions, enc, auxes)
+        x = _apply_layer_full(cfg, kind, p, x, positions, enc, auxes, dist)
     for a in auxes:  # summed in layer order, as the reference's scan carries it
         aux = aux + a
     return x, aux
@@ -333,13 +460,15 @@ def _remat_block(remat, block):
 def forward(
     cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     frontend: Optional[torch.Tensor] = None,  # (B, T, frontend_dim) stub embeddings
+    dist: Optional[DistContext] = None,
     remat=False,  # False / "none" | True / "block" | "dots"
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B, S, V) f32, aux_loss scalar): the MoE routers' aux
     losses summed over the layers, times ``AUX_LOSS_COEF``; zero without
     experts.  ``remat`` checkpoints each repetition of a group's pattern
     (``torch.utils.checkpoint``, non-reentrant), as the JAX package's
-    ``jax.checkpoint`` around its scan body."""
+    ``jax.checkpoint`` around its scan body.  With ``dist``, ``tokens`` (and
+    ``frontend``) are this rank's slot and so are the logits."""
     check_supported(cfg)
     S = tokens.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
@@ -348,7 +477,7 @@ def forward(
     x = _positions_embed(cfg, params, x, positions)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for group, gp in zip(cfg.groups, params["groups"]):
-        body = _remat_block(remat, functools.partial(_block, cfg, group.pattern))
+        body = _remat_block(remat, functools.partial(_block, cfg, group.pattern, dist))
         for p_block in unstack_params(gp, group.count):
             x, aux_total = body(x, aux_total, p_block, positions, enc)
     x = apply_norm(cfg, x, params["final_norm"])

@@ -55,11 +55,14 @@ def global_norm(leaves: List[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
 
 
-def clip_by_global_norm(grads: List[torch.Tensor],
-                        max_norm: float) -> Tuple[List[torch.Tensor], torch.Tensor]:
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                        norm: Optional[torch.Tensor] = None
+                        ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """Gradients scaled by min(1, max_norm / max(norm, 1e-9)) in f32 and cast
-    back to their dtypes; returns them and the norm before clipping."""
-    norm = global_norm(grads)
+    back to their dtypes; returns them and the norm before clipping.
+    ``norm`` defaults to ``global_norm(grads)``; a sharded step gives the
+    norm of the whole gradient, which its blocks alone do not hold."""
+    norm = global_norm(grads) if norm is None else norm
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return [(g.to(torch.float32) * scale).to(g.dtype) for g in grads], norm
 

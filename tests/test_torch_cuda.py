@@ -539,3 +539,58 @@ def test_collectives_nccl_world_of_one_returns_the_input(cuda_device):
 
     same = run_world(checks.identity, 1, device="cuda", backend="nccl", timeout=300)[0]
     assert same and all(same.values()), same
+
+
+def test_expert_parallel_card_world_matches_host_world(cuda_device):
+    """The expert-parallel cases of ``sharding.checks`` (direct, chunked and
+    hierarchical all-to-alls, capacity factors 8 and 1.25, the refused
+    layouts, two sharded train steps through the expert layer) on 8 gloo
+    ranks on the card against 8 on the host, as ``compare_moe`` holds them."""
+    from repro_torch.launch.mesh import run_world
+    from repro_torch.sharding import checks
+
+    card = run_world(checks.moe_program, checks.WORLD, checks.moe_inputs(), device="cuda",
+                     timeout=600)
+    host = run_world(checks.moe_program, checks.WORLD, checks.moe_inputs(), device="cpu",
+                     timeout=600)
+    worst, bad = checks.compare_moe(card, host)
+    assert not bad, bad
+    assert set(worst) == {c for c in checks.MOE_CASES if "refused" not in c} | {"train"}
+
+
+def test_sharded_train_card_world_matches_host_world(cuda_device):
+    """The sharded train step's cases of ``sharding.checks`` on a (2, 4)
+    mesh of gloo ranks on the card against the host's, as
+    ``compare_train`` holds them."""
+    from repro_torch.launch.mesh import run_world
+    from repro_torch.sharding import checks
+
+    card = run_world(checks.train_program, checks.WORLD, checks.train_inputs(),
+                     device="cuda", timeout=600)
+    host = run_world(checks.train_program, checks.WORLD, checks.train_inputs(),
+                     device="cpu", timeout=600)
+    worst, bad = checks.compare_train(card, host)
+    assert not bad, bad
+    assert set(worst) == set(checks.TRAIN_CASES)
+
+
+def test_serve_across_ranks_on_card_equals_one_card_device(cuda_device):
+    """Smoke mixtral at f32 over 4 gloo ranks on the card (tp_adapt's
+    config, capacity factor 4: nothing dropped) generates the one-device
+    run's tokens on the card, from the same card draw of the weights; every
+    rank's logits hold that run's at 1e-4, and each rank launched flash
+    once a layer in its prefill."""
+    from repro_torch.launch import serve
+    from repro_torch.sharding import tp_adapt
+
+    cfg = dataclasses.replace(smoke_config("mixtral-8x22b"), dtype="float32",
+                              capacity_factor=4.0)
+    adapted = tp_adapt(cfg, 4)[0]
+    kw = dict(batch=4, prompt_len=16, new_tokens=4, seed=0, device="cuda")
+    ranks, one = [], []
+    got = serve.run(cfg, mesh_shape="1,4", report=ranks, **kw)
+    want = serve.run(adapted, report=one, **kw)
+    np.testing.assert_array_equal(got, want)
+    for rep in ranks:
+        np.testing.assert_allclose(rep["logits"], one[0]["logits"], rtol=1e-4, atol=1e-4)
+        assert rep["launches"]["flash_attention"] == (adapted.n_layers, 0)

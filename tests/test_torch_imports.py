@@ -40,12 +40,14 @@ def test_sources_import_no_jax_and_no_repro():
 DISTRIBUTION = ["repro_torch.comms.allreduce", "repro_torch.comms.alltoall",
                 "repro_torch.comms.allgather", "repro_torch.comms.p2p",
                 "repro_torch.comms.overlap", "repro_torch.optim.compress",
-                "repro_torch.launch.mesh"]
+                "repro_torch.launch.mesh", "repro_torch.sharding.specs",
+                "repro_torch.sharding.checks", "repro_torch.sharding.__init__"]
 
 
 def test_distribution_modules_are_in_the_port():
-    """The collectives, compression, the mesh helpers and the collective
-    timer are port modules, so the two tests above walk them."""
+    """The collectives, compression, the mesh helpers, the collective timer
+    and the sharding rules are port modules, so the two tests above walk
+    them."""
     for name in DISTRIBUTION:
         assert (SRC / (name.replace(".", "/") + ".py")).is_file(), name
     assert "def bench_allreduce(" in (PORT / "core" / "benchmark.py").read_text()

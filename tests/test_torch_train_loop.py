@@ -246,9 +246,12 @@ def test_run_from_reference_weights_follows_reference_main():
 
 
 def test_mesh_shape_over_devices_refused(capsys):
-    with pytest.raises(SystemExit):
-        ttrain.main(["--smoke", "--device", "cpu", "--steps", "1", "--mesh-shape", "2,1"])
-    assert "Queue 1 item 7" in capsys.readouterr().err
-    loss = ttrain.main(["--smoke", "--device", "cpu", "--steps", "1", "--batch", "2",
-                        "--seq", "16", "--mesh-shape", "1,1"])
+    """A mesh of more than three axes is refused; one of more than one
+    device trains across that many ranks (here two data-parallel ranks on
+    the CPU, the one-device run's loss), one device trains in-process."""
+    with pytest.raises(ValueError, match="one to three positive sizes"):
+        ttrain.main(["--smoke", "--device", "cpu", "--steps", "1", "--mesh-shape", "1,1,2,1"])
+    args = ["--smoke", "--device", "cpu", "--steps", "1", "--batch", "2", "--seq", "16"]
+    loss = ttrain.main(args + ["--mesh-shape", "1,1"])
     assert np.isfinite(loss)
+    assert abs(ttrain.main(args + ["--mesh-shape", "2,1"]) - loss) < 2e-2
