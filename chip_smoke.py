@@ -96,6 +96,22 @@ Phases, each printing its own lines, any failure ending the run non-zero:
                world, its first loss within 2e-2 of phase 8's; (c) the CPU
                tests' world programs (expert-parallel cases, sharded train
                steps) at smoke width, a card world against a host world.
+ 13. recovery — (a) llama3.2-1b at full width trained under
+               ``runtime.run_with_recovery`` through an injected fault and a
+               host loss (``shrink_and_replan``, a seeded backoff), its final
+               parameters and moments bitwise an uninterrupted run's (else
+               again in a new process with deterministic algorithms, and the
+               leaves that differ named), with the checkpoint's size, the
+               saves' and restores' seconds and peak memory; (b) the same
+               model re-scaled over gloo worlds on the card, 4 -> 2 -> 4
+               ranks, a checkpoint the hand-off (``runtime.checks``): each
+               restored block bit for bit the saved tree's, each loss within
+               2e-2 and the final parameters within 0.15 of the
+               uninterrupted world's, with each world's step walls, restore
+               seconds and peak memory a rank; (c) ``host_drop_drill``'s
+               evidence equal to the CPU's; (d) serve's degradation and shed
+               drills on mesh (2, 1) at full width: phase 10's drill lines,
+               the unshed rows of the run without drills, the eager steps.
 The second-to-last line is the card as nvidia-smi names it, the last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of ``repro``.
 """
@@ -155,10 +171,11 @@ KIND_KERNEL = {"attn": "flash_attention", "local": "flash_attention",
 PROFILER_NAME = {"flash_attention": ("flash_fwd",),
                  "wkv6": ("wkv6_intra_kernel", "wkv6_state_kernel"),
                  "rglru_scan": ("rglru_scan_kernel",)}
-# warm serve runs of the breakdown phase
-WARM_RUNS = {"llama3.2-1b": 5, "rwkv6-1.6b": 3, "recurrentgemma-9b": 2, "olmo-1b": 2,
-             "codeqwen1.5-7b": 2, "gemma2-9b": 2, "whisper-small": 2,
-             "llama-3.2-vision-11b": 2, "mixtral-8x22b": 2, "dbrx-132b": 2}
+# warm serve runs of the breakdown phase (cut from 5, 3 and 2 when phase 13
+# came, to keep the script's wall inside its limit)
+WARM_RUNS = {"llama3.2-1b": 3, "rwkv6-1.6b": 2, "recurrentgemma-9b": 1, "olmo-1b": 1,
+             "codeqwen1.5-7b": 1, "gemma2-9b": 1, "whisper-small": 1,
+             "llama-3.2-vision-11b": 1, "mixtral-8x22b": 1, "dbrx-132b": 1}
 # the host's calls that launch device work, as torch.profiler names them
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
                 "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
@@ -224,6 +241,28 @@ RANKS_TIMEOUT = 900.0
 COLL_FIT_SIZES = tuple(4096 * 4 ** j for j in range(8))
 COLL_AUTOTUNE_SIZES = (1 << 20, 1 << 26)
 COLL_TIMEOUT = 900.0
+# phase 13: recovery and elastic re-scale.  (a) llama3.2-1b at full width
+# under run_with_recovery: B=8 S=128, 8 steps, a checkpoint every 3, an
+# InjectedFault at step 4 and a HostLost at step 7 (routed through
+# shrink_and_replan on a 12-rank machine derived from summit, with a seeded
+# backoff); (b) the 4 -> 2 -> 4 rank re-scale through three gloo worlds on
+# the card, each loss and the final parameters held to the uninterrupted
+# world at the reference's bounds; (c) host_drop_drill's evidence, the CPU's
+# (its sha256 over the sorted JSON, and its decision fields); (d) serve's
+# drills on mesh (2, 1) at full width
+REC_STEPS, REC_EVERY, REC_B, REC_S, REC_WARMUP = 8, 3, 8, 128, 10
+REC_FAULTS = {4: "InjectedFault", 7: "HostLost"}
+REC_MACHINE, REC_LOST_HOST = "h100_recovery", 11
+RESCALE_MESHES = ((2, 2), (2, 1), (2, 2))
+RESCALE_LOSS, RESCALE_PARAMS = 2e-2, 0.15  # tests/_multidevice_checks.py:225, 236, 243
+RESCALE_TIMEOUT = 900.0
+CKPT_GB = 40.0  # the most checkpoint bytes on disk at once: three of 12.4 GB in (a)
+DRILL_EVIDENCE_SHA = "dcd1fb67d493d9e84e0a153224d5eedf735b6045f1f26e5ccf31ef51d309f5f2"
+DRILL_EVIDENCE = {"stale_pick": "node_aware_alltoall", "fresh_pick": "bruck_alltoall",
+                  "survivors": 8, "generations_bumped": 4, "des_overrides": 40,
+                  "t_stale_on_shrunk": 4.939523199999999e-05,
+                  "t_fresh_on_shrunk": 4.4961024e-05, "loss_continuity": True}
+MESH_DRILL = "2,1"
 # llama3.2-1b's replayed decode step wall before serve consulted the planner
 # (PERF.md section 5, the same card at 700 W), ms
 REPLAY_BEFORE_MS = (4.209, 4.229)
@@ -1700,8 +1739,9 @@ def check_shed(what: str, gen: np.ndarray, batch: int, fail_at: int) -> None:
         raise AssertionError(f"{what}: the -1 layout is wrong: {gen.tolist()}")
 
 
-def phase_drills(gpu: str) -> None:
-    """Phase 10: serve's per-step consult and its drills on the card."""
+def phase_drills(gpu: str) -> list:
+    """Phase 10: serve's per-step consult and its drills on the card.
+    Returns the full-width shed drill's lines."""
     from repro_torch.configs import smoke_config
     from repro_torch.runtime.scenarios import generate
 
@@ -1809,6 +1849,7 @@ def phase_drills(gpu: str) -> None:
         say("drills", f"scenario: {ln}")
     fresh_planner()
     say("drills", f"ok in {time.perf_counter() - t0:.1f} s")
+    return card_full["shed"]["lines"]
 
 
 def phase_collectives(gpu: str) -> None:
@@ -2090,28 +2131,407 @@ def phase_ranks(gpu: str, single_loss0: float) -> None:
     say("ranks", f"ok in {time.perf_counter() - t0:.1f} s")
 
 
+# -- phase 13: recovery and elastic re-scale -----------------------------------
+
+def _scratch(need_gb: float) -> str:
+    """A new temporary directory for checkpoints, where ``need_gb`` GB are
+    free: the temporary directory's file system, else the checkout's
+    ignored ``_checkpoints``; raises with both file systems' free space."""
+    import shutil
+    import tempfile
+
+    tried = []
+    for base in (tempfile.gettempdir(), str(ROOT / "_checkpoints")):
+        os.makedirs(base, exist_ok=True)
+        free = shutil.disk_usage(base).free / 1e9
+        tried.append(f"{base}: {free:.1f} GB free")
+        if free >= need_gb:
+            return tempfile.mkdtemp(prefix="recovery_", dir=base)
+    raise RuntimeError(f"checkpoints need {need_gb} GB of disk, found {'; '.join(tried)}")
+
+
+def _timed_checkpointer(directory: str, keep: int, device: str):
+    """A ``Checkpointer`` that records each ``save`` call's seconds (the
+    device -> host snapshot; the file is written on its thread), each
+    ``np.savez``'s seconds (the write) and each ``restore``'s seconds."""
+    from repro_torch.checkpoint import Checkpointer, checkpointer as ck_module
+
+    class Timed(Checkpointer):
+        snapshots, writes, restores = [], [], []
+
+        def save(self, step, tree, block=True):
+            t0 = time.perf_counter()
+            super().save(step, tree, block=block)
+            self.snapshots.append(time.perf_counter() - t0)
+
+        def restore(self, *a, **k):
+            sync()
+            t0 = time.perf_counter()
+            out = super().restore(*a, **k)
+            sync()
+            self.restores.append(time.perf_counter() - t0)
+            return out
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    savez = ck_module.np.savez
+
+    def timed_savez(*a, **k):
+        t0 = time.perf_counter()
+        savez(*a, **k)
+        Timed.writes.append(time.perf_counter() - t0)
+
+    ck_module.np.savez = timed_savez  # restored by the caller: see recovery_case
+    return Timed(directory, keep=keep), (ck_module.np, savez)
+
+
+def _diff_leaves(got, want) -> list:
+    """(name, largest |difference|) of each leaf of two trees that differs."""
+    from repro_torch.checkpoint.checkpointer import _flatten_with_names
+
+    out = []
+    for (name, a), (_, b) in zip(_flatten_with_names(got), _flatten_with_names(want)):
+        if not torch.equal(a, b):
+            out.append((name, float((a.float() - b.float()).abs().max())))
+    return out
+
+
+def recovery_case(workdir: str, device: str = "cuda") -> dict:
+    """13(a) in this process: llama3.2-1b at full width trained ``REC_STEPS``
+    steps straight through, then again under ``run_with_recovery`` with
+    the faults of ``REC_FAULTS``; the leaves that differ between the two
+    final states, and the run's numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core.machine import get_machine, register_machine
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models.convert import tree_leaves
+    from repro_torch.models.steps import train_step
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import init_state
+    from repro_torch.runtime import (BackoffPolicy, HostLost, InjectedFault, run_with_recovery,
+                                     shrink_and_replan)
+
+    cfg = get_config(TRAIN_ARCH)
+    run = RunConfig(model=cfg, seq_len=REC_S, global_batch=REC_B, n_microbatches=1,
+                    warmup_steps=REC_WARMUP, total_steps=REC_STEPS)
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=REC_S, global_batch=REC_B, seed=0)
+
+    def batch_fn(step):
+        return {"tokens": torch.from_numpy(data.batch(step)["tokens"]).to(device)}
+
+    walls = []
+
+    def step_fn(p, o, b):
+        t0 = time.perf_counter()
+        p, o, m = train_step(cfg, run, p, o, b)
+        float(m["loss"])  # waits for the card
+        walls.append(time.perf_counter() - t0)
+        return p, o, m
+
+    def fresh():
+        p = init_params(cfg, torch.Generator(device=device).manual_seed(0))
+        return p, init_state(p)
+
+    cuda = device == "cuda"
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    clean_p, clean_o = fresh()
+    for step in range(REC_STEPS):
+        clean_p, clean_o, _ = step_fn(clean_p, clean_o, batch_fn(step))
+    clean_walls = walls[:]
+    walls.clear()
+    base = get_machine("summit")
+    register_machine(REC_MACHINE, dataclasses.replace(
+        base, name=REC_MACHINE, facts={**base.facts, "n_gpus": 12, "ppn": 6},
+        derived_from="summit"))
+    pending = {s: (InjectedFault(f"injected at step {s}") if kind == "InjectedFault"
+                   else HostLost(REC_LOST_HOST)) for s, kind in REC_FAULTS.items()}
+
+    def hook(step):
+        if step in pending:
+            raise pending.pop(step)
+
+    drops, delays, logs = [], [], []
+
+    def on_drop(e, step):
+        shrunk = shrink_and_replan(REC_MACHINE, [e.host])
+        drops.append((step, e.host, int(shrunk.facts["n_gpus"]), shrunk.fingerprint))
+
+    ckpt, (np_module, savez) = _timed_checkpointer(workdir, keep=2, device=device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    p0, o0 = fresh()
+    try:
+        state = run_with_recovery(
+            step_fn=step_fn, batch_fn=batch_fn, init_params=p0, init_opt=o0,
+            checkpointer=ckpt, total_steps=REC_STEPS, checkpoint_every=REC_EVERY,
+            fault_hook=hook, backoff=BackoffPolicy(base=0.01, max_delay=0.05, seed=0),
+            sleep_fn=delays.append, on_host_drop=on_drop, log=logs.append)
+    finally:
+        np_module.savez = savez
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    del p0, o0
+    differ = _diff_leaves({"params": state.params, "opt": state.opt_state},
+                          {"params": clean_p, "opt": clean_o})
+    with open(os.path.join(workdir, f"step_{REC_STEPS:08d}", "meta.json")) as f:
+        meta = json.load(f)
+    npz = os.path.getsize(os.path.join(workdir, f"step_{REC_STEPS:08d}", "arrays.npz"))
+    n_leaves = len(tree_leaves(state.params)) + len(tree_leaves(state.opt_state))
+    out = {"step": state.step, "differ": differ, "n_leaves": n_leaves, "logs": logs,
+           "drops": drops, "delays": delays, "snapshots": list(ckpt.snapshots),
+           "writes": list(ckpt.writes), "restores": list(ckpt.restores),
+           "ckpt_gb": npz / 1e9, "ckpt_leaves": len(meta["names"]), "peak_bytes": peak,
+           "clean_walls": clean_walls, "walls": walls, "pending": sorted(pending)}
+    del state, clean_p, clean_o
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def recovery_subprocess(workdir: str) -> dict:
+    """13(a) again in a new process with cuBLAS's fixed workspace and
+    ``torch.use_deterministic_algorithms(True)``, both set before its CUDA
+    context: the results as JSON on its last line."""
+    code = ("import json, os, sys, torch; torch.use_deterministic_algorithms(True); "
+            "import chip_smoke as c; torch.backends.cuda.matmul.allow_tf32 = False; "
+            f"print(json.dumps(c.recovery_case({workdir!r})))")
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,
+                         capture_output=True, text=True, timeout=900)
+    if out.returncode != 0:
+        raise RuntimeError(f"deterministic recovery run failed:\n{out.stderr[-4000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def phase_recovery_full(gpu: str) -> None:
+    """13(a): recovery through a fault and a host loss at full width,
+    bitwise against the uninterrupted run."""
+    import shutil
+
+    workdir = _scratch(CKPT_GB)
+    try:
+        res = recovery_case(workdir)
+        mode = "default algorithms"
+        if res["differ"]:
+            say("recovery", f"not bitwise with {mode}: {len(res['differ'])} of "
+                            f"{res['n_leaves']} leaves differ, the largest gaps "
+                            f"{sorted(res['differ'], key=lambda x: -x[1])[:6]} | {gpu}")
+            shutil.rmtree(workdir, ignore_errors=True)
+            os.makedirs(workdir)
+            res = recovery_subprocess(workdir)
+            mode = "CUBLAS_WORKSPACE_CONFIG=:4096:8 and deterministic algorithms"
+        if res["differ"] or res["step"] != REC_STEPS or res["pending"]:
+            raise AssertionError(f"recovery ({mode}): step {res['step']}, faults not raised "
+                                 f"{res['pending']}, leaves that differ {res['differ']}")
+        drops, delays = res["drops"], res["delays"]
+        if len(delays) != len(REC_FAULTS) or [tuple(d[:3]) for d in drops] != [
+                (7, REC_LOST_HOST, 11)]:
+            raise AssertionError(f"recovery: delays {delays}, host drops {drops}")
+        say("recovery", f"{TRAIN_ARCH} bf16 B={REC_B} S={REC_S} {REC_STEPS} steps, a checkpoint "
+                        f"every {REC_EVERY}, faults {REC_FAULTS}: final parameters and moments "
+                        f"bitwise the uninterrupted run's ({res['n_leaves']} leaves, {mode}); "
+                        f"log {res['logs']} | {gpu}")
+        say("recovery", f"checkpoint {res['ckpt_gb']:.3f} GB ({res['ckpt_leaves']} leaves); "
+                        f"saves (device -> host snapshot) {_per_rank(res['snapshots'])} s, "
+                        f"writes (np.savez) {_per_rank(res['writes'])} s, restores "
+                        f"{_per_rank(res['restores'])} s; restarts {len(delays)}, backoff delays "
+                        f"{_per_rank(delays, '{:.6f}')} s (slept through sleep_fn, not "
+                        f"waited); host {drops[0][1]} lost at step {drops[0][0]}: "
+                        f"{REC_MACHINE} shrunk to {drops[0][2]} ranks, fingerprint "
+                        f"{drops[0][3][:12]}; peak memory {res['peak_bytes'] / 1e9:.3f} GB | {gpu}")
+        say("recovery", f"step walls (s) uninterrupted {_per_rank(res['clean_walls'])}; under "
+                        f"recovery ({len(res['walls'])} steps run, replays included) "
+                        f"{_per_rank(res['walls'])} | {gpu}")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def phase_rescale(gpu: str) -> None:
+    """13(b): llama3.2-1b at full width over (2, 2), then (2, 1), then (2, 2)
+    again, gloo worlds on the card with a checkpoint as the hand-off
+    (``runtime.checks.leg_program``)."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch.mesh import run_world
+    from repro_torch.runtime import checks as rt_checks
+
+    cfg = get_config(TRAIN_ARCH)
+    run = RunConfig(model=cfg, seq_len=REC_S, global_batch=REC_B, n_microbatches=1,
+                    warmup_steps=REC_WARMUP, total_steps=REC_STEPS)
+    workdir = _scratch(CKPT_GB)
+    blob, ref = os.path.join(workdir, "blob"), os.path.join(workdir, "uninterrupted")
+    leg = dict(cfg=cfg, run=run, keep=2)
+    big, small, back = RESCALE_MESHES
+    worlds = [
+        (big, [dict(leg, mesh=big, seed=0, synthetic=(0, 0, 2), save=(blob, 2)),
+               dict(leg, mesh=big, synthetic=(0, 2, 4), save_params=(ref, 4))]),
+        (small, [dict(leg, mesh=small, restore=(blob, 2), check=True, synthetic=(0, 2, 3),
+                      save=(blob, 3))]),
+        (back, [dict(leg, mesh=back, restore=(blob, 3), synthetic=(0, 3, 4),
+                     compare=(ref, 4))]),
+    ]
+    out = []
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        for dims, legs in worlds:
+            t0 = time.perf_counter()
+            res = run_world(rt_checks.leg_program, math.prod(dims), legs, device="cuda",
+                            timeout=RESCALE_TIMEOUT)
+            out.append((dims, res, time.perf_counter() - t0))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    (_, first, _), (_, shrunk, _), (_, grown, _) = out
+    loss = lambda ranks, leg_i, step: ranks[0][leg_i]["metrics"][step]["loss"]  # noqa: E731
+    for dims, ranks, _ in out:
+        for i in range(len(ranks[0])):
+            per = {tuple(m["loss"] for m in r[i]["metrics"]) for r in ranks}
+            if len(per) != 1:
+                raise AssertionError(f"world {dims}: the ranks' losses differ {per}")
+    straight = [loss(first, 0, 0), loss(first, 0, 1), loss(first, 1, 0), loss(first, 1, 1)]
+    resc = [loss(shrunk, 0, 0), loss(grown, 0, 0)]
+    gaps = [abs(resc[0] - straight[2]), abs(resc[1] - straight[3])]
+    dist = max(r[0]["max_param_distance"] for r in grown)
+    checked = [r[0]["leaves_checked"] for r in shrunk]
+    if not (all(np.isfinite(straight + resc)) and max(gaps) < RESCALE_LOSS
+            and dist < RESCALE_PARAMS):
+        raise AssertionError(f"re-scale: uninterrupted losses {straight}, re-scaled {resc} "
+                             f"(gaps {gaps}, tol {RESCALE_LOSS}), final parameters "
+                             f"{dist} apart (tol {RESCALE_PARAMS})")
+    say("rescale", f"{TRAIN_ARCH} bf16 B={REC_B} S={REC_S}: {big} 4 ranks steps 0-1, saved; "
+                   f"restored on {small} (2 ranks; every block of {checked[0]} leaves bit for "
+                   f"bit the saved tree's, on each rank) step 2, saved; restored on {back} "
+                   f"step 3.  Losses uninterrupted {[round(x, 6) for x in straight]}, re-scaled "
+                   f"steps 2-3 {[round(x, 6) for x in resc]}: gaps {gaps[0]:.2e}, "
+                   f"{gaps[1]:.2e} (tol {RESCALE_LOSS}); final parameters at most {dist:.4f} "
+                   f"from the uninterrupted world's (tol {RESCALE_PARAMS}) | {gpu}")
+    for dims, ranks, wall in out:
+        parts = []
+        for i, leg_res in enumerate(ranks[0]):
+            walls = _per_rank(leg_res["walls"])
+            parts.append(f"leg {i}: step walls (s) [{walls}]")
+            for key in ("restore_seconds", "check_seconds", "save_seconds",
+                        "save_params_seconds"):
+                if key in leg_res:
+                    parts.append(f"{key.replace('_seconds', '')} (s) a rank "
+                                 f"[{_per_rank([r[i][key] for r in ranks])}]")
+            parts.append(f"peak memory (GB) a rank "
+                         f"[{_per_rank([r[i]['peak_bytes'] / 1e9 for r in ranks])}]")
+        say("rescale", f"world {dims} ({math.prod(dims)} gloo ranks on the card): "
+                       f"{'; '.join(parts)}; world wall {wall:.1f} s | {gpu}")
+
+
+def phase_drill_evidence(gpu: str) -> None:
+    """13(c): ``host_drop_drill()`` gives the CPU's evidence dict."""
+    from repro_torch.runtime import host_drop_drill
+
+    fresh_planner()
+    ev = host_drop_drill()
+    import hashlib
+
+    digest = hashlib.sha256(json.dumps(ev, sort_keys=True).encode()).hexdigest()
+    picked = {k: ev[k] for k in DRILL_EVIDENCE}
+    if digest != DRILL_EVIDENCE_SHA or picked != DRILL_EVIDENCE:
+        raise AssertionError(f"host_drop_drill evidence differs from the CPU's: "
+                             f"{json.dumps(ev, sort_keys=True)}")
+    say("recovery", f"host_drop_drill evidence equals the CPU's (sha256 {digest[:16]}): "
+                    f"{picked}, backoff delays {ev['backoff_delays']} | {gpu}")
+    fresh_planner()
+
+
+def phase_mesh_drills(gpu: str, one_card_lines: list) -> None:
+    """13(d): serve's degradation and shed drills on mesh (2, 1) at full
+    width, against the same world's run without them and phase 10's
+    one-device lines."""
+    from repro_torch.launch import serve
+
+    cfg = serve_config(DRILL_ARCH)
+    B, P, N = B_SERVE, P_SERVE, N_SERVE
+    kw = dict(batch=B, prompt_len=P, new_tokens=N, seed=0, device="cuda",
+              mesh_shape=MESH_DRILL)
+    plain, drilled = [], []
+    fresh_planner()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = serve.run(cfg, report=plain, **kw)
+    gen = serve.run(cfg, degrade_at=DEGRADE_AT, fail_at=FAIL_AT, fail_mode="shed",
+                    report=drilled, **kw)
+    check_shed("mesh shed", gen, B, FAIL_AT)
+    if not np.array_equal(gen[:B - 1], base[:B - 1]):
+        raise AssertionError(f"mesh shed: rows 0..{B - 2} differ from the run without drills")
+    not_plan = lambda lines: [ln for ln in lines if DRILL_LINE.match(ln)  # noqa: E731
+                              and not ln.startswith("[serve] per-step plan")]
+    lines = [not_plan(r["lines"]) for r in drilled]
+    if any(ln != not_plan(one_card_lines) for ln in lines):
+        raise AssertionError(f"mesh drill lines {lines} differ from phase 10's "
+                             f"{not_plan(one_card_lines)}")
+    counters = [r["metrics"]["counters"] for r in drilled]
+    if any(c != counters[0] for c in counters):
+        raise AssertionError(f"the ranks' counters differ: {counters}")
+    for ln in (l for l in drilled[0]["lines"] if DRILL_LINE.match(l)):
+        say("recovery", f"mesh {MESH_DRILL}: {ln}")
+    steps = drilled[0]["step_seconds"]
+    say("recovery", f"{cfg.name} B={B} prompt={P} new={N} over {len(drilled)} gloo ranks (mesh "
+                    f"{MESH_DRILL}), degradation at step {DEGRADE_AT}, a shed at {FAIL_AT}: "
+                    f"drill lines equal phase 10's one-device ones but for the plan; rows "
+                    f"0..{B - 2} equal the run without drills; every rank's counters alike; "
+                    f"eager steps (ms) {_per_rank([x * 1e3 for x in steps], '{:.2f}')}; without "
+                    f"drills median {statistics.median(plain[0]['step_seconds']) * 1e3:.2f} ms; "
+                    f"flash launches a rank {[r['launches']['flash_attention'][0] for r in drilled]}"
+                    f"; peak memory a rank (GB) "
+                    f"{_per_rank([r['peak_bytes'] / 1e9 for r in drilled])} | {gpu}")
+    fresh_planner()
+
+
+def phase_recovery(gpu: str, one_card_lines: list) -> None:
+    """Phase 13: recovery and elastic re-scale (see the module docstring)."""
+    t0 = time.perf_counter()
+    phase_recovery_full(gpu)
+    phase_rescale(gpu)
+    phase_drill_evidence(gpu)
+    phase_mesh_drills(gpu, one_card_lines)
+    say("recovery", f"ok in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
-    gpu = phase_device()
-    phase_build()
-    fa_errs = phase_kernel_cases()
-    wkv_err, wkv_parts = phase_wkv_cases()
-    lru_err = phase_lru_cases()
-    for arch in ARCHS:
-        phase_parity(arch)
-    served = {arch: phase_serve(gpu, arch) for arch in ARCHS}
+    t_start = time.perf_counter()
+    walls = {}
+
+    def timed(name: str, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    gpu = timed("1 device", phase_device)
+    timed("2 build", phase_build)
+    fa_errs = timed("3 kernels (flash)", phase_kernel_cases)
+    wkv_err, wkv_parts = timed("3 kernels (wkv6)", phase_wkv_cases)
+    lru_err = timed("3 kernels (rglru)", phase_lru_cases)
+    timed("4 parity", lambda: [phase_parity(arch) for arch in ARCHS])
+    served = timed("5 serve", lambda: {arch: phase_serve(gpu, arch) for arch in ARCHS})
     launches = {arch: counts for arch, (counts, _) in served.items()}
     in_encoder = {arch: enc for arch, (_, enc) in served.items()}
-    phase_ring(gpu)
-    for arch in ARCHS:
-        phase_breakdown(gpu, arch)
-    rows = [phase_timing(gpu, launches, in_encoder, fa_errs),
-            phase_wkv_timing(gpu, launches, wkv_err, wkv_parts),
-            phase_lru_timing(gpu, launches, lru_err)]
-    train_losses = phase_train(gpu)
-    phase_drills(gpu)
-    phase_fit(gpu)
-    phase_collectives(gpu)
-    phase_ranks(gpu, train_losses[TRAIN_SETTINGS[0][0]][0])
+    timed("5 ring", phase_ring, gpu)
+    timed("6 breakdown", lambda: [phase_breakdown(gpu, arch) for arch in ARCHS])
+    rows = timed("7 timing", lambda: [phase_timing(gpu, launches, in_encoder, fa_errs),
+                                      phase_wkv_timing(gpu, launches, wkv_err, wkv_parts),
+                                      phase_lru_timing(gpu, launches, lru_err)])
+    train_losses = timed("8 train", phase_train, gpu)
+    shed_lines = timed("10 drills", phase_drills, gpu)
+    timed("9 fit", phase_fit, gpu)
+    timed("11 collectives", phase_collectives, gpu)
+    timed("12 ranks", phase_ranks, gpu, train_losses[TRAIN_SETTINGS[0][0]][0])
+    timed("13 recovery", phase_recovery, gpu, shed_lines)
+    say("time", f"phase walls (s) {', '.join(f'{k} {v:.1f}' for k, v in walls.items())}; "
+                f"the script {time.perf_counter() - t_start:.1f} s | {gpu}")
     print(json.dumps({"kernels": rows}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

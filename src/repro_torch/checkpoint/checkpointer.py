@@ -18,9 +18,14 @@ npz cannot hold bfloat16, so a bf16 leaf is stored as its bits in
 Properties the tests assert: save -> restore is bitwise identical;
 interrupted writes (no ``.complete``) are ignored by ``latest_step``; with
 ``block=False`` the device -> host copy is made at once (a consistent
-snapshot) and file I/O runs on a background thread.  The JAX package's
-reshard-on-restore has no counterpart until distribution is ported:
-``restore`` places each leaf on the device and dtype of ``like``'s.
+snapshot) and file I/O runs on a background thread.
+
+Leaves are stored whole, so a checkpoint restores on any mesh
+(reshard-on-restore, the elastic re-scale path): ``restore(step, like,
+shardings=...)`` reads one leaf at a time and keeps only this rank's block
+of it (``Sharding.shard``), with no collective.  ``like`` may be a tree of
+meta tensors (``param_shapes``); its leaves then go to ``device``.  Each
+stored leaf's shape must be ``like``'s, or ``restore`` raises naming it.
 """
 from __future__ import annotations
 
@@ -28,12 +33,13 @@ import json
 import os
 import shutil
 import threading
-from typing import Any, List, Optional, Tuple
+import warnings
+from typing import Any, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.models.convert import tree_unflatten
+from repro_torch.models.convert import tree_leaves, tree_unflatten
 
 
 def _flatten_with_names(tree, prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
@@ -61,12 +67,15 @@ def _to_host(t: torch.Tensor) -> Tuple[str, np.ndarray]:
     return str(a.dtype), a
 
 
-def _from_host(a: np.ndarray, dtype_name: Optional[str], like: torch.Tensor) -> torch.Tensor:
-    if dtype_name == "bfloat16":
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(np.array(a))
-    return t.to(device=like.device, dtype=like.dtype)
+def _from_host(a: np.ndarray, dtype_name: Optional[str]) -> torch.Tensor:
+    """A tensor over ``a``'s buffer, no copy (the caller copies: an npz
+    member is read into a read-only buffer)."""
+    a = np.require(a, requirements="C")  # ascontiguousarray makes a 0-d leaf 1-d
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
+        if dtype_name == "bfloat16":
+            return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+        return torch.from_numpy(a)
 
 
 class Checkpointer:
@@ -141,14 +150,42 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like: Any) -> Any:
-        """Restore into the structure of ``like`` (a tree of tensors): each
-        leaf on the device and in the dtype of ``like``'s leaf there."""
+    def restore(self, step: int, like: Any, shardings: Any = None, device=None,
+                coord: Optional[Mapping[str, int]] = None) -> Any:
+        """Restore into the structure of ``like`` (a tree of tensors), each
+        leaf a new tensor in the dtype of ``like``'s leaf, on its device, or
+        on ``device`` where ``like``'s leaf is on the meta device.
+
+        ``shardings`` (a tree of ``sharding.specs.Sharding`` of ``like``'s
+        structure) keeps only this rank's block of each leaf, by the rank's
+        coordinates on the sharding's mesh or by ``coord``: the leaves are
+        read one at a time and no collective runs.  A stored leaf whose
+        shape differs from ``like``'s raises a ``ValueError`` naming it."""
         path = os.path.join(self.directory, f"step_{step:08d}")
         with open(os.path.join(path, "meta.json")) as f:
             meta = json.load(f)
         dtypes = dict(zip(meta["names"], meta["dtypes"]))
+        named = _flatten_with_names(like)
+        blocks = [None] * len(named) if shardings is None else tree_leaves(shardings)
+        if len(blocks) != len(named):
+            raise ValueError(f"restore: {len(blocks)} shardings for {len(named)} leaves")
+        leaves = []
         with np.load(os.path.join(path, "arrays.npz")) as data:
-            leaves = [_from_host(data[name], dtypes.get(name), leaf)
-                      for name, leaf in _flatten_with_names(like)]
+            for (name, leaf), sharding in zip(named, blocks):
+                a = data[name]
+                if tuple(a.shape) != tuple(leaf.shape):
+                    raise ValueError(f"restore: leaf {name!r} of step {step} has shape "
+                                     f"{tuple(a.shape)}, the tree to fill {tuple(leaf.shape)}")
+                if leaf.device.type == "meta":
+                    if device is None:
+                        raise ValueError(f"restore: leaf {name!r} is on the meta device "
+                                         "and no device was given")
+                    where = device
+                else:
+                    where = leaf.device
+                t = _from_host(a, dtypes.get(name))
+                if sharding is not None:
+                    t = sharding.shard(t, coord)  # a new tensor of the block alone
+                leaves.append(t.to(device=where, dtype=leaf.dtype, copy=sharding is None))
+                del a, t
         return tree_unflatten(like, leaves)

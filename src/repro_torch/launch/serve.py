@@ -38,8 +38,12 @@ world already initialised under torchrun).  Each decode step's plan shape
 is the mesh's.  A world's collectives run on the host or outside any
 captured graph, so every decode step of a world runs eagerly
 (``decode_step``), and the log says so.  The generations are gathered to
-rank 0, which prints the lines.  The drills stay on one device: under a
-mesh they are refused.
+rank 0, which prints the lines.  The drills run on every rank of a world:
+their events depend only on the step and the seed, so each rank's registry,
+plan cache and counters stay alike.  A shed gathers the caches over the
+data axes, cuts them to B-1 and takes the rank's slot of them again (the
+whole batch on every rank where the data axes do not divide B-1, as the
+reference's ``_dp_spec`` replicates it).
 """
 from __future__ import annotations
 
@@ -71,12 +75,19 @@ from repro_torch.launch.mesh import (
     run_entry_world,
 )
 from repro_torch.models import decode as dec
+from repro_torch.models.convert import tree_map2
 from repro_torch.models.moe import check_ep_layout
-from repro_torch.models.transformer import DistContext, batch_gather, batch_slot, init_params
+from repro_torch.models.transformer import (
+    DistContext,
+    _dp_spec,
+    batch_gather,
+    batch_slot,
+    init_params,
+)
 from repro_torch.obs import drift, health, metrics, trace
 from repro_torch.runtime.elastic import shrink_and_replan
 from repro_torch.runtime.scenarios import HOST_DROP, Scenario, ScenarioInjector
-from repro_torch.sharding.specs import tp_adapt
+from repro_torch.sharding.specs import PartitionSpec, Sharding, tp_adapt
 
 # the JAX loop's plan shape on one device (its build_mesh(""))
 PLAN_SHAPE = {"data": 1, "model": 1}
@@ -200,20 +211,16 @@ def run(cfg, *, batch: int, prompt_len: int, new_tokens: int, seed: int, device,
     in_world = tdist.is_initialized()
     dims, names = mesh_dims(mesh_shape, tdist.get_world_size() if in_world else 1)
     world = math.prod(dims)
+    drill_kw = dict(degrade_at=degrade_at, degrade_tier=degrade_tier,
+                    degrade_factor=degrade_factor, fail_at=fail_at, fail_host=fail_host,
+                    fail_mode=fail_mode, scenario=scenario)
     if world > 1:
-        drills = {"--degrade-at": degrade_at >= 0, "--fail-at": fail_at >= 0,
-                  "--scenario": bool(scenario)}
-        if any(drills.values()):
-            raise ValueError(
-                f"{', '.join(k for k, v in drills.items() if v)} under --mesh-shape "
-                f"{mesh_shape}: the drills run on one device; under a mesh they need fault "
-                "recovery and reshard-on-restore (ROADMAP.md Queue 1 item 4)")
         cfg, ep_shards = tp_adapt(cfg, dict(zip(names, dims)).get("model", 1))
         if cfg.is_moe:  # before any collective
             check_ep_layout(cfg, dict(zip(names, dims))["model"], ep_shards)
         kw = dict(batch=batch, prompt_len=prompt_len, new_tokens=new_tokens, seed=seed,
                   trace_path=trace_path, metrics_out=metrics_out, health_out=health_out,
-                  want_report=report is not None)
+                  want_report=report is not None, drills=drill_kw)
         if in_world:
             out = [world_serve(device, cfg, mesh_shape, ep_shards, kw)]
         else:
@@ -250,15 +257,14 @@ def run(cfg, *, batch: int, prompt_len: int, new_tokens: int, seed: int, device,
               f"({B * P_len / t_prefill:.0f} tok/s)")
 
         seen = None
-        if report is not None:  # every step's logits, copied on the device
-            seen = logits.new_empty((N + 1,) + tuple(logits.shape))
+        if report is not None:  # every step's logits, copied on the device; NaN once shed
+            seen = logits.new_full((N + 1,) + tuple(logits.shape), float("nan"))
             seen[0].copy_(logits)
         steps = dec.DecodeGraph(cfg, params, caches, logits.argmax(dim=-1)[:, None], P_len, N)
         del caches  # the graph holds them; a shed replaces them
-        drills = _Drills(cfg, capacity, steps, degrade_at=degrade_at,
-                         degrade_tier=degrade_tier, degrade_factor=degrade_factor,
-                         fail_at=fail_at, fail_host=fail_host, fail_mode=fail_mode,
-                         scenario=scenario)
+        drills = _Drills(lambda: steps.batch,
+                         lambda b: steps.shed(dec.cut_caches(cfg, steps.caches, b, capacity)),
+                         print, **drill_kw)
         token_bytes = float(B * cfg.d_model) * 2  # bf16 activations per token
         t0 = time.perf_counter()
         with trace.span("decode", new_tokens=N):
@@ -270,7 +276,7 @@ def run(cfg, *, batch: int, prompt_len: int, new_tokens: int, seed: int, device,
                             PLAN_SHAPE, token_bytes * (P_len + i + 1))
                     logits = steps.step()
                     if seen is not None:
-                        seen[i + 1].copy_(logits)
+                        seen[i + 1, :steps.batch].copy_(logits)
                 metrics.inc("serve.decode.tokens", steps.batch)
             _check_finite(logits, "decode")  # waits for the device
         t_dec = time.perf_counter() - t0
@@ -362,13 +368,40 @@ def _peak_bytes(device: torch.device) -> int:
     return torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
 
 
+def _cache_batch_axes(cfg, capacity: int):
+    """Each cache leaf's batch axis (leaves are stacked over a group's
+    count, so it is not the first), None for a leaf without one (a ring's
+    positions): the axis whose size follows the batch on the meta device."""
+    one = dec.init_caches(cfg, 1, capacity, device="meta")
+    two = dec.init_caches(cfg, 2, capacity, device="meta")
+    return tree_map2(lambda a, b: next((d for d in range(a.dim()) if a.shape[d] != b.shape[d]),
+                                       None), one, two)
+
+
+def _cache_sharding(dist: DistContext, axis: int, batch: int, ndim: int) -> Sharding:
+    """A cache leaf's slot at ``batch`` live rows: its batch axis over the
+    data axes where they divide ``batch``, else the whole leaf (``_dp_spec``)."""
+    entries = [None] * ndim
+    entries[axis] = _dp_spec(dist, batch, 1)[0]
+    return Sharding(dist.mesh, PartitionSpec(*entries))
+
+
 def world_serve(device: torch.device, cfg, mesh_shape: str, ep_shards: int,
                 kw: dict) -> tuple:
     """One rank's serve run in a world: (the whole generations, this
-    rank's report or None)."""
+    rank's report or None).  The report adds the metrics snapshot and the
+    lines the rank logs (rank 0 prints them)."""
     mesh = build_mesh(mesh_shape, device.type)
     dist = DistContext(mesh=mesh, dp_axes=dp_axes_of(mesh) or ("data",), ep_shards=ep_shards)
     log = tdist.get_rank() == 0
+    said = []
+
+    def say(*parts) -> None:
+        line = " ".join(str(p) for p in parts)
+        said.append(line)
+        if log:
+            print(line, flush=True)
+
     B, P_len, N, seed = kw["batch"], kw["prompt_len"], kw["new_tokens"], kw["seed"]
     capacity = P_len + N
     plan_shape = mesh_axes(mesh)
@@ -391,7 +424,7 @@ def world_serve(device: torch.device, cfg, mesh_shape: str, ep_shards: int,
 
     was_on = kernels_enabled()
     use_kernels(True)
-    seen = []
+    segments, seen = [], []  # the report's logits: whole ones per layout, this rank's
     try:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
@@ -403,55 +436,90 @@ def world_serve(device: torch.device, cfg, mesh_shape: str, ep_shards: int,
             _check_finite(logits, "prefill")
         t_prefill = time.perf_counter() - t0
         metrics.observe("serve.prefill.seconds", t_prefill)
-        if log:
-            print(f"[serve] prefill {B}x{P_len} in {t_prefill:.3f}s "
-                  f"({B * P_len / t_prefill:.0f} tok/s) on {tdist.get_world_size()} ranks, "
-                  f"mesh {plan_shape}", flush=True)
+        say(f"[serve] prefill {B}x{P_len} in {t_prefill:.3f}s "
+            f"({B * P_len / t_prefill:.0f} tok/s) on {tdist.get_world_size()} ranks, "
+            f"mesh {plan_shape}")
         token_bytes = float(B * cfg.d_model) * 2  # bf16 activations per token
         tok = logits.argmax(dim=-1, keepdim=True)
-        gen = torch.empty((tok.shape[0], N), dtype=torch.int32, device=device)
-        seen.append(logits)
+        gen = torch.full((tok.shape[0], N), -1, dtype=torch.int32, device=device)
+        whole = torch.full((B, N), -1, dtype=torch.int32, device=device)
+        live = B
+        if kw["want_report"]:
+            seen.append(logits)
+        axes = _cache_batch_axes(cfg, capacity)
+
+        def close_segment() -> None:
+            if seen:  # (steps, B, V), NaN in rows already shed
+                got = batch_gather(dist, torch.stack(seen, 1), live)
+                seg = got.new_full((got.shape[1], B, got.shape[2]), float("nan"))
+                seg[:, :live] = got.transpose(0, 1)
+                segments.append(seg)
+                seen.clear()
+
+        def shed(new_b: int) -> None:
+            nonlocal caches, tok, gen, live
+            close_segment()
+            full = tree_map2(lambda c, ax: c if ax is None else
+                             _cache_sharding(dist, ax, live, c.dim()).gather(c), caches, axes)
+            cut = dec.cut_caches(cfg, full, new_b, capacity)
+            del full
+            caches = tree_map2(lambda c, ax: c if ax is None else
+                               _cache_sharding(dist, ax, new_b, c.dim()).shard(c), cut, axes)
+            tok = batch_slot(dist, batch_gather(dist, tok, live)[:new_b])
+            rows = batch_gather(dist, gen, live)
+            whole[:live] = rows
+            gen = batch_slot(dist, rows[:new_b])
+            live = new_b
+
+        drills = _Drills(lambda: live, shed, say, **kw["drills"])
         walls = []
         t0 = time.perf_counter()
         with trace.span("decode", new_tokens=N):
             for i in range(N):
                 t1 = time.perf_counter()
                 with trace.span("decode.step", token=i):
+                    gen[:, i] = tok[:, 0]
+                    drills.before_step(i)
                     with trace.span("plan"):
                         collective = select_allreduce_strategy(
                             plan_shape, token_bytes * (P_len + i + 1))
-                    gen[:, i] = tok[:, 0]
                     logits, caches = dec.decode_step(cfg, params, caches, tok, P_len + i,
                                                      dist=dist)
                     tok = logits.argmax(dim=-1, keepdim=True)
-                    seen.append(logits)
+                    if kw["want_report"]:
+                        seen.append(logits)
                     _check_finite(logits, "decode")  # waits for the device
                 walls.append(time.perf_counter() - t1)
-                metrics.inc("serve.decode.tokens", B)
+                metrics.inc("serve.decode.tokens", live)
         t_dec = time.perf_counter() - t0
     finally:
         use_kernels(was_on)
     metrics.observe("serve.decode.seconds", t_dec)
-    whole = batch_gather(dist, gen, B)
+    whole[:live] = batch_gather(dist, gen, live)
+    close_segment()
+    say(f"[serve] per-step plan: {collective}")
+    say(f"[serve] decode ran eagerly on every step: a world's collectives run outside "
+        f"a CUDA graph ({tdist.get_world_size()} ranks)")
+
+    # the last payload through the event engine, as on one device
+    with trace.span("simulate"):
+        bottleneck = explain_bottleneck(None, token_bytes * (P_len + N), n_msgs=1)
+    metrics.gauge("serve.simulated_makespan_s", bottleneck.makespan)
     if tracer is not None:
         trace.stop()
     rep = None
     if kw["want_report"]:
         spans = [(e["name"], e.get("args", {}).get("which", ""), e["dur"] * 1e-6)
                  for e in tracer.events if e.get("ph") == "X" and e.get("pid") == 0]
-        rep = {"logits": batch_gather(dist, torch.stack(seen), B).float(),
+        rep = {"logits": torch.cat(segments).float(),
                "prefill_seconds": t_prefill, "decode_seconds": t_dec, "step_seconds": walls,
                "launches": launch_counts(), "peak_bytes": _peak_bytes(device),
-               "spans": spans, "routes": routes}
+               "spans": spans, "routes": routes, "metrics": metrics.to_json(), "lines": said}
+    say(f"[serve] decoded {N} tokens x {B} seqs in {t_dec:.3f}s ({B * N / t_dec:.1f} tok/s)")
+    say("[serve] sample generations (first 3 rows):")
+    for row in whole[:3].cpu().numpy():
+        say("   ", row[:16].tolist())
     if log:
-        print(f"[serve] per-step plan: {collective} (plan shape {plan_shape})")
-        print(f"[serve] decode ran eagerly on every step: a world's collectives run outside "
-              f"a CUDA graph ({tdist.get_world_size()} ranks)")
-        print(f"[serve] decoded {N} tokens x {B} seqs in {t_dec:.3f}s "
-              f"({B * N / t_dec:.1f} tok/s)")
-        print("[serve] sample generations (first 3 rows):")
-        for row in whole[:3].cpu().numpy():
-            print("   ", row[:16].tolist())
         if tracer is not None and kw["trace_path"]:
             tracer.write(kw["trace_path"])
             print(f"[serve] trace written to {kw['trace_path']} ({len(tracer.events)} events)")
@@ -463,8 +531,9 @@ def world_serve(device: torch.device, cfg, mesh_shape: str, ep_shards: int,
                 json.dump(health.monitor().snapshot(), f, indent=2)
                 f.write("\n")
             print(f"[serve] health written to {kw['health_out']}")
-        print("[serve] metrics:", metrics.summary_line(prefixes=["serve.", "plan_cache."]),
-              flush=True)
+    say("[serve] metrics:",
+        metrics.summary_line(prefixes=["serve.", "plan_cache.", "lowering_memo.",
+                                       "engine.", "health.", "runtime."]))
     return whole, rep
 
 
@@ -481,12 +550,13 @@ class _Drills:
     (``fail_at``/``fail_host`` and a scenario's ``host_drop`` events): in
     shrink mode the machine's surviving-mesh spec is re-registered
     (``runtime.elastic.shrink_and_replan``); in shed mode the last in-flight
-    sequence is dropped (``DecodeGraph.shed`` on caches cut to B-1)."""
+    sequence is dropped: ``shed(B - 1)`` with ``batch()`` the live batch.
+    ``say`` logs a line."""
 
-    def __init__(self, cfg, capacity: int, steps: "dec.DecodeGraph", *, degrade_at: int,
-                 degrade_tier: str, degrade_factor: float, fail_at: int, fail_host: int,
-                 fail_mode: str, scenario: str):
-        self.cfg, self.capacity, self.steps = cfg, capacity, steps
+    def __init__(self, batch, shed, say, *, degrade_at: int, degrade_tier: str,
+                 degrade_factor: float, fail_at: int, fail_host: int, fail_mode: str,
+                 scenario: str):
+        self.batch, self.shed, self.say = batch, shed, say
         self.degrade_at, self.degrade_tier = degrade_at, degrade_tier
         self.degrade_factor, self.fail_mode = degrade_factor, fail_mode
         self.machine = active_machine()
@@ -502,7 +572,7 @@ class _Drills:
                     self.drop_at.setdefault(ev.at, []).append(ev.host)
             self.injector = ScenarioInjector(sc, machine=self.machine,
                                              spec=get_machine(self.machine))
-            print(f"[serve] scenario {sc.name!r} (seed {sc.seed}): {len(sc.events)} events")
+            say(f"[serve] scenario {sc.name!r} (seed {sc.seed}): {len(sc.events)} events")
         if fail_at >= 0:
             self.drop_at.setdefault(fail_at, []).append(fail_host)
 
@@ -524,9 +594,9 @@ class _Drills:
         if lk.state == health.DEGRADED and not self.refit_done:
             self.refit_done = True
             fit, _ = health.refit_degraded(self.degrade_spec, lk, register_as=self.machine)
-            print(f"[serve] link {lk.key} degraded at decode step {i} "
-                  f"(detected in {lk.detection_records} records); "
-                  f"refit beta x{fit.beta_scale:.1f}, replanning")
+            self.say(f"[serve] link {lk.key} degraded at decode step {i} "
+                     f"(detected in {lk.detection_records} records); "
+                     f"refit beta x{fit.beta_scale:.1f}, replanning")
 
     def _host_drop(self, step: int, host: int) -> None:
         metrics.inc("runtime.elastic.host_drops")
@@ -536,22 +606,22 @@ class _Drills:
             shrunk = shrink_and_replan(self.machine, [host])
             metrics.inc("runtime.elastic.replans")
             survivors = int(shrunk.facts["n_gpus"])
-            print(f"[serve] host {host} lost at decode step {step}; "
-                  f"shrunk {self.machine!r} to {survivors} ranks "
-                  f"(fingerprint {shrunk.fingerprint[:12]}), replanning")
+            self.say(f"[serve] host {host} lost at decode step {step}; "
+                     f"shrunk {self.machine!r} to {survivors} ranks "
+                     f"(fingerprint {shrunk.fingerprint[:12]}), replanning")
             trace.end_interval(f"host_drop:{host}", iid, cat="elastic", survivors=survivors)
             return
-        new_b = self.steps.batch - 1
+        new_b = self.batch() - 1
         if new_b < 1:
-            print(f"[serve] host {host} lost at decode step {step}; "
-                  f"batch already minimal, continuing")
+            self.say(f"[serve] host {host} lost at decode step {step}; "
+                     f"batch already minimal, continuing")
             trace.end_interval(f"host_drop:{host}", iid, cat="elastic")
             return
-        self.steps.shed(dec.cut_caches(self.cfg, self.steps.caches, new_b, self.capacity))
+        self.shed(new_b)
         metrics.inc("runtime.elastic.shed")
         metrics.gauge("serve.batch.live", new_b)
-        print(f"[serve] host {host} lost at decode step {step}; "
-              f"shed one sequence (batch {new_b + 1} -> {new_b})")
+        self.say(f"[serve] host {host} lost at decode step {step}; "
+                 f"shed one sequence (batch {new_b + 1} -> {new_b})")
         trace.end_interval(f"host_drop:{host}", iid, cat="elastic", batch=new_b)
 
 

@@ -26,8 +26,10 @@ and AdamW moments sharded by ``param_shardings`` and ``opt_shardings``, the
 batch's slot over the data axes, and the sharded ``train_step``.  Rank 0
 prints the lines.  A checkpoint of a world is the gathered tree, written
 by rank 0 in the reference's format, the same files a one-device run
-writes; a resume restores it on every rank and keeps each rank's blocks,
-on the same mesh (another mesh's resume waits for reshard-on-restore).
+writes.  A resume reads it on every rank, one leaf at a time, and keeps the
+rank's blocks (``Checkpointer.restore(..., shardings=...)``, no
+collective), so a checkpoint written on one mesh resumes on another, or on
+one device, whose axes divide its shapes.
 """
 from __future__ import annotations
 
@@ -162,25 +164,24 @@ def run(cfg: ModelConfig, run_cfg: RunConfig, *, seed: int, steps: int, device,
     opt_sh = None if dist is None else adamw.AdamWState(
         step=specs.Sharding(dist.mesh, specs.P()), mu=shardings, nu=shardings)
 
-    def whole(tree_p, tree_o):
-        if dist is None:
-            return {"params": tree_p, "opt": tree_o}
-        return {"params": tree_map2(lambda s, t: s.gather(t), shardings, tree_p),
-                "opt": tree_map2(lambda s, t: s.gather(t), opt_sh, tree_o)}
-
     def save(step: int, block: bool) -> None:
-        tree = whole(params, opt)  # collective in a world: every rank gathers
+        tree = {"params": params, "opt": opt}
+        if dist is not None:  # collective: every rank gathers, rank 0 writes
+            tree = specs.gather_to_host({"params": shardings, "opt": opt_sh}, tree, keep=log)
         if log:
             ckpt.save(step, tree, block=block)
 
     start = 0
+    if ckpt and dist is not None:
+        ckpt.wait()  # rank 0's write lands before any rank looks for it
+        tdist.barrier()
     if ckpt and ckpt.latest_step() is not None:
         start = ckpt.latest_step()
-        blob = ckpt.restore(start, whole(params, opt))
+        shapes = param_shapes(cfg, 1 if dist is None else dist.ep_shards)
+        like = {"params": shapes, "opt": adamw.init_state(shapes)}
+        blocks = None if dist is None else {"params": shardings, "opt": opt_sh}
+        blob = ckpt.restore(start, like, shardings=blocks, device=device)
         params, opt = blob["params"], blob["opt"]
-        if dist is not None:
-            params = tree_map2(lambda s, t: s.shard(t), shardings, params)
-            opt = tree_map2(lambda s, t: s.shard(t), opt_sh, opt)
         if log:
             print(f"[train] resumed from step {start}")
 

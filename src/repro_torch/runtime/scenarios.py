@@ -315,8 +315,8 @@ def generate(
 class ScenarioInjector:
     """Adapts a scenario to the live runtime loops.
 
-    * ``fault_hook`` plugs into a recovery loop (the reference's
-      ``run_with_recovery``, not ported yet) — it raises
+    * ``fault_hook`` plugs into a recovery loop
+      (:func:`repro_torch.runtime.fault.run_with_recovery`) — it raises
       :class:`~repro_torch.runtime.fault.HostLost` the first time each
       ``host_drop`` step is reached.  Replays after a restart revisit the
       step without re-raising (the host is already gone), matching how a

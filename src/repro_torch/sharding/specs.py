@@ -132,6 +132,22 @@ class Sharding:
         return math.prod(n for a, n in sizes.items() if a not in used)
 
 
+def gather_to_host(shardings: Any, tree: Any, keep: bool = True) -> Any:
+    """The whole tree from this rank's blocks, gathered one leaf at a time
+    (collective: every rank of the mesh calls it), each whole leaf moved to
+    the host as soon as it is whole where ``keep``, else dropped (its leaf
+    None): a full-width tree never sits whole on a card.  The gather runs
+    where the blocks lie: on the host, its transposes would run on one
+    thread (4x slower at full width on one H100)."""
+    from repro_torch.models.convert import tree_map2
+
+    def one(s: Sharding, t: torch.Tensor):
+        whole = s.gather(t.detach())
+        return whole.cpu() if keep else None
+
+    return tree_map2(one, shardings, tree)
+
+
 # --------------------------------------------------------------------------
 # Config adaptation for a TP width.
 # --------------------------------------------------------------------------

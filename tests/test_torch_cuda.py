@@ -594,3 +594,74 @@ def test_serve_across_ranks_on_card_equals_one_card_device(cuda_device):
     for rep in ranks:
         np.testing.assert_allclose(rep["logits"], one[0]["logits"], rtol=1e-4, atol=1e-4)
         assert rep["launches"]["flash_attention"] == (adapted.n_layers, 0)
+
+
+def test_restore_onto_the_card_with_shardings(cuda_device, tmp_path):
+    """A checkpoint written from the host restores onto the card into a
+    rank's blocks on (2, 4), from a tree of meta tensors: each block on the
+    card, bit for bit the host tree's block."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.models.convert import tree_leaves, tree_map2
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.optim import init_state
+    from repro_torch.sharding.specs import opt_shardings, param_shardings
+
+    cfg = smoke_config("llama3.2-1b")
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    opt = init_state(params)
+    Checkpointer(str(tmp_path)).save(2, {"params": params, "opt": opt})
+    shapes = param_shapes(cfg)
+    mesh = {"data": 2, "model": 4}
+    p_sh = param_shardings(shapes, mesh)
+    for coord in ({"data": 0, "model": 0}, {"data": 1, "model": 3}):
+        blob = Checkpointer(str(tmp_path)).restore(
+            2, {"params": shapes, "opt": init_state(shapes)},
+            shardings={"params": p_sh, "opt": opt_shardings(shapes, mesh)},
+            device=cuda_device, coord=coord)
+        want = tree_leaves(tree_map2(lambda s, t: s.shard(t, coord), p_sh, params))
+        for got, w in zip(tree_leaves(blob["params"]), want):
+            assert got.device.type == "cuda" and torch.equal(got.cpu(), w)
+        assert blob["opt"].step.device.type == "cuda"
+
+
+def test_recovery_on_the_card_is_bitwise(cuda_device, tmp_path):
+    """Smoke llama (f32) trained on the card under ``run_with_recovery``
+    through a fault and a host loss ends on the uninterrupted run's
+    parameters and moments, bit for bit."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models.convert import tree_leaves
+    from repro_torch.models.steps import train_step
+    from repro_torch.optim import init_state
+    from repro_torch.runtime import HostLost, InjectedFault, run_with_recovery
+
+    cfg = dataclasses.replace(smoke_config("llama3.2-1b"), dtype="float32")
+    run = RunConfig(model=cfg, seq_len=32, global_batch=4, warmup_steps=2, total_steps=6)
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=32, global_batch=4, seed=0)
+
+    def batch_fn(s):
+        return {"tokens": torch.from_numpy(data.batch(s)["tokens"]).to(cuda_device)}
+
+    def fresh():
+        p = init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0))
+        return p, init_state(p)
+
+    p, o = fresh()
+    for s in range(6):
+        p, o, _ = train_step(cfg, run, p, o, batch_fn(s))
+    faults = {2: InjectedFault("late"), 4: HostLost(1)}
+
+    def hook(s):
+        if s in faults:
+            raise faults.pop(s)
+
+    p0, o0 = fresh()
+    state = run_with_recovery(step_fn=lambda a, b, c: train_step(cfg, run, a, b, c),
+                              batch_fn=batch_fn, init_params=p0, init_opt=o0,
+                              checkpointer=Checkpointer(str(tmp_path)), total_steps=6,
+                              checkpoint_every=2, fault_hook=hook)
+    assert state.step == 6 and not faults
+    got = tree_leaves(state.params) + tree_leaves(state.opt_state)
+    want = tree_leaves(p) + tree_leaves(o)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
