@@ -112,12 +112,23 @@ Phases, each printing its own lines, any failure ending the run non-zero:
                evidence equal to the CPU's; (d) serve's degradation and shed
                drills on mesh (2, 1) at full width: phase 10's drill lines,
                the unshed rows of the run without drills, the eager steps.
+ 14. dryrun  — the dry-run and the cost counter: ``python -m
+               repro_torch.launch.dryrun`` on llama3.2-1b ``decode_32k``
+               ``single`` in a child process (a fake world of 256 ranks on
+               meta tensors; this machine has no JAX), its record's
+               compute, memory and ICI/DCN bytes; the counter over one
+               full-width llama3.2-1b prefill on the card (B=4, prompt
+               512, bf16, kernels off), its matmul FLOPs within 1% of
+               torch.profiler's own estimate for the same call, both beside
+               2·N·tokens; and the counter refusing the same prefill with
+               the kernels on (their work is invisible to it).
 The second-to-last line is the card as nvidia-smi names it, the last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of ``repro``.
 """
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
@@ -129,6 +140,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2490,6 +2502,108 @@ def phase_mesh_drills(gpu: str, one_card_lines: list) -> None:
     fresh_planner()
 
 
+DRYRUN_CELL = ("llama3.2-1b", "decode_32k", "single")
+DRYRUN_TIMEOUT = 300.0
+COUNT_ARCH, COUNT_B, COUNT_P = "llama3.2-1b", 4, 512
+COUNT_TOL = 0.01  # the counter's matmul FLOPs against torch.profiler's
+MATMUL_EVENTS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+
+
+def dryrun_cell() -> tuple:
+    """(The record of ``DRYRUN_CELL`` from ``python -m
+    repro_torch.launch.dryrun`` in a child process, the child's seconds)."""
+    t0 = time.perf_counter()
+    arch, shape, mesh = DRYRUN_CELL
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH")) if p))
+    with tempfile.TemporaryDirectory() as out:
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                               "--shape", shape, "--mesh", mesh, "--out", out],
+                              cwd=ROOT, env=env, capture_output=True, text=True,
+                              timeout=DRYRUN_TIMEOUT)
+        if proc.returncode != 0:
+            raise AssertionError(f"dryrun {DRYRUN_CELL} exited {proc.returncode}: "
+                                 f"{proc.stderr[-3000:]}")
+        with open(os.path.join(out, f"{arch}__{shape}__{mesh}__baseline.json")) as f:
+            return json.load(f), time.perf_counter() - t0
+
+
+def counted_prefill(cfg, params, tokens) -> tuple:
+    """(the cost counter's count, torch.profiler's matmul FLOPs) of one
+    prefill of ``tokens``, counted and profiled as two calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.hlo_analysis import trace_cost
+    from repro_torch.models import steps
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if tokens.is_cuda else [])
+    with torch.no_grad():
+        counted = trace_cost(steps.prefill_step, cfg, params, tokens)
+        with profile(activities=acts, with_flops=True) as prof:
+            steps.prefill_step(cfg, params, tokens)
+            if tokens.is_cuda:
+                torch.cuda.synchronize()
+    return counted, sum(e.flops for e in prof.key_averages() if e.key in MATMUL_EVENTS)
+
+
+def phase_dryrun(gpu: str) -> None:
+    """Phase 14: the dry-run and the cost counter (see the module docstring)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import use_kernels
+    from repro_torch.launch.hlo_analysis import trace_cost
+    from repro_torch.models import steps
+    from repro_torch.models.transformer import init_params
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        cell = pool.submit(dryrun_cell)  # the child traces on the host while the card counts
+        cfg = get_config(COUNT_ARCH)
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+        rng = np.random.default_rng(0)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (COUNT_B, COUNT_P))
+                                  .astype(np.int32)).cuda()
+        use_kernels(False)
+        counted, prof_flops = counted_prefill(cfg, params, tokens)
+        got = counted.cost.dot_flops
+        rel = abs(got - prof_flops) / prof_flops
+        model = 2 * cfg.param_count() * COUNT_B * COUNT_P
+        say("dryrun", f"{COUNT_ARCH} prefill B={COUNT_B} prompt={COUNT_P} bf16 on the card, "
+                      f"kernels off: the counter's dot_flops {got:.6g}, torch.profiler's matmul "
+                      f"FLOPs {prof_flops:.6g} (rel {rel:.2e}, gate {COUNT_TOL}), 2·N·tokens "
+                      f"{model:.6g}; hbm_bytes {counted.cost.hbm_bytes:.6g}, all FLOPs "
+                      f"{counted.flops:.6g}, temp bytes {counted.temp_bytes:.6g} | {gpu}")
+        if not rel <= COUNT_TOL:
+            raise AssertionError(f"the counter's matmul FLOPs {got:.6g} differ from the "
+                                 f"profiler's {prof_flops:.6g} by {rel:.2e} > {COUNT_TOL}")
+        use_kernels(True)
+        try:
+            with torch.no_grad():
+                trace_cost(steps.prefill_step, cfg, params, tokens)
+        except RuntimeError as e:
+            if "kernels launched while counting" not in str(e):
+                raise
+            say("dryrun", f"with the kernels on the counter refuses: {str(e)[:160]}")
+        else:
+            raise AssertionError("the counter counted a prefill that launched kernels")
+        finally:
+            use_kernels(False)
+        rec, t_cell = cell.result()
+    hc = rec.get("hlo_cost", {})
+    if rec.get("ok") is not True or not hc.get("dot_flops", 0) > 0:
+        raise AssertionError(f"dryrun {DRYRUN_CELL}: record {json.dumps(rec)[:2000]}")
+    say("dryrun", f"{'/'.join(DRYRUN_CELL)} over 256 fake ranks in a child process "
+                  f"({t_cell:.1f} s, trace_s {rec['trace_s']}): per rank dot_flops "
+                  f"{hc['dot_flops']:.6g}, hbm_bytes {hc['hbm_bytes']:.6g}, ICI bytes "
+                  f"{hc['collective_ici_bytes']:.6g}, DCN bytes {hc['collective_dcn_bytes']:.6g},"
+                  f" argument bytes {rec['memory']['argument_bytes']:.6g}, temp bytes "
+                  f"{rec['memory']['temp_bytes']:.6g}; JAX in this process: "
+                  f"{'jax' in sys.modules} | {gpu}")
+    del params, tokens, counted
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("dryrun", f"ok in {time.perf_counter() - t0:.1f} s")
+
+
 def phase_recovery(gpu: str, one_card_lines: list) -> None:
     """Phase 13: recovery and elastic re-scale (see the module docstring)."""
     t0 = time.perf_counter()
@@ -2530,6 +2644,7 @@ def main() -> int:
     timed("11 collectives", phase_collectives, gpu)
     timed("12 ranks", phase_ranks, gpu, train_losses[TRAIN_SETTINGS[0][0]][0])
     timed("13 recovery", phase_recovery, gpu, shed_lines)
+    timed("14 dryrun", phase_dryrun, gpu)
     say("time", f"phase walls (s) {', '.join(f'{k} {v:.1f}' for k, v in walls.items())}; "
                 f"the script {time.perf_counter() - t_start:.1f} s | {gpu}")
     print(json.dumps({"kernels": rows}))

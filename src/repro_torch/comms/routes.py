@@ -16,7 +16,17 @@ process group.  Each picks its route from :data:`ROUTES`, keyed by
 NCCL refuses two ranks on one device, so a world of several ranks on one
 card runs gloo and every message crosses the host, staged either way.  The
 host-to-host hop between the processes of one machine is loopback TCP, not
-a network tier.  A key the table lacks raises.
+a network tier.
+
+The ``fake`` backend (``torch.testing._internal.distributed.fake_pg``) is
+the dry-run's world of 256 or 512 ranks in one process: its keys, on meta
+and CPU tensors, are ``direct`` and move nothing; the cost counter
+(``launch.hlo_analysis.count``) records each call's bytes.  A key the table
+lacks raises.
+
+While a counter is active (:data:`observer` set), every primitive reports
+its operation, the bytes it reads and writes, and the global ranks it
+spans; with none active nothing else happens.
 """
 from __future__ import annotations
 
@@ -34,7 +44,22 @@ ROUTES: Dict[Tuple[str, str, str], str] = {
     **{("nccl", "cuda", op): "direct" for op in OPS},
     **{("gloo", "cuda", op): "direct" for op in OPS if op != "send_recv"},
     ("gloo", "cuda", "send_recv"): "staged",
+    **{("fake", device, op): "direct" for device in ("meta", "cpu") for op in OPS},
 }
+
+# the active cost counter's callback, (op, bytes in, bytes out, global ranks),
+# or None
+observer = None
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _report(op: str, inp, out, group, ranks=None) -> None:
+    if observer is not None:
+        observer(op, sum(map(_nbytes, inp)), sum(map(_nbytes, out)),
+                 ranks if ranks is not None else dist.get_process_group_ranks(group))
 
 
 def route(group, device: torch.device, op: str) -> str:
@@ -55,6 +80,7 @@ def _host(t: torch.Tensor) -> torch.Tensor:
 
 def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> None:
     """In place: ``t`` becomes the reduction of every rank's ``t``."""
+    _report("all_reduce", [t], [t], group)
     if route(group, t.device, "all_reduce") == "direct":
         dist.all_reduce(t, op=op, group=group)
         return
@@ -66,6 +92,7 @@ def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> None:
 def reduce_scatter(out: torch.Tensor, inp: torch.Tensor, group) -> None:
     """``out`` (n, ...) gets this rank's block of the sum of every rank's
     ``inp`` (k·n, ...), blocks in group-rank order along dim 0."""
+    _report("reduce_scatter", [inp], [out], group)
     if route(group, inp.device, "reduce_scatter") == "direct":
         dist.reduce_scatter_tensor(out, inp, group=group)
         return
@@ -77,6 +104,7 @@ def reduce_scatter(out: torch.Tensor, inp: torch.Tensor, group) -> None:
 def all_gather(out: torch.Tensor, inp: torch.Tensor, group) -> None:
     """``out`` (k·n, ...) gets every rank's ``inp`` (n, ...), in group-rank
     order along dim 0."""
+    _report("all_gather", [inp], [out], group)
     if route(group, inp.device, "all_gather") == "direct":
         dist.all_gather_into_tensor(out, inp, group=group)
         return
@@ -88,6 +116,7 @@ def all_gather(out: torch.Tensor, inp: torch.Tensor, group) -> None:
 def all_to_all(out: torch.Tensor, inp: torch.Tensor, group) -> None:
     """Block j of ``inp`` (k equal blocks along dim 0) goes to group rank j;
     block j of ``out`` comes from group rank j."""
+    _report("all_to_all", [inp], [out], group)
     if route(group, inp.device, "all_to_all") == "direct":
         dist.all_to_all_single(out, inp, group=group)
         return
@@ -101,10 +130,13 @@ def send_recv(sends: Sequence[Tuple[torch.Tensor, int]],
     """Post every send ``(tensor, group rank)`` and receive ``(buffer, group
     rank)`` at once and wait for all of them."""
     tensors = [t for t, _ in (*sends, *recvs)]
+    peer = lambda r: dist.get_global_rank(group, r)  # noqa: E731
+    if observer is not None:
+        _report("send_recv", [t for t, _ in sends], [t for t, _ in recvs], group,
+                [dist.get_rank()] + [peer(r) for _, r in (*sends, *recvs)])
     staged = route(group, tensors[0].device, "send_recv") == "staged"
     s_bufs = [_host(t) if staged else t.contiguous() for t, _ in sends]
     r_bufs = [_pinned_like(t) if staged else t for t, _ in recvs]
-    peer = lambda r: dist.get_global_rank(group, r)  # noqa: E731
     ops = ([dist.P2POp(dist.isend, b, peer(r), group) for b, (_, r) in zip(s_bufs, sends)]
            + [dist.P2POp(dist.irecv, b, peer(r), group) for b, (_, r) in zip(r_bufs, recvs)])
     for w in dist.batch_isend_irecv(ops):

@@ -9,7 +9,15 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict
 
-from repro_torch.configs.base import ATTN, ATTNX, XATTN, LayerGroup, ModelConfig
+from repro_torch.configs.base import (
+    ATTN,
+    ATTNX,
+    SHAPES,
+    XATTN,
+    LayerGroup,
+    ModelConfig,
+    ShapeConfig,
+)
 from repro_torch.configs.codeqwen1_5_7b import CONFIG as CODEQWEN1_5_7B
 from repro_torch.configs.dbrx_132b import CONFIG as DBRX_132B
 from repro_torch.configs.gemma2_9b import CONFIG as GEMMA2_9B
@@ -60,5 +68,5 @@ def smoke_config(name: str) -> ModelConfig:
     )
 
 
-__all__ = ["ARCHS", "ATTN", "ATTNX", "XATTN", "LayerGroup", "ModelConfig", "get_config",
-           "smoke_config"]
+__all__ = ["ARCHS", "ATTN", "ATTNX", "SHAPES", "XATTN", "LayerGroup", "ModelConfig",
+           "ShapeConfig", "get_config", "smoke_config"]

@@ -8,7 +8,7 @@ parameter trees load 1:1.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 # Layer descriptor kinds (the port runs all six; ATTN and LOCAL layers take
 # the MoE layer in place of their MLP where the config has experts).
@@ -83,6 +83,100 @@ class ModelConfig:
     @property
     def is_moe(self) -> bool:
         return self.n_experts > 0
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if no layer does *unwindowed* self-attention over the full
+        sequence with an unbounded KV cache: the dry-run's ``long_500k``
+        gate.  gemma2 counts: its global layers are O(S) per decoded token
+        and the arch is not pure full attention."""
+        kinds = {k for g in self.groups for k in g.pattern}
+        if kinds <= {LOCAL, RWKV, RGLRU, XATTN}:
+            return True
+        # mixed local/global (gemma2) or recurrent/local counts as sub-quadratic
+        return (ATTN in kinds or ATTNX in kinds) and (
+            LOCAL in kinds or RGLRU in kinds or RWKV in kinds
+        )
+
+    def param_count(self) -> int:
+        """Analytic parameter count, the JAX package's (its roofline's
+        model FLOPs and the dry-run's ``params``)."""
+        d, ff, v = self.d_model, self.d_ff, self.vocab_padded
+        dh = self.head_dim_
+        n = v * d  # embedding
+        if not self.tie_embeddings:
+            n += v * d  # lm head
+        lru = self.lru_width or d
+
+        def attn_params() -> int:
+            return d * self.n_heads * dh + 2 * d * self.n_kv_heads * dh + self.n_heads * dh * d
+
+        def xattn_params() -> int:
+            fd = self.frontend_dim or d
+            return d * self.n_heads * dh + 2 * fd * self.n_kv_heads * dh + self.n_heads * dh * d
+
+        def mlp_params() -> int:
+            mult = 3 if self.gated else 2
+            return mult * d * ff
+
+        def moe_params() -> int:
+            return d * self.n_experts + self.n_experts * 3 * d * ff
+
+        def rwkv_params() -> int:
+            # time-mix: r,k,v,g,o projections + decay lora + token-shift mixes
+            tm = 5 * d * d + 2 * d * 64 + 6 * d
+            # channel-mix: k (d->ff), v (ff->d), r (d->d)
+            cm = d * ff + ff * d + d * d
+            return tm + cm
+
+        def rglru_params() -> int:
+            # conv + in-proj (d -> 2*lru) + gates + out-proj
+            return self.conv_width * lru + d * 2 * lru + 2 * lru * lru // 8 + 2 * lru + lru * d
+
+        per_kind = {
+            ATTN: lambda: attn_params() + (moe_params() if self.is_moe else mlp_params()),
+            LOCAL: lambda: attn_params() + (moe_params() if self.is_moe else mlp_params()),
+            XATTN: lambda: xattn_params() + mlp_params(),
+            ATTNX: lambda: attn_params() + xattn_params() + mlp_params(),
+            RWKV: lambda: rwkv_params(),
+            RGLRU: lambda: rglru_params() + mlp_params(),
+        }
+        for g in self.groups:
+            for kind in g.pattern:
+                n += g.count * per_kind[kind]()
+        if self.encoder_layers:
+            n += self.encoder_layers * (attn_params() + mlp_params())
+        return n
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: top_k of n_experts)."""
+        if not self.is_moe:
+            return self.param_count()
+        d, ff = self.d_model, self.d_ff
+        dense_experts = self.n_experts * 3 * d * ff
+        active_experts = self.top_k * 3 * d * ff
+        n_moe_layers = sum(
+            g.count for g in self.groups for k in g.pattern if k in (ATTN, LOCAL)
+        )
+        return self.param_count() - n_moe_layers * (dense_experts - active_experts)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One dry-run cell's shape: (kind, seq_len, global_batch)."""
+
+    name: str
+    kind: str  # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
+}
 
 
 @dataclasses.dataclass(frozen=True)

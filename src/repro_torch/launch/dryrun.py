@@ -1,0 +1,421 @@
+"""Multi-pod dry-run of the port: trace every (arch x shape x mesh) cell, per
+rank, on meta tensors in a fake world of 256 or 512 ranks.
+
+The counterpart of ``repro.launch.dryrun``.  For each cell this:
+  1. starts a fake ``torch.distributed`` world in this process, as rank 0
+     (``torch.testing._internal.distributed.fake_pg``: its collectives move
+     nothing), 256 ranks for ``single`` and 512 for ``multi``, and builds
+     the production mesh over it — (16,16) "data","model" or (2,16,16)
+     "pod","data","model";
+  2. adapts the architecture config for the TP width (KV expansion,
+     ep_shards — ``sharding.specs.tp_adapt``);
+  3. makes this rank's blocks of the params / AdamW moments / caches and its
+     slot of the batch on the meta device — nothing is allocated;
+  4. runs the step (``train_step``, ``prefill_step`` or ``decode_step`` by
+     the shape's kind) once, eagerly, under the cost counter
+     (``launch.hlo_analysis.trace_cost``), with the kernels off
+     (``use_kernels(False)``, as the reference lowers with ``use_pallas``
+     off);
+  5. records the counter's compute, memory and per-kind collective bytes
+     (ICI vs DCN by the pods the group's ranks lie in) into
+     ``<out>/<arch>__<shape>__<mesh>__<tag>.json``, under the reference's
+     keys, so ``benchmarks/roofline.py::terms`` reads it unchanged.
+
+Two things of the reference have no meaning in eager: it records
+``compile_s`` (lower + compile), this records ``trace_s`` (build + the
+counted run); and it keeps the compiled HLO (``hlo_chars`` and a
+``.hlo.gz`` beside the record), which has no eager counterpart, so neither
+is written.
+
+The port stores a leaf split over "model" but computes it whole (ROADMAP,
+Known differences).  So the serving steps here take this rank's blocks
+(``param_shardings``, ``cache_shardings``) and gather every split dim
+whole before computing, but for the batch dim of the caches (the rank's
+slot) and the expert dim of the MoE weights (the rank's virtual experts);
+they hand back the rank's blocks of the new caches.  ``train_step`` gathers
+every leaf itself.  Those gathers are counted as the all-gathers they are,
+and a model-parallel cell's per-rank ``dot_flops`` exceeds the
+reference's: on rwkv6-1.6b ``long_500k`` ``multi`` it is 2.90456e9
+against 8.12646e7, 35.74 times, more than the model width of 16, since
+GSPMD splits products over "data" there too (PERF.md, section 6).
+``hbm_bytes`` is eager's (no fusion), larger than XLA's post-fusion count.
+
+Usage:
+  python -m repro_torch.launch.dryrun --arch dbrx-132b --shape train_4k --mesh single
+  python -m repro_torch.launch.dryrun --all [--mesh both] [--tag variantname ...]
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import gc
+import json
+import math
+import os
+import sys
+import time
+import traceback
+
+from repro_torch.launch.hlo_analysis import trace_cost
+from repro_torch.obs import trace as obs_trace
+
+CHIPS_PER_POD = 256
+WORLD = {"single": 256, "multi": 512}
+
+
+def start_world(mesh_kind: str) -> None:
+    """A fake world of the mesh kind's size in this process, as rank 0;
+    one of another size is destroyed first.  A real world raises."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    size = WORLD[mesh_kind]
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError("dryrun: a real torch.distributed world is initialised; the "
+                               "dry-run starts its own fake one")
+        if dist.get_world_size() == size:
+            return
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=size)
+
+
+def stop_world() -> None:
+    import torch.distributed as dist
+
+    if dist.is_initialized() and dist.get_backend() == "fake":
+        dist.destroy_process_group()
+
+
+def _unsplit(sharding, dims):
+    """``sharding`` with the entries of ``dims`` not split: gathering with it
+    leaves those dims as the rank's block."""
+    from repro_torch.sharding.specs import PartitionSpec, Sharding
+
+    spec = PartitionSpec(*(None if i in dims else e for i, e in enumerate(sharding.spec)))
+    return Sharding(sharding.mesh, spec)
+
+
+def _compute_shardings(p_sh, c_sh):
+    """(params, caches) shardings that the serving steps gather whole with:
+    the MoE weights keep their expert dim (dim 1, under the group's stack)
+    and the caches their batch dim (dim 1) as the rank's block."""
+    from repro_torch.sharding.specs import map_with_path
+
+    def param(path, s):
+        moe = path.endswith(("moe/w_in", "moe/w_out"))
+        return _unsplit(s, {1} if moe else set())
+
+    return map_with_path(param, p_sh), map_with_path(lambda _, s: _unsplit(s, {1}), c_sh)
+
+
+def build_cell(arch: str, shape_name: str, mesh_kind: str, variant: dict):
+    """Returns (step fn, args tuple of this rank's meta blocks, meta dict) for
+    one cell; (None, None, meta with "skipped") where the cell is skipped."""
+    import torch
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch.mesh import dp_axes_of, make_production_mesh, mesh_axes
+    from repro_torch.models import decode as dec
+    from repro_torch.models import steps
+    from repro_torch.models.common import dtype_of
+    from repro_torch.models.convert import tree_map2
+    from repro_torch.models.transformer import DistContext, param_shapes
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import specs
+
+    shape = SHAPES[shape_name]
+    start_world(mesh_kind)
+    mesh = make_production_mesh(multi_pod=(mesh_kind == "multi"), device="cpu")
+    sizes = mesh_axes(mesh)
+    tp = sizes["model"]
+    cfg0 = get_config(arch)
+    cfg, ep_shards = specs.tp_adapt(cfg0, tp)
+
+    if shape_name == "long_500k" and not cfg.sub_quadratic:
+        return None, None, {
+            "skipped": "pure full-attention arch: 500k dense-KV decode "
+            "excluded per spec (DESIGN.md §Arch-applicability)"
+        }
+
+    if variant.get("wkv_chunk"):
+        cfg = dataclasses.replace(cfg, wkv_chunk=int(variant["wkv_chunk"]))
+
+    dp_axes = dp_axes_of(mesh)
+    ep_axes = ("model",)
+    if variant.get("serve_layout"):
+        # serving layout: experts spread over (data x model) — no FSDP
+        # weight gathers at decode; dispatch a2a spans both axes
+        ep_axes = ("data", "model")
+        total = math.prod(sizes[a] for a in ep_axes)
+        if cfg.is_moe:
+            ep_shards = total // cfg.n_experts if total % cfg.n_experts == 0 else ep_shards
+        variant = dict(variant, no_fsdp=True)
+        if variant.get("moe_strategy", "direct") == "auto" and cfg.is_moe:
+            from repro_torch.comms.autotune import select_moe_dispatch_strategy
+            from repro_torch.models.moe import capacity as moe_capacity
+
+            toks = shape.global_batch * (shape.seq_len if shape.kind != "decode" else 1)
+            tslice = max(1, -(-toks // total))
+            bucket = moe_capacity(cfg, tslice) * cfg.d_model * 2
+            variant = dict(variant, moe_strategy=select_moe_dispatch_strategy(
+                dict(sizes), ep_axes, float(bucket)))
+    dist = DistContext(
+        mesh=mesh,
+        dp_axes=dp_axes,
+        model_axis="model",
+        ep_shards=ep_shards,
+        moe_strategy=variant.get("moe_strategy", "direct"),
+        a2a_chunks=int(variant.get("a2a_chunks", 1)),
+        ep_axes=ep_axes,
+    )
+    fsdp = not variant.get("no_fsdp", False)
+    fsdp_axes = tuple(variant.get("fsdp_axes", "data").split("+"))
+    remat = not variant.get("no_remat", False)
+
+    p_shape = param_shapes(cfg, ep_shards)
+    p_sh = specs.param_shardings(p_shape, mesh, fsdp=fsdp, fsdp_axes=fsdp_axes,
+                                 ep_axes=ep_axes)
+    params = tree_map2(lambda s, t: s.shard(t), p_sh, p_shape)
+
+    B, S = shape.global_batch, shape.seq_len
+    tok_sh = specs.batch_sharding(mesh, B, 2, dp_axes)
+    meta = {
+        "arch": arch,
+        "deploy_kv_heads": cfg.n_kv_heads,
+        "ep_shards": ep_shards,
+        "ep_axes": list(ep_axes),
+        "moe_strategy_resolved": dist.moe_strategy,
+        "params": cfg.param_count(),
+        "active_params": cfg.active_param_count(),
+    }
+
+    def tokens(n_seq: int):
+        return tok_sh.shard(torch.empty((B, n_seq), dtype=torch.int32, device="meta"))
+
+    frontend = None
+    if cfg.frontend_tokens:
+        fd = cfg.frontend_dim or cfg.d_model
+        frontend = specs.batch_sharding(mesh, B, 3, dp_axes).shard(
+            torch.empty((B, cfg.frontend_tokens, fd), dtype=dtype_of(cfg), device="meta"))
+
+    if shape.kind == "train":
+        run = RunConfig(
+            model=cfg,
+            seq_len=S,
+            global_batch=B,
+            n_microbatches=int(variant.get("microbatches", 1)),
+            fsdp=fsdp,
+            remat=remat,
+            remat_policy=variant.get("remat_policy", "block"),
+            grad_accum_dtype=variant.get("grad_accum_dtype", "float32"),
+        )
+        opt_fsdp_axes = tuple(variant.get("opt_fsdp_axes", "+".join(fsdp_axes)).split("+"))
+        if opt_fsdp_axes != fsdp_axes:
+            raise NotImplementedError(
+                f"--opt-fsdp-axes {'+'.join(opt_fsdp_axes)} differs from --fsdp-axes "
+                f"{'+'.join(fsdp_axes)}: the port's sharded train step keeps the AdamW "
+                "moments in the parameters' layout (ZeRO-1 over other axes is not ported)")
+        opt = adamw.init_state(params)
+        batch = {"tokens": tokens(S)}
+        if frontend is not None:
+            batch["frontend"] = frontend
+
+        def fn(p, o, b):
+            return steps.train_step(cfg, run, p, o, b, dist=dist, shardings=p_sh)
+
+        meta["tokens_global"] = B * S
+        meta["step_kind"] = "train"
+        return fn, (params, opt, batch), meta
+
+    caches_shape = dec.init_caches(cfg, B, S, device="meta")
+    c_sh = specs.cache_shardings(caches_shape, mesh, dp_axes=dp_axes)
+    p_whole, c_whole = _compute_shardings(p_sh, c_sh)
+
+    def whole(shardings, tree):
+        return tree_map2(lambda s, t: s.gather(t), shardings, tree)
+
+    def blocks(tree):
+        return tree_map2(lambda s, t: s.block(t), c_whole, tree)
+
+    if shape.kind == "prefill":
+
+        def fn(p, t, f=None):
+            with torch.no_grad():
+                logits, caches = steps.prefill_step(cfg, whole(p_whole, p), t, frontend=f,
+                                                    capacity=S, dist=dist)
+            return logits, blocks(caches)
+
+        args = (params, tokens(S)) + ((frontend,) if frontend is not None else ())
+        meta["tokens_global"] = B * S
+        meta["step_kind"] = "prefill"
+        return fn, args, meta
+
+    # decode: one new token against a seq_len-deep cache
+    caches = tree_map2(lambda s, t: s.shard(t), c_sh, caches_shape)
+    pos = torch.empty((), dtype=torch.int32, device="meta")
+
+    def fn(p, c, t, q):
+        with torch.no_grad():
+            logits, new = steps.decode_step(cfg, whole(p_whole, p), whole(c_whole, c), t, q,
+                                            dist=dist)
+        return logits, blocks(new)
+
+    meta["tokens_global"] = B
+    meta["step_kind"] = "decode"
+    return fn, (params, caches, tokens(1), pos), meta
+
+
+def run_cell(arch: str, shape_name: str, mesh_kind: str, variant: dict, outdir: str):
+    from repro_torch.kernels.config import kernels_enabled, use_kernels
+
+    tag = variant.get("tag", "baseline")
+    cell_id = f"{arch}__{shape_name}__{mesh_kind}__{tag}"
+    rec: dict = {
+        "arch": arch, "shape": shape_name, "mesh": mesh_kind,
+        "variant": {k: v for k, v in variant.items() if k != "tag"}, "tag": tag,
+    }
+    t0 = time.time()
+    was_on = kernels_enabled()
+    use_kernels(False)
+    try:
+        with obs_trace.span("dryrun.build", cell=cell_id):
+            fn, args, meta = build_cell(arch, shape_name, mesh_kind, variant)
+        rec.update(meta)
+        if fn is None:
+            rec["ok"] = "skipped"
+        else:
+            with obs_trace.span("dryrun.trace", cell=cell_id):
+                counted = trace_cost(fn, *args, chips_per_pod=CHIPS_PER_POD)
+            rec["trace_s"] = round(time.time() - t0, 1)
+            rec["memory"] = {
+                "argument_bytes": counted.argument_bytes,
+                "output_bytes": counted.output_bytes,
+                "temp_bytes": counted.temp_bytes,
+                "alias_bytes": counted.alias_bytes,
+                "generated_code_bytes": 0,
+            }
+            hc = counted.cost
+            rec["cost"] = {"flops": counted.flops, "bytes_accessed": hc.hbm_bytes}
+            rec["hlo_cost"] = {
+                "dot_flops": hc.dot_flops,
+                "hbm_bytes": hc.hbm_bytes,
+                "collectives": hc.collectives,
+                "collective_ici_bytes": hc.collective_ici_total(),
+                "collective_dcn_bytes": hc.collective_dcn_total(),
+            }
+            rec["ok"] = True
+    except (ValueError, TypeError, KeyError, AttributeError, RuntimeError,
+            NotImplementedError, OSError) as e:
+        # record the failure, keep sweeping: shape/sharding mistakes surface
+        # as ValueError/TypeError, a host read of a meta tensor or a kernel
+        # launch under the counter as RuntimeError, the record as OSError —
+        # anything else is a harness bug and should crash loudly
+        rec["ok"] = False
+        rec["error"] = f"{type(e).__name__}: {e}"
+        rec["traceback"] = traceback.format_exc()[-3000:]
+        print(f"[dryrun] {cell_id}: failed with {type(e).__name__}: {e}",
+              file=sys.stderr, flush=True)
+    finally:
+        use_kernels(was_on)
+    rec["total_s"] = round(time.time() - t0, 1)
+    os.makedirs(outdir, exist_ok=True)
+    path = os.path.join(outdir, cell_id + ".json")
+    with open(path, "w") as f:
+        json.dump(rec, f, indent=1)
+    status = rec.get("ok")
+    print(f"[dryrun] {cell_id}: ok={status} ({rec['total_s']}s)", flush=True)
+    return rec
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--mesh", default="single", choices=["single", "multi", "both"])
+    ap.add_argument("--all", action="store_true", help="sweep every cell")
+    ap.add_argument("--out", default="results/dryrun")
+    ap.add_argument("--tag", default="baseline")
+    ap.add_argument("--moe-strategy", default="direct")
+    ap.add_argument("--a2a-chunks", type=int, default=1)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--no-fsdp", action="store_true")
+    ap.add_argument("--no-remat", action="store_true")
+    ap.add_argument("--fsdp-axes", default="data", help="e.g. pod+data")
+    ap.add_argument("--opt-fsdp-axes", default="", help="optimizer-state FSDP axes (ZeRO-1 over pod)")
+    ap.add_argument("--grad-accum-dtype", default="float32", choices=["float32", "bfloat16"])
+    ap.add_argument("--remat-policy", default="block", choices=["block", "dots", "none"])
+    ap.add_argument("--serve-layout", action="store_true")
+    ap.add_argument("--wkv-chunk", type=int, default=0)
+    ap.add_argument("--skip-existing", action="store_true")
+    ap.add_argument(
+        "--trace", default="", metavar="PATH",
+        help="write a Chrome trace_event JSON of the sweep (build/trace "
+             "spans per cell; open in Perfetto)",
+    )
+    args = ap.parse_args(argv)
+
+    tracer = obs_trace.start(name="dryrun") if args.trace else None
+
+    from repro_torch.configs import ARCHS, SHAPES
+
+    variant = {
+        "tag": args.tag,
+        "moe_strategy": args.moe_strategy,
+        "a2a_chunks": args.a2a_chunks,
+        "microbatches": args.microbatches,
+        "no_fsdp": args.no_fsdp,
+        "no_remat": args.no_remat,
+        "fsdp_axes": args.fsdp_axes,
+        "opt_fsdp_axes": args.opt_fsdp_axes or args.fsdp_axes,
+        "grad_accum_dtype": args.grad_accum_dtype,
+        "remat_policy": args.remat_policy,
+        "serve_layout": bool(args.serve_layout),
+        "wkv_chunk": args.wkv_chunk,
+    }
+    archs = [args.arch] if args.arch else list(ARCHS)
+    shapes = [args.shape] if args.shape else list(SHAPES)
+    meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
+
+    n_ok = n_fail = 0
+    try:
+        for arch in archs:
+            for shape in shapes:
+                for mk in meshes:
+                    cell_id = f"{arch}__{shape}__{mk}__{args.tag}"
+                    path = os.path.join(args.out, cell_id + ".json")
+                    if args.skip_existing and os.path.exists(path):
+                        try:
+                            with open(path) as f:
+                                old = json.load(f)
+                            if old.get("ok") in (True, "skipped"):
+                                print(f"[dryrun] {cell_id}: cached ok={old['ok']}")
+                                n_ok += 1
+                                continue
+                        except (OSError, ValueError, AttributeError) as e:
+                            # unreadable/truncated cache record — re-run the cell
+                            # (json decode errors are ValueError subclasses)
+                            print(f"[dryrun] {cell_id}: ignoring unreadable "
+                                  f"cache record ({type(e).__name__}: {e})",
+                                  file=sys.stderr)
+                    rec = run_cell(arch, shape, mk, variant, args.out)
+                    if rec.get("ok") in (True, "skipped"):
+                        n_ok += 1
+                    else:
+                        n_fail += 1
+                    gc.collect()  # release what the trace kept before the next cell
+    finally:
+        stop_world()
+    if tracer is not None:
+        obs_trace.stop()
+        tracer.write(args.trace)
+        print(f"[dryrun] trace written to {args.trace} "
+              f"({len(tracer.events)} events)")
+    print(f"[dryrun] done: {n_ok} ok, {n_fail} failed")
+    if n_fail:
+        raise SystemExit(1)
+
+
+if __name__ == "__main__":
+    main()

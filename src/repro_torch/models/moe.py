@@ -62,6 +62,8 @@ def _stacked_init(gen: torch.Generator, shape: Tuple[int, ...], dtype: torch.dty
     start..start+n of each stack are kept: (..., n, rows, cols)."""
     start, n = (0, shape[-3]) if block is None else block
     out = torch.empty(shape[:-3] + (n,) + shape[-2:], dtype=dtype, device=gen.device)
+    if out.is_meta:  # shapes only (META_GEN): nothing to draw
+        return out
     kept = out.view(-1, n, *shape[-2:])
     for i in range(kept.shape[0]):
         for e in range(shape[-3]):

@@ -1,8 +1,9 @@
 """Step functions, ported from ``repro.models.steps``.
 
 ``train_step`` — forward + loss + backward + AdamW update (+ optional
-microbatch gradient accumulation), on one device.  Serving's steps are
-``models.decode.prefill`` and ``decode_step``.
+microbatch gradient accumulation).  ``prefill_step`` and ``decode_step``
+are serving's steps, thin calls into ``models.decode.prefill`` and
+``decode_step`` as in the reference.
 
 The reference trains on its plain path (its Pallas kernels have no VJP), so
 training here runs plain PyTorch with the kernels off; the kernel wrappers
@@ -32,6 +33,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.models import decode as dec
 from repro_torch.models.common import dtype_of
 from repro_torch.models.convert import tree_leaves, tree_unflatten
 from repro_torch.models.transformer import DistContext, forward, param_shapes
@@ -148,6 +150,30 @@ def train_step(
         )
     metrics = dict(metrics, grad_norm=gnorm, lr=lr)
     return params, opt_state, metrics
+
+
+def prefill_step(
+    cfg: ModelConfig,
+    params: dict,
+    tokens: torch.Tensor,
+    *,
+    frontend: Optional[torch.Tensor] = None,
+    capacity: Optional[int] = None,
+    dist: Optional[DistContext] = None,
+):
+    return dec.prefill(cfg, params, tokens, frontend=frontend, capacity=capacity, dist=dist)
+
+
+def decode_step(
+    cfg: ModelConfig,
+    params: dict,
+    caches: tuple,
+    token: torch.Tensor,
+    pos,
+    *,
+    dist: Optional[DistContext] = None,
+):
+    return dec.decode_step(cfg, params, caches, token, pos, dist=dist)
 
 
 def _sync_if_traced(t: torch.Tensor) -> None:

@@ -87,6 +87,11 @@ class Sharding:
         """This rank's block of the whole leaf ``full``, a new tensor.
         ``coord`` (axis -> index) defaults to this rank's coordinates on a
         ``DeviceMesh``."""
+        return self.block(full, coord).clone(memory_format=torch.contiguous_format)
+
+    def block(self, full: torch.Tensor,
+              coord: Optional[Mapping[str, int]] = None) -> torch.Tensor:
+        """This rank's block of ``full`` as a view (see :meth:`shard`)."""
         sizes = mesh_shape(self.mesh)
         if coord is None:
             coord = dict(zip(self.mesh.mesh_dim_names, self.mesh.get_coordinate()))
@@ -101,7 +106,7 @@ class Sharding:
                 idx = idx * sizes[a] + coord[a]
             n = full.shape[dim] // k
             out = out.narrow(dim, idx * n, n)
-        return out.clone(memory_format=torch.contiguous_format)
+        return out
 
     def gather(self, block: torch.Tensor) -> torch.Tensor:
         """The whole leaf from every rank's ``block``: one all-gather over

@@ -14,6 +14,7 @@ import torch
 from repro.comms.overlap import chunked_collective as ref_chunked
 from repro.comms.overlap import microbatched_grads as ref_microbatched
 from repro.optim import compress as ref_compress
+from repro_torch.comms import routes
 from repro_torch.comms.overlap import chunked_collective, microbatched_grads
 from repro_torch.launch.mesh import run_world
 from repro_torch.optim import compress
@@ -196,3 +197,24 @@ def test_run_world_refuses_cuda_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         run_world(world_programs.sleep_forever, 2)
+
+
+# -- the route table -------------------------------------------------------------
+
+ROUTE_CASES = [("gloo", "cpu", "send_recv", "direct"), ("gloo", "cuda", "send_recv", "staged"),
+               ("nccl", "cuda", "all_to_all", "direct"), ("fake", "meta", "all_gather", "direct"),
+               ("fake", "cpu", "send_recv", "direct"), ("fake", "cuda", "all_reduce", None),
+               ("nccl", "cpu", "all_reduce", None), ("mpi", "cpu", "all_gather", None),
+               ("gloo", "cpu", "broadcast", None)]
+
+
+@pytest.mark.parametrize("backend, device, op, want", ROUTE_CASES)
+def test_route_table_keys_and_a_missing_key_raises(monkeypatch, backend, device, op, want):
+    """The fake backend's keys (the dry-run's world) are direct on meta and
+    CPU tensors; a key the table lacks still raises, naming it."""
+    monkeypatch.setattr(routes.dist, "get_backend", lambda group: group)
+    if want is None:
+        with pytest.raises(NotImplementedError, match=f"no route for \\('{backend}'"):
+            routes.route(backend, torch.device(device), op)
+    else:
+        assert routes.route(backend, torch.device(device), op) == want

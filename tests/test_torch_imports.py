@@ -17,8 +17,10 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "repro"))
-print(len(names), "modules;", "loaded:", bad)
-sys.exit(1 if bad or len(names) < 10 else 0)
+import torch.distributed as dist
+world = dist.is_available() and dist.is_initialized()  # importing starts no world
+print(len(names), "modules;", "loaded:", bad, "world:", world)
+sys.exit(1 if bad or world or len(names) < 10 else 0)
 """
 
 
@@ -43,13 +45,14 @@ DISTRIBUTION = ["repro_torch.comms.allreduce", "repro_torch.comms.alltoall",
                 "repro_torch.launch.mesh", "repro_torch.sharding.specs",
                 "repro_torch.sharding.checks", "repro_torch.sharding.__init__",
                 "repro_torch.runtime.fault", "repro_torch.runtime.elastic",
-                "repro_torch.runtime.checks"]
+                "repro_torch.runtime.checks", "repro_torch.launch.dryrun",
+                "repro_torch.launch.hlo_analysis"]
 
 
 def test_distribution_modules_are_in_the_port():
     """The collectives, compression, the mesh helpers, the collective timer,
-    the sharding rules and the recovery modules are port modules, so the two
-    tests above walk them."""
+    the sharding rules, the recovery modules, the dry-run and the cost
+    counter are port modules, so the two tests above walk them."""
     for name in DISTRIBUTION:
         assert (SRC / (name.replace(".", "/") + ".py")).is_file(), name
     assert "def bench_allreduce(" in (PORT / "core" / "benchmark.py").read_text()
