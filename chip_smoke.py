@@ -93,7 +93,11 @@ Phases, each printing its own lines, any failure ending the run non-zero:
                prefill's routes), with the walls, each layer's all-to-all
                spans, flash launches and peak memory of each rank;
                (b) llama3.2-1b at full width trained 3 steps over a (2, 2)
-               world, its first loss within 2e-2 of phase 8's; (c) the CPU
+               world, its compute split over "model" (``sharding.tp``), its
+               first loss within 2e-2 of phase 8's, with each step's gather,
+               forward and backward, model all-reduce, gradient reduce and
+               update seconds and each kind of collective's calls and bytes
+               a step; (c) the CPU
                tests' world programs (expert-parallel cases, sharded train
                steps) at smoke width, a card world against a host world.
  13. recovery — (a) llama3.2-1b at full width trained under
@@ -116,7 +120,9 @@ Phases, each printing its own lines, any failure ending the run non-zero:
                repro_torch.launch.dryrun`` on llama3.2-1b ``decode_32k``
                ``single`` in a child process (a fake world of 256 ranks on
                meta tensors; this machine has no JAX), its record's
-               compute, memory and ICI/DCN bytes; the counter over one
+               compute (the per-rank dot FLOPs of the products split over
+               "model", within 1% of the reference's), collectives, memory
+               and ICI/DCN bytes; the counter over one
                full-width llama3.2-1b prefill on the card (B=4, prompt
                512, bf16, kernels off), its matmul FLOPs within 1% of
                torch.profiler's own estimate for the same call, both beside
@@ -249,6 +255,9 @@ EP_TOL = 0.1
 EP_ROUTES = 0.95
 SHARD_MESH, SHARD_RANKS, SHARD_STEPS, SHARD_WARMUP = "2,2", 4, 3, 1
 SHARD_LOSS_TOL = 2e-2  # the reference's (tests/_multidevice_checks.py:164)
+# 12(c)'s sharded train cases on the card (each splits its compute over
+# "model"; the CPU tests run every case of sharding.checks.TRAIN_CASES)
+CARD_TRAIN_CASES = ["f32", "f32_microbatches", "f32_batch_3", "bf16"]
 RANKS_TIMEOUT = 900.0
 COLL_FIT_SIZES = tuple(4096 * 4 ** j for j in range(8))
 COLL_AUTOTUNE_SIZES = (1 << 20, 1 << 26)
@@ -2087,17 +2096,35 @@ def phase_ranks_train(gpu: str, single_loss0: float) -> None:
         raise AssertionError(f"sharded first loss {losses[0]} against phase 8's "
                              f"{single_loss0}: {dist0} (tol {SHARD_LOSS_TOL})")
     spans = collections.defaultdict(list)
+    model_ms = 0.0  # a step's model all-reduces: their spans close inside its train.grads
     for name, sec in out[0]["spans"]:
+        if name == "tp.allreduce":
+            model_ms += sec * 1e3
+            continue
         spans[name].append(sec * 1e3)
+        if name == "train.grads":
+            spans["tp.allreduce"].append(model_ms)
+            model_ms = 0.0
+    calls, nbytes = out[0]["collective_calls"], out[0]["collective_bytes"]
+
+    def per_step(kind: str) -> str:
+        return (f"{calls.get(kind, 0) / SHARD_STEPS:g} calls "
+                f"{nbytes.get(kind, 0) / SHARD_STEPS / 1e9:.4f} GB")
+
     say("ranks", f"{cfg.name} bf16 B={B} S={S} over {SHARD_RANKS} gloo ranks (mesh "
                  f"{SHARD_MESH}), {SHARD_STEPS} steps warmup {SHARD_WARMUP}: losses "
                  f"{[round(x, 4) for x in losses]}; first loss {losses[0]:.6f} against phase 8's "
                  f"single-device {single_loss0:.6f}: {dist0:.2e} (tol {SHARD_LOSS_TOL}) | {gpu}")
-    say("ranks", f"{cfg.name} sharded step walls (s) {_per_rank(out[0]['walls'])}; per step "
-                 f"(ms) gather {_per_rank(spans['train.gather'], '{:.1f}')}, forward and "
-                 f"backward {_per_rank(spans['train.grads'], '{:.1f}')}, gradient reduce "
+    say("ranks", f"{cfg.name} sharded step, compute split over 'model', walls (s) "
+                 f"{_per_rank(out[0]['walls'])}; per step (ms) gather "
+                 f"{_per_rank(spans['train.gather'], '{:.1f}')}, forward and backward "
+                 f"{_per_rank(spans['train.grads'], '{:.1f}')} (of it model all-reduces "
+                 f"{_per_rank(spans['tp.allreduce'], '{:.1f}')}), gradient reduce "
                  f"{_per_rank(spans['train.reduce'], '{:.1f}')}, update "
-                 f"{_per_rank(spans['train.update'], '{:.1f}')}; peak memory a rank (GB) "
+                 f"{_per_rank(spans['train.update'], '{:.1f}')}; rank 0's collectives a step: "
+                 f"all-gathers {per_step('all_gather')}, w_in exchanges "
+                 f"{per_step('send_recv')}, model all-reduces {per_step('model_all_reduce')}, "
+                 f"other all-reduces {per_step('all_reduce')}; peak memory a rank (GB) "
                  f"{_per_rank([o['peak_bytes'] / 1e9 for o in out])}; world wall {wall:.1f} s "
                  f"| {gpu}")
 
@@ -2112,19 +2139,19 @@ def phase_ranks_checks(gpu: str) -> None:
     from repro_torch.sharding import checks as shard_checks
 
     W = shard_checks.WORLD
-    for name, program, inputs, compare, bounds in (
-            ("expert-parallel", shard_checks.moe_program, shard_checks.moe_inputs,
+    for name, program, inputs, args, compare, bounds in (
+            ("expert-parallel", shard_checks.moe_program, shard_checks.moe_inputs, (),
              shard_checks.compare_moe,
              f"logits and aux f32 {shard_checks.CARD_TOL['float32']}, bf16 "
              f"{shard_checks.CARD_TOL['bfloat16']}; the train steps' blocks "
              f"{shard_checks.EP_TRAIN_TOL} of a leaf's largest magnitude; refused layouts "
              "raise the same ValueError on both"),
             ("sharded train", shard_checks.train_program, shard_checks.train_inputs,
-             shard_checks.compare_train,
+             (CARD_TRAIN_CASES,), shard_checks.compare_train,
              f"f32 blocks 1e-4 of a leaf's largest magnitude; bf16 parameters and loss "
              f"{shard_checks.TRAIN_BF16}")):
-        card = run_world(program, W, inputs(), device="cuda", timeout=RANKS_TIMEOUT)
-        host = run_world(program, W, inputs(), device="cpu", timeout=RANKS_TIMEOUT)
+        card = run_world(program, W, inputs(), *args, device="cuda", timeout=RANKS_TIMEOUT)
+        host = run_world(program, W, inputs(), *args, device="cpu", timeout=RANKS_TIMEOUT)
         worst, bad = compare(card, host)
         if bad:
             raise AssertionError(f"{name} checks, card against host: {bad}")
@@ -2504,6 +2531,9 @@ def phase_mesh_drills(gpu: str, one_card_lines: list) -> None:
 
 DRYRUN_CELL = ("llama3.2-1b", "decode_32k", "single")
 DRYRUN_TIMEOUT = 300.0
+# the reference's own dry-run of DRYRUN_CELL, per rank (its GSPMD splits the
+# products over "model"; tests/test_torch_dryrun.py holds the port to it)
+DRYRUN_REF_DOT_FLOPS = 3.41678e9
 COUNT_ARCH, COUNT_B, COUNT_P = "llama3.2-1b", 4, 512
 COUNT_TOL = 0.01  # the counter's matmul FLOPs against torch.profiler's
 MATMUL_EVENTS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
@@ -2589,11 +2619,16 @@ def phase_dryrun(gpu: str) -> None:
             use_kernels(False)
         rec, t_cell = cell.result()
     hc = rec.get("hlo_cost", {})
-    if rec.get("ok") is not True or not hc.get("dot_flops", 0) > 0:
-        raise AssertionError(f"dryrun {DRYRUN_CELL}: record {json.dumps(rec)[:2000]}")
+    split = hc.get("dot_flops", 0) / DRYRUN_REF_DOT_FLOPS
+    if rec.get("ok") is not True or not abs(split - 1) <= COUNT_TOL:
+        raise AssertionError(f"dryrun {DRYRUN_CELL}: dot_flops {split:.4f} x the reference's "
+                             f"{DRYRUN_REF_DOT_FLOPS:.6g}; record {json.dumps(rec)[:2000]}")
     say("dryrun", f"{'/'.join(DRYRUN_CELL)} over 256 fake ranks in a child process "
-                  f"({t_cell:.1f} s, trace_s {rec['trace_s']}): per rank dot_flops "
-                  f"{hc['dot_flops']:.6g}, hbm_bytes {hc['hbm_bytes']:.6g}, ICI bytes "
+                  f"({t_cell:.1f} s, trace_s {rec['trace_s']}): per rank dot_flops, split over "
+                  f"'model', {hc['dot_flops']:.6g} ({split:.4f} x the reference's "
+                  f"{DRYRUN_REF_DOT_FLOPS:.6g}), collectives "
+                  f"{ {k: v['count'] for k, v in hc['collectives'].items() if v.get('count')} }, "
+                  f"hbm_bytes {hc['hbm_bytes']:.6g}, ICI bytes "
                   f"{hc['collective_ici_bytes']:.6g}, DCN bytes {hc['collective_dcn_bytes']:.6g},"
                   f" argument bytes {rec['memory']['argument_bytes']:.6g}, temp bytes "
                   f"{rec['memory']['temp_bytes']:.6g}; JAX in this process: "

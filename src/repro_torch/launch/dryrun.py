@@ -27,18 +27,24 @@ counted run); and it keeps the compiled HLO (``hlo_chars`` and a
 ``.hlo.gz`` beside the record), which has no eager counterpart, so neither
 is written.
 
-The port stores a leaf split over "model" but computes it whole (ROADMAP,
-Known differences).  So the serving steps here take this rank's blocks
-(``param_shardings``, ``cache_shardings``) and gather every split dim
-whole before computing, but for the batch dim of the caches (the rank's
-slot) and the expert dim of the MoE weights (the rank's virtual experts);
-they hand back the rank's blocks of the new caches.  ``train_step`` gathers
-every leaf itself.  Those gathers are counted as the all-gathers they are,
-and a model-parallel cell's per-rank ``dot_flops`` exceeds the
-reference's: on rwkv6-1.6b ``long_500k`` ``multi`` it is 2.90456e9
-against 8.12646e7, 35.74 times, more than the model width of 16, since
-GSPMD splits products over "data" there too (PERF.md, section 6).
-``hbm_bytes`` is eager's (no fusion), larger than XLA's post-fusion count.
+The compute splits over "model" as the reference's GSPMD splits it
+(``sharding.tp``): self-attention on the rank's heads, the dense MLP on its
+FF block, the embedding, unembedding and greedy pick on its vocabulary
+block.  The serving steps (:func:`serving_steps`) take this rank's blocks
+(``param_shardings``, ``cache_shardings``) and gather for compute
+(``specs.compute_shardings``): a split leaf over its FSDP axes only, the
+KV caches over their sequence dim only (the batch dim stays the rank's
+slot and the KV-head dim its heads), the MoE weights but for their expert
+dim (the rank's virtual experts), and every other leaf whole
+(cross-attention's, RWKV's and RG-LRU's, and ``long_500k``'s sequence
+split of a cache); they hand back the next tokens, the rank's logits block
+and its blocks of the new caches.  ``train_step`` gathers for compute
+itself.  The gathers are counted as the all-gathers they are, the gated
+MLP's exchange as collective-permutes.  On the dense decoders the per-rank
+``dot_flops`` is then the reference's; where the reference also splits
+over "data" (rwkv6-1.6b ``long_500k`` ``multi``) or splits what the port
+computes whole, it stays above it (PERF.md, section 6).  ``hbm_bytes`` is
+eager's (no fusion), larger than XLA's post-fusion count.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch dbrx-132b --shape train_4k --mesh single
@@ -52,6 +58,7 @@ import gc
 import json
 import math
 import os
+import re
 import sys
 import time
 import traceback
@@ -96,17 +103,62 @@ def _unsplit(sharding, dims):
     return Sharding(sharding.mesh, spec)
 
 
-def _compute_shardings(p_sh, c_sh):
-    """(params, caches) shardings that the serving steps gather whole with:
-    the MoE weights keep their expert dim (dim 1, under the group's stack)
-    and the caches their batch dim (dim 1) as the rank's block."""
-    from repro_torch.sharding.specs import map_with_path
+def _compute_shardings(p_sh, c_sh, gated: bool):
+    """(params' ``ComputeSharding``s, caches' gather shardings) of the
+    serving steps: ``compute_shardings``, with the MoE weights' expert dim
+    (dim 1, under the group's stack) kept as the rank's block; the caches
+    keep their batch dim (dim 1) and the self-attention caches their
+    KV-head dim (dim 3 of (count, B, capacity, G, dh))."""
+    from repro_torch.sharding.specs import compute_shardings, map_with_path
 
-    def param(path, s):
-        moe = path.endswith(("moe/w_in", "moe/w_out"))
-        return _unsplit(s, {1} if moe else set())
+    def param(path, c):
+        if path.endswith(("moe/w_in", "moe/w_out")):
+            return dataclasses.replace(c, gather=_unsplit(c.storage, {1}))
+        return c
 
-    return map_with_path(param, p_sh), map_with_path(lambda _, s: _unsplit(s, {1}), c_sh)
+    def cache(path, s):
+        return _unsplit(s, {1, 3} if re.search(r"(^|/)(k|v)$", path) else {1})
+
+    return (map_with_path(param, compute_shardings(p_sh, gated=gated)),
+            map_with_path(cache, c_sh))
+
+
+def serving_steps(cfg, dist, p_sh, c_sh, capacity: int):
+    """(prefill(params, tokens[, frontend]), decode(params, caches, token,
+    pos)) on this rank's blocks by ``p_sh`` and ``c_sh`` and its slot of
+    the batch, without gradients, each returning (the next tokens of its
+    slot, its logits block over the vocabulary, its blocks of the new
+    caches)."""
+    import torch
+
+    from repro_torch.models import steps
+    from repro_torch.models.convert import tree_map2
+    from repro_torch.sharding import tp
+
+    p_plan, c_whole = _compute_shardings(p_sh, c_sh, cfg.gated)
+
+    def compute(p):
+        return tree_map2(lambda c, t: c.to_compute(t), p_plan, p)
+
+    def blocks(tree):
+        return tree_map2(lambda s, t: s.block(t), c_whole, tree)
+
+    def pick(logits):
+        return tp.vocab_argmax(logits, cfg.vocab_padded, dist)
+
+    def prefill(p, t, f=None):
+        with torch.no_grad():
+            logits, caches = steps.prefill_step(cfg, compute(p), t, frontend=f,
+                                                capacity=capacity, dist=dist)
+            return pick(logits), logits, blocks(caches)
+
+    def decode(p, c, t, q):
+        with torch.no_grad():
+            caches = tree_map2(lambda s, x: s.gather(x), c_whole, c)
+            logits, new = steps.decode_step(cfg, compute(p), caches, t, q, dist=dist)
+            return pick(logits), logits, blocks(new)
+
+    return prefill, decode
 
 
 def build_cell(arch: str, shape_name: str, mesh_kind: str, variant: dict):
@@ -231,22 +283,10 @@ def build_cell(arch: str, shape_name: str, mesh_kind: str, variant: dict):
 
     caches_shape = dec.init_caches(cfg, B, S, device="meta")
     c_sh = specs.cache_shardings(caches_shape, mesh, dp_axes=dp_axes)
-    p_whole, c_whole = _compute_shardings(p_sh, c_sh)
-
-    def whole(shardings, tree):
-        return tree_map2(lambda s, t: s.gather(t), shardings, tree)
-
-    def blocks(tree):
-        return tree_map2(lambda s, t: s.block(t), c_whole, tree)
+    prefill, decode = serving_steps(cfg, dist, p_sh, c_sh, S)
 
     if shape.kind == "prefill":
-
-        def fn(p, t, f=None):
-            with torch.no_grad():
-                logits, caches = steps.prefill_step(cfg, whole(p_whole, p), t, frontend=f,
-                                                    capacity=S, dist=dist)
-            return logits, blocks(caches)
-
+        fn = prefill
         args = (params, tokens(S)) + ((frontend,) if frontend is not None else ())
         meta["tokens_global"] = B * S
         meta["step_kind"] = "prefill"
@@ -255,16 +295,9 @@ def build_cell(arch: str, shape_name: str, mesh_kind: str, variant: dict):
     # decode: one new token against a seq_len-deep cache
     caches = tree_map2(lambda s, t: s.shard(t), c_sh, caches_shape)
     pos = torch.empty((), dtype=torch.int32, device="meta")
-
-    def fn(p, c, t, q):
-        with torch.no_grad():
-            logits, new = steps.decode_step(cfg, whole(p_whole, p), whole(c_whole, c), t, q,
-                                            dist=dist)
-        return logits, blocks(new)
-
     meta["tokens_global"] = B
     meta["step_kind"] = "decode"
-    return fn, (params, caches, tokens(1), pos), meta
+    return decode, (params, caches, tokens(1), pos), meta
 
 
 def run_cell(arch: str, shape_name: str, mesh_kind: str, variant: dict, outdir: str):

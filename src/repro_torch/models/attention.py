@@ -19,6 +19,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.config import kernels_enabled
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.common import apply_rope, dense_init, dtype_of, softcap
+from repro_torch.sharding import tp
 
 CHUNK_THRESHOLD = 2048  # switch to chunked attention above this many keys
 KV_CHUNK = 512
@@ -46,10 +47,10 @@ def attn_params(cfg: ModelConfig, gen: torch.Generator, lead: Tuple[int, ...] = 
     }
 
 
-def _split_groups(cfg: ModelConfig, q: torch.Tensor) -> torch.Tensor:
-    """(B, S, H, dh) -> (B, S, G, M, dh) with G = kv heads, M = H // G."""
+def _split_groups(q: torch.Tensor, G: int) -> torch.Tensor:
+    """(B, S, H, dh) -> (B, S, G, M, dh) with G kv heads, M = H // G: the
+    head counts are the tensors', whole or this rank's blocks."""
     B, S, H, dh = q.shape
-    G = cfg.n_kv_heads
     return q.reshape(B, S, G, H // G, dh)
 
 
@@ -178,19 +179,65 @@ def attend(
         return fa_ops.attention(
             q, k, v, causal=causal, window=window, softcap=cfg.attn_softcap
         )
-    qg = _split_groups(cfg, q)
+    qg = _split_groups(q, k.shape[2])
     if k.shape[1] > CHUNK_THRESHOLD:
         out = _attend_chunked(cfg, qg, k, v, q_pos, k_pos, window, causal)
     else:
         bias = _mask_bias(q_pos, k_pos, window, causal)
         out = _attend_dense(cfg, qg, k, v, bias)
-    return out.reshape(B, Sq, cfg.n_heads, cfg.head_dim_)
+    return out.reshape(q.shape)
 
 
 def out_proj(p: dict, o: torch.Tensor) -> torch.Tensor:
     """(B, S, H, dh) @ (H, dh, d) -> (B, S, d)."""
     H, dh, d = p["wo"].shape
     return o.reshape(*o.shape[:-2], H * dh) @ p["wo"].reshape(H * dh, d)
+
+
+def tp_heads(cfg: ModelConfig, p: dict, x: torch.Tensor, dist=None
+             ) -> Tuple[dict, torch.Tensor, bool, Optional[torch.Tensor]]:
+    """(the weights and the input to compute with, whether the weights are
+    this rank's heads, the KV head each of its query heads reads where the
+    KV heads are whole).
+
+    ``wq``/``wo`` hold all H heads (every rank computes whole) or with
+    ``dist`` the rank's H/n (heads [r·H/n, (r+1)·H/n) over the model axis of
+    n).  Beside the rank's heads ``wk``/``wv`` hold the KV heads of the same
+    range (G/n, aligned: head h reads group h·G/H) or, where G did not
+    split, all G; then each query head's group is picked from them
+    (returned), and the gradients of the whole ``wk``/``wv``, which each
+    rank uses in part, are summed over the model axis; so are the input's,
+    which each rank's heads use in part."""
+    split = tp.is_block("attn/wq heads", p["wq"].shape[-2], cfg.n_heads, dist)
+    if tp.is_block("attn/wo heads", p["wo"].shape[0], cfg.n_heads, dist) != split:
+        raise ValueError(f"attn: wq {tuple(p['wq'].shape)} and wo {tuple(p['wo'].shape)} "
+                         "are not both whole or both blocks")
+    kv_split = tp.is_block("attn/wk heads", p["wk"].shape[-2], cfg.n_kv_heads, dist)
+    if kv_split and not split:
+        raise ValueError(f"attn: wk {tuple(p['wk'].shape)} is a block beside whole heads")
+    if split:
+        x = tp.copy_to_model(x, dist)
+    if not split or kv_split:
+        return p, x, split, None
+    _, r, n = tp.dist_group(dist)
+    H_l = cfg.n_heads // n
+    heads = torch.arange(r * H_l, (r + 1) * H_l, device=p["wq"].device)
+    sel = heads * cfg.n_kv_heads // cfg.n_heads
+    p = dict(p, wk=tp.copy_to_model(p["wk"], dist), wv=tp.copy_to_model(p["wv"], dist))
+    return p, x, split, sel
+
+
+def kv_heads(t: torch.Tensor, sel: Optional[torch.Tensor]) -> torch.Tensor:
+    """K or V (B, S, G, dh) for the query heads: as is, or one head a query
+    head where ``sel`` picks them (:func:`tp_heads`)."""
+    return t if sel is None else t.index_select(2, sel)
+
+
+def attn_out(p: dict, o: torch.Tensor, split: bool, dist=None) -> torch.Tensor:
+    """The output projection; over the model axis where ``split`` (the
+    rank's heads' partial outputs summed)."""
+    out = out_proj(p, o)
+    return tp.reduce_from_model(out, dist) if split else out
 
 
 def self_attention(
@@ -201,11 +248,15 @@ def self_attention(
     *,
     window: int = 0,
     causal: bool = True,
+    dist=None,
 ) -> torch.Tensor:
-    """Full-sequence self-attention (prefill / training forward / encoder)."""
+    """Full-sequence self-attention (prefill / training forward / encoder),
+    on all heads or on this rank's (:func:`tp_heads`)."""
+    p, x, split, sel = tp_heads(cfg, p, x, dist)
     q, k, v = qkv_proj(cfg, p, x, positions)
-    out = attend(cfg, q, k, v, positions, positions, window=window, causal=causal)
-    return out_proj(p, out)
+    out = attend(cfg, q, kv_heads(k, sel), kv_heads(v, sel), positions, positions,
+                 window=window, causal=causal)
+    return attn_out(p, out, split, dist)
 
 
 def cross_attention(
@@ -219,7 +270,7 @@ def cross_attention(
     the flash kernel, as in the JAX package."""
     B, S, _ = x.shape
     k, v = kv
-    qg = _split_groups(cfg, _project(x, p["wq"]))
+    qg = _split_groups(_project(x, p["wq"]), k.shape[2])
     T = k.shape[1]
     if T > CHUNK_THRESHOLD:
         zeros_q = torch.zeros((S,), dtype=torch.int32, device=x.device)
@@ -227,7 +278,7 @@ def cross_attention(
         out = _attend_chunked(cfg, qg, k, v, zeros_q, zeros_k, 0, causal=False)
     else:
         out = _attend_dense(cfg, qg, k, v)
-    return out_proj(p, out.reshape(B, S, cfg.n_heads, cfg.head_dim_))
+    return out_proj(p, out.reshape(B, S, -1, cfg.head_dim_))
 
 
 def cross_kv(cfg: ModelConfig, p: dict, enc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -306,15 +357,18 @@ def decode_attention(
     cache: dict,
     *,
     window: int = 0,
+    dist=None,
 ) -> Tuple[torch.Tensor, dict]:
     """One-token self-attention against the KV cache.  Unlike the JAX
     package, which returns a new cache, this writes the new key, value and
     position into ``cache`` in place and returns the same dict.  The slot is
     picked on the device, as the JAX package's ``jnp.where`` picks it:
     ``pos % capacity`` in a ring (LOCAL), else ``min(pos, capacity - 1)``;
-    nothing reads ``pos`` on the host."""
-    B = x.shape[0]
+    nothing reads ``pos`` on the host.  With ``dist`` and this rank's heads
+    (:func:`tp_heads`) the cache holds the KV heads of ``wk``: the rank's
+    block of them, or all."""
     pos = as_pos(pos, x.device)
+    p, x, split, sel = tp_heads(cfg, p, x, dist)
     q = _project(x, p["wq"])
     k_new = _project(x, p["wk"])
     v_new = _project(x, p["wv"])
@@ -330,8 +384,8 @@ def decode_attention(
     cache["v"].index_copy_(1, slot, v_new)
     cache["pos"].index_copy_(0, slot, pos.view(1))
 
-    qg = _split_groups(cfg, q)  # (B, 1, G, M, dh)
+    k, v = kv_heads(cache["k"], sel), kv_heads(cache["v"], sel)
+    qg = _split_groups(q, k.shape[2])  # (B, 1, G, M, dh)
     bias = _mask_bias(pos_t[0], cache["pos"], window, causal=True)
-    out = _attend_dense(cfg, qg, cache["k"], cache["v"], bias)
-    out = out.reshape(B, 1, cfg.n_heads, cfg.head_dim_)
-    return out_proj(p, out), cache
+    out = _attend_dense(cfg, qg, k, v, bias)
+    return attn_out(p, out.reshape(q.shape), split, dist), cache

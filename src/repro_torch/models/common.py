@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding import tp
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
@@ -152,14 +153,26 @@ def mlp_params(cfg: ModelConfig, gen: torch.Generator, lead: Tuple[int, ...] = (
     }
 
 
-def mlp_apply(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+def mlp_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, dist=None) -> torch.Tensor:
+    """The MLP on whole weights, or with ``dist`` on this rank's FF block:
+    ``w_in``'s columns (a gated one in compute layout, the rank's gate
+    columns beside the same up columns: ``ComputeSharding``) and the same
+    rows of ``w_out``, the partial outputs summed over the model axis."""
+    split = tp.is_block("mlp/w_out rows", p["w_out"].shape[0], cfg.d_ff, dist)
+    cols = 2 * cfg.d_ff if cfg.gated else cfg.d_ff
+    if tp.is_block("mlp/w_in columns", p["w_in"].shape[-1], cols, dist) != split:
+        raise ValueError(f"mlp: w_in {tuple(p['w_in'].shape)} and w_out "
+                         f"{tuple(p['w_out'].shape)} are not both whole or both blocks")
+    if split:
+        x = tp.copy_to_model(x, dist)
     h = x @ p["w_in"]
     if cfg.gated:
         gate, up = h.chunk(2, dim=-1)
         h = activation(cfg, gate) * up
     else:
         h = activation(cfg, h)
-    return h @ p["w_out"]
+    out = h @ p["w_out"]
+    return tp.reduce_from_model(out, dist) if split else out
 
 
 def embed_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
@@ -172,10 +185,11 @@ def embed_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     return p
 
 
-def unembed(cfg: ModelConfig, embed: dict, x: torch.Tensor) -> torch.Tensor:
-    """Logits in f32 (tied head reads the embedding table)."""
-    if cfg.tie_embeddings:
-        logits = x @ embed["tok"].T
-    else:
-        logits = x @ embed["head"]
-    return softcap(logits.float(), cfg.logit_softcap)
+def unembed(cfg: ModelConfig, embed: dict, x: torch.Tensor, dist=None) -> torch.Tensor:
+    """Logits in f32 (tied head reads the embedding table): over the whole
+    vocabulary, or with ``dist`` over this rank's block of it where the
+    table is the rank's block."""
+    table = embed["tok"].T if cfg.tie_embeddings else embed["head"]
+    if tp.is_block("unembedding vocabulary", table.shape[-1], cfg.vocab_padded, dist):
+        x = tp.copy_to_model(x, dist)
+    return softcap((x @ table).float(), cfg.logit_softcap)

@@ -19,7 +19,11 @@ package's jitted decode step.
 
 ``prefill`` and ``decode_step`` take a ``DistContext`` (``dist``): each rank
 then works on its slot of the batch, and the MoE layer runs over the
-expert axes.  A world's collectives run on the host (gloo) or outside any
+expert axes.  Given the rank's blocks over the model axis (the dry-run's
+serving steps), self-attention runs on its heads against its block of the
+KV caches, the MLP on its FF block, and the logits are its vocabulary
+block (``models.transformer``); given whole weights (serve's world) they
+compute whole.  A world's collectives run on the host (gloo) or outside any
 captured graph, so a step of a world is run eagerly; ``DecodeGraph`` is
 for ``dist=None``.
 """
@@ -93,6 +97,19 @@ def _stack(per_rep: list) -> tuple:
     return tuple(_stack_dicts([rep[j] for rep in per_rep]) for j in range(len(per_rep[0])))
 
 
+def _prefill_attention(cfg: ModelConfig, p: dict, h: torch.Tensor, positions: torch.Tensor,
+                       capacity: int, window: int, dist: Optional[DistContext]
+                       ) -> Tuple[torch.Tensor, dict]:
+    """Prefill's self-attention on all heads or this rank's
+    (``attention.tp_heads``): (its output, the KV cache of ``wk``'s heads)."""
+    p, h, split, sel = attn.tp_heads(cfg, p, h, dist)
+    q, k, v = attn.qkv_proj(cfg, p, h, positions)
+    cache = attn.cache_from_kv(k, v, positions, capacity)
+    o = attn.attend(cfg, q, attn.kv_heads(k, sel), attn.kv_heads(v, sel), positions, positions,
+                    window=window)
+    return attn.attn_out(p, o, split, dist), cache
+
+
 def _prefill_layer(
     cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, positions: torch.Tensor,
     enc: Optional[torch.Tensor], capacity: int, dist: Optional[DistContext] = None,
@@ -100,11 +117,9 @@ def _prefill_layer(
     if kind in (ATTN, LOCAL):
         window = cfg.window if kind == LOCAL else 0
         h = apply_norm(cfg, x, p["ln1"])
-        q, k, v = attn.qkv_proj(cfg, p["attn"], h, positions)
         cap = capacity if kind == ATTN else attn.cache_capacity(cfg.window, capacity)
-        cache = attn.cache_from_kv(k, v, positions, cap)
-        o = attn.attend(cfg, q, k, v, positions, positions, window=window)
-        x = x + post_norm(cfg, p, "post_ln1", attn.out_proj(p["attn"], o))
+        a, cache = _prefill_attention(cfg, p["attn"], h, positions, cap, window, dist)
+        x = x + post_norm(cfg, p, "post_ln1", a)
         h = apply_norm(cfg, x, p["ln2"])
         m = feed_forward(cfg, p, h, dist, with_aux=False)[0]
         return x + post_norm(cfg, p, "post_ln2", m), cache
@@ -113,19 +128,17 @@ def _prefill_layer(
         h = apply_norm(cfg, x, p["ln1"])
         x = x + gate(p, "gate_attn", x) * attn.cross_attention(cfg, p["xattn"], h, (ck, cv))
         h = apply_norm(cfg, x, p["ln2"])
-        x = x + gate(p, "gate_mlp", x) * mlp_apply(cfg, p["mlp"], h)
+        x = x + gate(p, "gate_mlp", x) * mlp_apply(cfg, p["mlp"], h, dist)
         return x, {"ck": ck, "cv": cv}
     if kind == ATTNX:
         h = apply_norm(cfg, x, p["ln1"])
-        q, k, v = attn.qkv_proj(cfg, p["attn"], h, positions)
-        kv = attn.cache_from_kv(k, v, positions, capacity)
-        o = attn.attend(cfg, q, k, v, positions, positions)
-        x = x + attn.out_proj(p["attn"], o)
+        a, kv = _prefill_attention(cfg, p["attn"], h, positions, capacity, 0, dist)
+        x = x + a
         ck, cv = attn.cross_kv(cfg, p["xattn"], enc)
         h = apply_norm(cfg, x, p["ln_x"])
         x = x + attn.cross_attention(cfg, p["xattn"], h, (ck, cv))
         h = apply_norm(cfg, x, p["ln2"])
-        return x + mlp_apply(cfg, p["mlp"], h), {"kv": kv, "ck": ck, "cv": cv}
+        return x + mlp_apply(cfg, p["mlp"], h, dist), {"kv": kv, "ck": ck, "cv": cv}
     if kind == RWKV:
         h = apply_norm(cfg, x, p["ln1"])
         y, state = rwkv.rwkv_time_mix_prefill(cfg, p["tm_cm"], h)
@@ -139,7 +152,7 @@ def _prefill_layer(
         y, cache = griffin.rglru_block_prefill(cfg, p["rec"], h)
         x = x + y
         h = apply_norm(cfg, x, p["ln2"])
-        return x + mlp_apply(cfg, p["mlp"], h), cache
+        return x + mlp_apply(cfg, p["mlp"], h, dist), cache
     raise ValueError(kind)
 
 
@@ -153,13 +166,14 @@ def prefill(
     dist: Optional[DistContext] = None,
 ) -> Tuple[torch.Tensor, tuple]:
     """Returns (logits of the last position (B, V) f32, caches); with
-    ``dist``, of this rank's slot of the batch."""
+    ``dist``, of this rank's slot of the batch (and of its vocabulary block
+    and KV heads where the parameters are its blocks over the model axis)."""
     check_supported(cfg)
     S = tokens.shape[1]
     capacity = capacity or S
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
-    enc = frontend_states(cfg, params, frontend)
-    x = _embed_tokens(cfg, params, tokens)
+    enc = frontend_states(cfg, params, frontend, dist)
+    x = _embed_tokens(cfg, params, tokens, dist)
     x = _positions_embed(cfg, params, x, positions)
 
     caches = []
@@ -174,7 +188,7 @@ def prefill(
         caches.append(_stack(per_rep))
 
     x = apply_norm(cfg, x, params["final_norm"])
-    return unembed(cfg, params["embed"], x[:, -1]), tuple(caches)
+    return unembed(cfg, params["embed"], x[:, -1], dist), tuple(caches)
 
 
 def _decode_layer(
@@ -184,7 +198,7 @@ def _decode_layer(
     if kind in (ATTN, LOCAL):
         h = apply_norm(cfg, x, p["ln1"])
         a, _ = attn.decode_attention(cfg, p["attn"], h, pos, cache,
-                                     window=cfg.window if kind == LOCAL else 0)
+                                     window=cfg.window if kind == LOCAL else 0, dist=dist)
         x = x + post_norm(cfg, p, "post_ln1", a)
         h = apply_norm(cfg, x, p["ln2"])
         m = feed_forward(cfg, p, h, dist, with_aux=False)[0]
@@ -194,15 +208,15 @@ def _decode_layer(
         a = attn.cross_attention(cfg, p["xattn"], h, (cache["ck"], cache["cv"]))
         x = x + gate(p, "gate_attn", x) * a
         h = apply_norm(cfg, x, p["ln2"])
-        return x + gate(p, "gate_mlp", x) * mlp_apply(cfg, p["mlp"], h)
+        return x + gate(p, "gate_mlp", x) * mlp_apply(cfg, p["mlp"], h, dist)
     if kind == ATTNX:
         h = apply_norm(cfg, x, p["ln1"])
-        a, _ = attn.decode_attention(cfg, p["attn"], h, pos, cache["kv"])
+        a, _ = attn.decode_attention(cfg, p["attn"], h, pos, cache["kv"], dist=dist)
         x = x + a
         h = apply_norm(cfg, x, p["ln_x"])
         x = x + attn.cross_attention(cfg, p["xattn"], h, (cache["ck"], cache["cv"]))
         h = apply_norm(cfg, x, p["ln2"])
-        return x + mlp_apply(cfg, p["mlp"], h)
+        return x + mlp_apply(cfg, p["mlp"], h, dist)
     if kind == RWKV:
         h = apply_norm(cfg, x, p["ln1"])
         y, _ = rwkv.rwkv_time_mix_decode(cfg, p["tm_cm"], h, cache)
@@ -215,7 +229,7 @@ def _decode_layer(
         y, _ = griffin.rglru_block_decode(cfg, p["rec"], h, cache)
         x = x + y
         h = apply_norm(cfg, x, p["ln2"])
-        return x + mlp_apply(cfg, p["mlp"], h)
+        return x + mlp_apply(cfg, p["mlp"], h, dist)
     raise ValueError(kind)
 
 
@@ -235,14 +249,14 @@ def decode_step(
     the step reads no device value on the host, so it can be captured in a
     CUDA graph and replayed (``DecodeGraph``)."""
     pos = attn.as_pos(pos, token.device)
-    x = _embed_tokens(cfg, params, token)
+    x = _embed_tokens(cfg, params, token, dist)
     x = _positions_embed(cfg, params, x, pos.view(1))
     for group, gp, gc in zip(cfg.groups, params["groups"], caches):
         for i in range(group.count):
             for kind, p, c in zip(group.pattern, layer_params(gp, i), layer_params(gc, i)):
                 x = _decode_layer(cfg, kind, p, x, pos, c, dist)
     x = apply_norm(cfg, x, params["final_norm"])
-    return unembed(cfg, params["embed"], x[:, -1]), caches
+    return unembed(cfg, params["embed"], x[:, -1], dist), caches
 
 
 def _cut(live, target):

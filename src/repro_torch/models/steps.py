@@ -17,14 +17,22 @@ ranges.
 
 With ``dist`` it is the sharded step.  Each rank holds its block of every
 parameter and AdamW moment (by ``sharding.param_shardings``) and its slot
-of the batch.  The step gathers every leaf whole (``train.gather``), runs
-forward and backward on the slot, sums the gradients over the data axes
-and divides (``train.reduce``), keeps the rank's block and applies AdamW
-to the blocks, so that each rank ends with its block of what the
-single-device step computes.  Along the model axis the ranks compute alike
-on the same slot: a leaf is stored split there and computed whole.  The
-global gradient norm counts each element once: a block held by several
-ranks adds its squares divided by their number.
+of the batch.  The step gathers each leaf for compute (``train.gather``,
+``specs.compute_shardings``): a leaf whose products split over the model
+axis (self-attention's, the dense MLP's, the vocabulary's) over its FSDP
+axes only, keeping its model block (a gated ``w_in``'s storage block is
+exchanged into its compute block), any other leaf whole.  Forward and
+backward then split over the model axis as the reference's GSPMD splits
+them (``sharding.tp``: the rank's heads, FF block and vocabulary block,
+one all-reduce per attention block and per MLP, the vocabulary-parallel
+cross-entropy), so each rank's gradient of a split leaf is its model block
+of the whole gradient and of any other leaf the whole gradient.  The step
+sums the gradients over the data axes and divides (``train.reduce``),
+keeps the rank's storage block (exchanging a gated ``w_in``'s back) and
+applies AdamW to the blocks, so that each rank ends with its block of what
+the single-device step computes.  The global gradient norm counts each
+element once: a block held by several ranks adds its squares divided by
+their number.
 """
 from __future__ import annotations
 
@@ -40,6 +48,7 @@ from repro_torch.models.transformer import DistContext, forward, param_shapes
 from repro_torch.obs import trace
 from repro_torch.optim import adamw
 from repro_torch.optim.schedule import warmup_cosine
+from repro_torch.sharding import tp
 
 
 def next_token_loss(
@@ -51,11 +60,11 @@ def next_token_loss(
     dist: Optional[DistContext] = None,
     remat=False,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Mean next-token cross-entropy (+ MoE aux loss)."""
+    """Mean next-token cross-entropy (+ MoE aux loss); over the vocabulary
+    blocks of the model axis where the logits are the rank's block
+    (``tp.vocab_nll``)."""
     logits, aux = forward(cfg, params, tokens, frontend=frontend, dist=dist, remat=remat)
-    logp = torch.log_softmax(logits[:, :-1].to(torch.float32), dim=-1)
-    labels = tokens[:, 1:].long()
-    nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+    nll = tp.vocab_nll(logits[:, :-1], tokens[:, 1:].long(), cfg.vocab_padded, dist)
     ce = nll.mean()
     loss = ce + aux
     return loss, {"loss": loss, "ce": ce, "aux": aux}
@@ -105,19 +114,20 @@ def train_step(
     frontend = batch.get("frontend")
     check_frontend(cfg, frontend)
     remat_mode = run.remat_policy if run.remat else "none"
-    sh = None
+    plan = None
     if dist is None:
         leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
     else:
-        from repro_torch.sharding.specs import param_shardings
+        from repro_torch.sharding.specs import compute_shardings, param_shardings
 
         if shardings is None:
             shardings = param_shardings(param_shapes(cfg, dist.ep_shards), dist.mesh)
-        sh = tree_leaves(shardings)
+        plan = tree_leaves(compute_shardings(shardings, gated=cfg.gated,
+                                             model_axis=dist.model_axis))
         _sync_if_traced(tokens)
         with trace.span("train.gather"):
-            leaves = [s.gather(p.detach()).requires_grad_()
-                      for s, p in zip(sh, tree_leaves(params))]
+            leaves = [c.to_compute(p.detach()).requires_grad_()
+                      for c, p in zip(plan, tree_leaves(params))]
     diff_params = tree_unflatten(params, leaves)
 
     with trace.span("train.grads", microbatches=run.n_microbatches):
@@ -128,7 +138,7 @@ def train_step(
     if dist is not None:
         _sync_if_traced(tokens)
         with trace.span("train.reduce"):
-            metrics, grads, gnorm = _reduce(dist, sh, metrics, grads)
+            metrics, grads, gnorm = _reduce(dist, plan, metrics, grads)
     with trace.span("train.update"):
         grads, gnorm = adamw.clip_by_global_norm(grads, run.grad_clip, gnorm)
         lr = warmup_cosine(
@@ -184,10 +194,11 @@ def _sync_if_traced(t: torch.Tensor) -> None:
         torch.cuda.synchronize(t.device)
 
 
-def _reduce(dist: DistContext, shardings: list, metrics: dict, grads: list):
+def _reduce(dist: DistContext, plan: list, metrics: dict, grads: list):
     """The sharded step's reductions: (metrics averaged over the data axes,
-    this rank's block of each gradient summed over the data axes and
-    divided, the global norm of the whole gradient)."""
+    this rank's storage block of each gradient summed over the data axes and
+    divided, the global norm of the whole gradient).  A split leaf's
+    gradient is already its model block: only that block is reduced."""
     import torch.distributed as tdist
 
     from repro_torch.comms import routes
@@ -202,11 +213,11 @@ def _reduce(dist: DistContext, shardings: list, metrics: dict, grads: list):
         vals = torch.stack([v.detach().float().reshape(()) for v in metrics.values()])
         routes.all_reduce(vals, group)
         metrics = dict(zip(metrics, (vals / dp).unbind()))
-    blocks = [s.shard(g) for s, g in zip(shardings, grads)]
+    blocks = [c.to_storage(g) for c, g in zip(plan, grads)]
     # each element once: a block held by n ranks adds its squares over n
     sq = torch.zeros((1,), dtype=torch.float32, device=blocks[0].device)
-    for s, b in zip(shardings, blocks):
-        sq += torch.sum(torch.square(b.to(torch.float32))) / s.replicas
+    for c, b in zip(plan, blocks):
+        sq += torch.sum(torch.square(b.to(torch.float32))) / c.storage.replicas
     routes.all_reduce(sq, tdist.group.WORLD)
     return metrics, blocks, torch.sqrt(sq[0])
 

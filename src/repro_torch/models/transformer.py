@@ -13,10 +13,18 @@ Distribution: ``DistContext`` carries the mesh (a ``DeviceMesh`` from
 ``repro_torch.launch.mesh``) and its axis names.  Each rank is a process
 that runs ``forward`` on its slot of the batch (its share over the data
 axes where they divide the batch, else the whole batch; ``_dp_spec``) and
-returns its slot of the reference's output.  Dense compute runs whole on
-every rank.  The MoE layer runs ``moe.moe_apply_sharded_inner`` over the
-expert axes with the rank's virtual expert (``_moe_call``); with
-``dist=None`` it is the dense single-device path, the reference's branch.
+returns its slot of the reference's output.  Where the parameters are the
+rank's blocks over the model axis (``specs.ComputeSharding``) the dense
+compute splits over it as the reference's GSPMD splits it
+(``sharding.tp``): self-attention on the rank's heads and the MLP on its FF
+block, each ending in one all-reduce, the embedding and unembedding on its
+vocabulary block (the logits are then that block).  Whole parameters
+compute whole on every rank; each layer tells the two apart by its
+weights' shapes and raises on any other.  Cross-attention and the RWKV and
+RG-LRU blocks compute whole.  The MoE layer runs
+``moe.moe_apply_sharded_inner`` over the expert axes with the rank's
+virtual expert (``_moe_call``); with ``dist=None`` it is the dense
+single-device path, the reference's branch.
 """
 from __future__ import annotations
 
@@ -51,6 +59,7 @@ from repro_torch.models.common import (
     real_generator,
     unembed,
 )
+from repro_torch.sharding import tp
 from repro_torch.sharding.specs import PartitionSpec, Sharding, mesh_shape
 
 
@@ -262,8 +271,9 @@ def _embed_scale(d_model: int, dtype: torch.dtype) -> float:
     return float(torch.tensor(d_model**0.5, dtype=dtype))
 
 
-def _embed_tokens(cfg: ModelConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    x = params["embed"]["tok"][tokens]
+def _embed_tokens(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+                  dist: Optional[DistContext] = None) -> torch.Tensor:
+    x = tp.vocab_embed(params["embed"]["tok"], tokens, cfg.vocab_padded, dist)
     if gemma_forms(cfg):
         x = x * _embed_scale(cfg.d_model, x.dtype)
     return x
@@ -347,7 +357,7 @@ def feed_forward(cfg: ModelConfig, p: dict, h: torch.Tensor,
     drops the aux loss (``with_aux=False``: a world then skips its means)."""
     if cfg.is_moe:
         return _moe_call(cfg, p["moe"], h, dist, with_aux)
-    return mlp_apply(cfg, p["mlp"], h), None
+    return mlp_apply(cfg, p["mlp"], h, dist), None
 
 
 def _apply_layer_full(
@@ -359,7 +369,7 @@ def _apply_layer_full(
     if kind in (ATTN, LOCAL):
         h = apply_norm(cfg, x, p["ln1"])
         a = attn.self_attention(
-            cfg, p["attn"], h, positions, window=cfg.window if kind == LOCAL else 0
+            cfg, p["attn"], h, positions, window=cfg.window if kind == LOCAL else 0, dist=dist
         )
         x = x + post_norm(cfg, p, "post_ln1", a)
         h = apply_norm(cfg, x, p["ln2"])
@@ -372,14 +382,14 @@ def _apply_layer_full(
         a = attn.cross_attention(cfg, p["xattn"], h, attn.cross_kv(cfg, p["xattn"], enc))
         x = x + gate(p, "gate_attn", x) * a
         h = apply_norm(cfg, x, p["ln2"])
-        return x + gate(p, "gate_mlp", x) * mlp_apply(cfg, p["mlp"], h)
+        return x + gate(p, "gate_mlp", x) * mlp_apply(cfg, p["mlp"], h, dist)
     if kind == ATTNX:
         h = apply_norm(cfg, x, p["ln1"])
-        x = x + attn.self_attention(cfg, p["attn"], h, positions)
+        x = x + attn.self_attention(cfg, p["attn"], h, positions, dist=dist)
         h = apply_norm(cfg, x, p["ln_x"])
         x = x + attn.cross_attention(cfg, p["xattn"], h, attn.cross_kv(cfg, p["xattn"], enc))
         h = apply_norm(cfg, x, p["ln2"])
-        return x + mlp_apply(cfg, p["mlp"], h)
+        return x + mlp_apply(cfg, p["mlp"], h, dist)
     if kind == RWKV:
         h = apply_norm(cfg, x, p["ln1"])
         x = x + rwkv.rwkv_time_mix(cfg, p["tm_cm"], h)
@@ -389,11 +399,12 @@ def _apply_layer_full(
         h = apply_norm(cfg, x, p["ln1"])
         x = x + griffin.rglru_block(cfg, p["rec"], h)
         h = apply_norm(cfg, x, p["ln2"])
-        return x + mlp_apply(cfg, p["mlp"], h)
+        return x + mlp_apply(cfg, p["mlp"], h, dist)
     raise ValueError(kind)
 
 
-def _run_encoder(cfg: ModelConfig, params: dict, frontend: torch.Tensor) -> torch.Tensor:
+def _run_encoder(cfg: ModelConfig, params: dict, frontend: torch.Tensor,
+                 dist: Optional[DistContext] = None) -> torch.Tensor:
     """Whisper's encoder: learned positions, then per layer bidirectional
     self-attention (flash with ``causal=False`` when kernels are on) and
     the MLP, each behind its norm; then the final norm."""
@@ -403,19 +414,19 @@ def _run_encoder(cfg: ModelConfig, params: dict, frontend: torch.Tensor) -> torc
     positions = torch.arange(T, dtype=torch.int32, device=frontend.device)
     for p in _unstack(enc_p["layers"], cfg.encoder_layers):
         h = apply_norm(cfg, x, p["ln1"])
-        x = x + attn.self_attention(cfg, p["attn"], h, positions, causal=False)
+        x = x + attn.self_attention(cfg, p["attn"], h, positions, causal=False, dist=dist)
         h = apply_norm(cfg, x, p["ln2"])
-        x = x + mlp_apply(cfg, p["mlp"], h)
+        x = x + mlp_apply(cfg, p["mlp"], h, dist)
     return apply_norm(cfg, x, enc_p["final_norm"])
 
 
-def frontend_states(cfg: ModelConfig, params: dict,
-                    frontend: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+def frontend_states(cfg: ModelConfig, params: dict, frontend: Optional[torch.Tensor],
+                    dist: Optional[DistContext] = None) -> Optional[torch.Tensor]:
     """What the cross-attention layers attend to: the encoder's output where
     the model has an encoder (whisper), the raw patch embeddings for a
     vision-language model, else None."""
     if cfg.encoder_layers:
-        return _run_encoder(cfg, params, frontend)
+        return _run_encoder(cfg, params, frontend, dist)
     if cfg.family == "vlm":
         return frontend
     return None
@@ -467,13 +478,16 @@ def forward(
     losses summed over the layers, times ``AUX_LOSS_COEF``; zero without
     experts.  ``remat`` checkpoints each repetition of a group's pattern
     (``torch.utils.checkpoint``, non-reentrant), as the JAX package's
-    ``jax.checkpoint`` around its scan body.  With ``dist``, ``tokens`` (and
-    ``frontend``) are this rank's slot and so are the logits."""
+    ``jax.checkpoint`` around its scan body; its recompute repeats the
+    forward's all-reduces over the model axis, as GSPMD's remat repeats its
+    collectives.  With ``dist``, ``tokens`` (and ``frontend``) are this
+    rank's slot and so are the logits: of its vocabulary block where the
+    embedding is its block over the model axis."""
     check_supported(cfg)
     S = tokens.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
-    enc = frontend_states(cfg, params, frontend)
-    x = _embed_tokens(cfg, params, tokens)
+    enc = frontend_states(cfg, params, frontend, dist)
+    x = _embed_tokens(cfg, params, tokens, dist)
     x = _positions_embed(cfg, params, x, positions)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for group, gp in zip(cfg.groups, params["groups"]):
@@ -481,4 +495,4 @@ def forward(
         for p_block in unstack_params(gp, group.count):
             x, aux_total = body(x, aux_total, p_block, positions, enc)
     x = apply_norm(cfg, x, params["final_norm"])
-    return unembed(cfg, params["embed"], x), aux_total * AUX_LOSS_COEF
+    return unembed(cfg, params["embed"], x, dist), aux_total * AUX_LOSS_COEF

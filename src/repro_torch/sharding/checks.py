@@ -9,14 +9,17 @@ factors and layouts, and the layouts it refuses) on a world of 8, each rank
 holding its virtual expert of each layer, and returns its slot of the
 logits and the aux loss.  :func:`train_program` runs the sharded
 ``train_step`` twice (the warm-up's step at lr 0, then one that moves the
-weights) for each case of :data:`TRAIN_CASES` on a (2, 4) mesh and returns
-the rank's blocks of the parameters and moments and the steps' metrics.
+weights) for each case of :data:`TRAIN_CASES`, its compute split over
+"model", on a (2, 4) mesh (one case on (1, 8)) and returns the rank's
+blocks of the parameters and moments, the steps' metrics and the
+collectives the first step and a forward pass made.
 The tests hold them against the JAX package's outputs; on the card, a
 world on CUDA tensors is held against a world on the host
 (:func:`compare_moe`, :func:`compare_train`).
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Dict, Optional
 
@@ -49,12 +52,23 @@ MOE_TRAIN_MESH, MOE_TRAIN_SEQ = (2, 4), 32
 
 TRAIN_ARCH = "llama3.2-1b"
 TRAIN_MESH = (2, 4)
-# name -> (dtype, batch, microbatches): the data axes (2) divide 8, not 3
+# name -> (arch, dtype, batch, microbatches, mesh, config changes).  The data
+# axes (2) divide 8, not 3.  gemma2: softcap, LOCAL layers, post-norms, the
+# gelu MLP; olmo: 4 KV heads that split, the non-parametric LN.  12 query
+# heads over 6 KV heads on a model axis of 4: neither divides the other, so
+# wk and wv stay whole beside the rank's 3 query heads, which read 2 of the
+# groups.  On (1, 8) the 4 heads do not split: attention computes whole
+# beside the split MLP and vocabulary.
 TRAIN_CASES = {
-    "f32": ("float32", 8, 1),
-    "f32_microbatches": ("float32", 8, 2),
-    "f32_batch_3": ("float32", 3, 1),
-    "bf16": ("bfloat16", 8, 1),
+    "f32": (TRAIN_ARCH, "float32", 8, 1, TRAIN_MESH, ()),
+    "f32_microbatches": (TRAIN_ARCH, "float32", 8, 2, TRAIN_MESH, ()),
+    "f32_batch_3": (TRAIN_ARCH, "float32", 3, 1, TRAIN_MESH, ()),
+    "bf16": (TRAIN_ARCH, "bfloat16", 8, 1, TRAIN_MESH, ()),
+    "f32_mesh_1x8": (TRAIN_ARCH, "float32", 8, 1, (1, 8), ()),
+    "f32_heads_12_over_6": (TRAIN_ARCH, "float32", 8, 1, TRAIN_MESH,
+                            (("n_heads", 12), ("n_kv_heads", 6))),
+    "gemma2_f32": ("gemma2-9b", "float32", 8, 1, TRAIN_MESH, ()),
+    "olmo_f32": ("olmo-1b", "float32", 8, 1, TRAIN_MESH, ()),
 }
 TRAIN_SEQ = 32
 
@@ -78,13 +92,14 @@ def moe_train_run():
 def train_config(case: str):
     from repro_torch.configs import smoke_config
 
-    return dataclasses.replace(smoke_config(TRAIN_ARCH), dtype=TRAIN_CASES[case][0])
+    arch, dtype, *_, changes = TRAIN_CASES[case]
+    return dataclasses.replace(smoke_config(arch), dtype=dtype, **dict(changes))
 
 
 def train_run(case: str):
     from repro_torch.configs.base import RunConfig
 
-    _, batch, micro = TRAIN_CASES[case]
+    _, _, batch, micro, _, _ = TRAIN_CASES[case]
     return RunConfig(model=train_config(case), seq_len=TRAIN_SEQ, global_batch=batch,
                      n_microbatches=micro, remat=False, warmup_steps=1, total_steps=10,
                      learning_rate=1e-3)
@@ -112,13 +127,13 @@ def moe_inputs(seed: int = 0) -> dict:
 
 
 def train_inputs(seed: int = 0) -> dict:
-    """The port's draw of the train checks' inputs: weights in both dtypes
-    and two (8, TRAIN_SEQ) token batches (the 3-row case takes their first
-    3 rows)."""
+    """The port's draw of the train checks' inputs: each case's weights and
+    two (8, TRAIN_SEQ) token batches (the 3-row case takes their first 3
+    rows)."""
     from repro_torch.models.transformer import init_params
 
-    params = {d: init_params(train_config(c), torch.Generator().manual_seed(seed))
-              for c, (d, _, _) in TRAIN_CASES.items()}
+    params = {c: init_params(train_config(c), torch.Generator().manual_seed(seed))
+              for c in TRAIN_CASES}
     rng = np.random.default_rng(seed)
     tokens = rng.integers(0, train_config("f32").vocab_size, (2, 8, TRAIN_SEQ)).astype(np.int32)
     return {"params": params, "tokens": torch.from_numpy(tokens)}
@@ -197,37 +212,64 @@ def moe_train_program(device: torch.device, inputs: dict) -> dict:
             "nu": tree_map(host, opt.nu), "metrics": metrics}
 
 
+def observed(fn, *args, **kw) -> tuple:
+    """(``fn``'s result, the collectives it made through ``comms.routes``:
+    (operation, bytes read, the global ranks it spans) each, in order)."""
+    from repro_torch.comms import routes
+
+    seen = []
+    routes.observer = lambda op, b_in, b_out, ranks: seen.append((op, b_in, tuple(ranks)))
+    try:
+        return fn(*args, **kw), seen
+    finally:
+        routes.observer = None
+
+
 def train_program(device: torch.device, inputs: dict,
                   cases: Optional[list] = None) -> Dict[str, dict]:
     """Sharded ``train_step``s, one a batch of the inputs' tokens (steps, 8,
-    TRAIN_SEQ), a case of ``TRAIN_CASES`` (or ``cases``) on a (2, 4) mesh
-    from the inputs' weights: this rank's blocks of the new parameters and
-    moments, the step count and each step's metrics."""
+    TRAIN_SEQ), a case of ``TRAIN_CASES`` (or ``cases``) on its mesh from
+    the inputs' weights: this rank's blocks of the new parameters and
+    moments, the step count and each step's metrics; the collectives of the
+    first step (``"step_collectives"``) and of a forward pass on the
+    step's compute tensors (``"forward_collectives"``), and the ranks of
+    this rank's model group."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.convert import tree_map, tree_map2
     from repro_torch.models.steps import train_step
-    from repro_torch.models.transformer import DistContext, batch_slot, param_shapes
+    from repro_torch.models.transformer import DistContext, batch_slot, forward, param_shapes
     from repro_torch.optim import init_state
-    from repro_torch.sharding.specs import param_shardings
+    from repro_torch.sharding.specs import compute_shardings, param_shardings
 
-    mesh = make_mesh(TRAIN_MESH, ("data", "model"), device.type)
-    dist = DistContext(mesh=mesh, dp_axes=("data",))
+    meshes = {}
     out = {}
     for case in cases or TRAIN_CASES:
-        dtype, batch, _ = TRAIN_CASES[case]
+        _, _, batch, _, dims, _ = TRAIN_CASES[case]
+        if dims not in meshes:
+            meshes[dims] = make_mesh(dims, ("data", "model"), device.type)
+        mesh = meshes[dims]
+        dist = DistContext(mesh=mesh, dp_axes=("data",))
         cfg = train_config(case)
         sh = param_shardings(param_shapes(cfg), mesh)
-        blocks = tree_map2(lambda s, t: s.shard(t.to(device)), sh, inputs["params"][dtype])
+        blocks = tree_map2(lambda s, t: s.shard(t.to(device)), sh, inputs["params"][case])
         opt = init_state(blocks)
-        metrics = []
+        metrics, seen = [], None
         for toks in inputs["tokens"][:, :batch]:
-            blocks, opt, m = train_step(cfg, train_run(case), blocks, opt,
-                                        {"tokens": batch_slot(dist, toks.to(device))},
-                                        dist=dist, shardings=sh)
+            toks = batch_slot(dist, toks.to(device))
+            (blocks, opt, m), got = observed(train_step, cfg, train_run(case), blocks, opt,
+                                             {"tokens": toks}, dist=dist, shardings=sh)
+            seen = got if seen is None else seen
             metrics.append({k: float(v) for k, v in m.items()})
+        plan = compute_shardings(sh, gated=cfg.gated)
+        with torch.no_grad():
+            whole = tree_map2(lambda c, t: c.to_compute(t), plan, blocks)
+            _, fwd = observed(forward, cfg, whole, toks, dist=dist)
         host = lambda t: t.detach().float().cpu()  # noqa: E731
         out[case] = {"params": tree_map(host, blocks), "mu": tree_map(host, opt.mu),
-                     "nu": tree_map(host, opt.nu), "step": int(opt.step), "metrics": metrics}
+                     "nu": tree_map(host, opt.nu), "step": int(opt.step), "metrics": metrics,
+                     "step_collectives": seen, "forward_collectives": fwd,
+                     "model_ranks": tuple(torch.distributed.get_process_group_ranks(
+                         mesh.get_group("model")))}
     return out
 
 
@@ -235,22 +277,43 @@ def train_program(device: torch.device, inputs: dict,
 def train_world_report(device: torch.device, cfg, run_cfg, mesh_shape: str, ep_shards: int,
                        kw: dict) -> dict:
     """``launch.train.world_run`` under a tracer: the losses and step walls
-    it returns, the seconds of each ``train.*`` span in order, and the rank's
-    peak device memory (0 on the CPU)."""
+    it returns, the seconds of each ``train.*`` and ``tp.allreduce`` span in
+    order, the calls and bytes of each kind of collective over the run (the
+    FSDP gathers ``all_gather``, the gated MLP's exchange ``send_recv``, the
+    all-reduces over this rank's model group ``model_all_reduce`` and the
+    other ``all_reduce``s: the gradient reduce, the norm; an all-gather's
+    bytes those it writes, any other's those it reads), and the rank's peak
+    device memory (0 on the CPU)."""
+    from repro_torch.comms import routes
     from repro_torch.launch import train
     from repro_torch.obs import trace
 
+    from repro_torch.launch.mesh import mesh_dims
+
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
+    world, rank = torch.distributed.get_world_size(), torch.distributed.get_rank()
+    m = mesh_dims(mesh_shape, world)[0][-1]  # "model" is the mesh's last axis
+    model = tuple(range(rank - rank % m, rank - rank % m + m)) if 1 < m < world else ()
+    calls, nbytes = collections.Counter(), collections.Counter()
+
+    def seen(op, b_in, b_out, ranks):
+        kind = "model_all_reduce" if op == "all_reduce" and tuple(ranks) == model else op
+        calls[kind] += 1
+        nbytes[kind] += b_out if op == "all_gather" else b_in
+
     tracer = trace.start(name="train")
+    routes.observer = seen
     try:
         losses, walls = train.world_run(device, cfg, run_cfg, mesh_shape, ep_shards, kw)
     finally:
+        routes.observer = None
         trace.stop()
     spans = [(e["name"], e["dur"] * 1e-6) for e in tracer.events
              if e.get("ph") == "X" and e.get("pid") == 0]
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
-    return {"losses": losses, "walls": walls, "spans": spans, "peak_bytes": peak}
+    return {"losses": losses, "walls": walls, "spans": spans, "peak_bytes": peak,
+            "collective_calls": dict(calls), "collective_bytes": dict(nbytes)}
 
 
 # -- a world on the card against a world on the host --------------------------
@@ -312,13 +375,15 @@ def compare_moe(card: list, host: list) -> tuple:
 
 def compare_train(card: list, host: list) -> tuple:
     """(the largest block gap of each case, the disagreements) between two
-    worlds' :func:`train_program` outputs: f32 blocks at 1e-4 of each leaf's
-    largest magnitude and losses at 1e-4; bf16 at the reference's bounds."""
+    worlds' :func:`train_program` outputs (of the cases they ran): f32
+    blocks at 1e-4 of each leaf's largest magnitude and losses at 1e-4;
+    bf16 at the reference's bounds."""
     from repro_torch.models.convert import tree_leaves
 
     worst, bad = {}, []
     for r, (c_rank, h_rank) in enumerate(zip(card, host)):
-        for case, (dtype, _, _) in TRAIN_CASES.items():
+        for case in c_rank:
+            dtype = TRAIN_CASES[case][1]
             c, h = c_rank[case], h_rank[case]
             gap, loss = _blocks_gap(c, h), _loss_gap(c, h)
             worst[case] = max(worst.get(case, 0.0), gap)

@@ -30,6 +30,10 @@ reference's ``_path_str`` strings (``groups/0/0/attn/wq``).  In a
 ``Sharding.shard`` takes it from the whole leaf by the rank's coordinates
 on the mesh, and ``Sharding.gather`` puts the whole leaf back together with
 all-gathers over the spec's axes (through ``comms.routes``).
+``compute_shardings`` says how a step computes with each leaf: the leaves
+whose products split over "model" (``SPLIT_COMPUTE``: self-attention, the
+dense MLP, the vocabulary; ``sharding.tp``) keep their model block and are
+gathered over their other axes only; every other leaf is gathered whole.
 """
 from __future__ import annotations
 
@@ -325,6 +329,89 @@ def param_shardings(
         return Sharding(mesh, spec)
 
     return map_with_path(one, params_shape)
+
+
+# --------------------------------------------------------------------------
+# Split compute: the leaves whose products split over the model axis.
+# --------------------------------------------------------------------------
+
+# self-attention's projections (not cross-attention's), the dense MLP (not
+# the experts' or the recurrent blocks'), and the vocabulary: a step computes
+# with the rank's block of these over the model axis (``sharding.tp``); it
+# gathers any other leaf whole, and these too where the axis left them whole
+SPLIT_COMPUTE = re.compile(r"(^|/)(attn/w[qkvo]|mlp/w_(in|out)|embed/(tok|head))$")
+
+
+@dataclasses.dataclass(frozen=True)
+class ComputeSharding:
+    """How a step computes with a leaf stored by ``storage``: it gathers the
+    leaf by ``gather`` (the storage spec, or for a leaf split in compute the
+    storage spec without the model axis: only the FSDP axes), and where
+    ``exchange`` (a gated MLP's ``w_in`` split over the model axis) turns
+    the storage block's contiguous [gate | up] columns into the compute
+    block, the rank's gate columns beside the same up columns."""
+
+    storage: Sharding
+    gather: Sharding
+    exchange: bool = False
+    model_axis: str = "model"
+
+    def to_compute(self, block: torch.Tensor) -> torch.Tensor:
+        """The tensor the step computes with, from this rank's storage block.
+        Collective."""
+        out = self.gather.gather(block)
+        if self.exchange:
+            from repro_torch.sharding import tp
+
+            out = tp.gated_to_compute(out, self.storage.mesh, self.model_axis)
+        return out
+
+    def to_storage(self, grad: torch.Tensor) -> torch.Tensor:
+        """This rank's storage block of ``grad``, a gradient of the compute
+        tensor already summed over the data axes.  Collective where
+        ``exchange``."""
+        out = self.gather.shard(grad)
+        if self.exchange:
+            from repro_torch.sharding import tp
+
+            out = tp.gated_to_storage(out, self.storage.mesh, self.model_axis)
+        return out
+
+
+def _without(spec: PartitionSpec, axis: str) -> PartitionSpec:
+    def entry(e):
+        kept = tuple(a for a in _entry_axes(e) if a != axis)
+        return None if not kept else kept if isinstance(e, tuple) else kept[0]
+
+    return P(*(entry(e) for e in spec))
+
+
+def compute_shardings(shardings: Any, *, gated: bool, model_axis: str = "model"):
+    """A tree of :class:`ComputeSharding` over a tree of storage
+    :class:`Sharding` (``param_shardings``'s).  A leaf of ``SPLIT_COMPUTE``
+    split over ``model_axis`` keeps its model block; the MLP's ``w_in`` and
+    ``w_out`` keep theirs only together (an FF width whose 2·ff divides the
+    axis but ff does not computes whole).  ``gated``: the config's MLP is
+    gated, its ``w_in`` [gate | up]."""
+    by_path: Dict[str, Sharding] = {}
+    map_with_path(by_path.__setitem__, shardings)
+
+    def split(path: str) -> bool:
+        return bool(SPLIT_COMPUTE.search(path)) and any(
+            model_axis in _entry_axes(e) for e in by_path[path].spec)
+
+    def one(path: str, s: Sharding) -> ComputeSharding:
+        keep = split(path)
+        if keep and path.endswith(("mlp/w_in", "mlp/w_out")):
+            base = path.rsplit("/", 1)[0]
+            keep = split(base + "/w_in") and split(base + "/w_out")
+        if not keep:
+            return ComputeSharding(s, s, model_axis=model_axis)
+        return ComputeSharding(s, Sharding(s.mesh, _without(s.spec, model_axis)),
+                               exchange=gated and path.endswith("mlp/w_in"),
+                               model_axis=model_axis)
+
+    return map_with_path(one, shardings)
 
 
 # --------------------------------------------------------------------------

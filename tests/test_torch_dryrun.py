@@ -6,8 +6,10 @@ in one module fixture.  Checked: the meta fields of every arch x shape x mesh
 cell (and the serving layout of the MoE archs) against the reference's
 ``build_cell``; the cheapest cell end to end through the CLI, its record read
 by ``benchmarks/roofline.py::terms``; a cell whose ``dot_flops`` is computed
-by hand; the collective tiers of a training cell on one pod and on two; and
-the failure and ``--skip-existing`` handling.
+by hand; the per-rank ``dot_flops`` of seven dense-decoder cells against
+the reference's own dry-run (both split the products over "model"); the
+collective tiers of a training cell on one pod and on two; and the failure
+and ``--skip-existing`` handling.
 """
 import importlib.util
 import json
@@ -48,14 +50,29 @@ for mk in ("single", "multi"):
 print(json.dumps(out))
 """
 
-# the cells whose records the tests read, and the failure handling
+# the dense-decoder cells whose per-rank dot_flops both packages count:
+# (arch, shape, mesh)
+FLOP_CELLS = [("llama3.2-1b", "train_4k", "single"), ("llama3.2-1b", "prefill_32k", "single"),
+              ("llama3.2-1b", "decode_32k", "single"), ("olmo-1b", "prefill_32k", "single"),
+              ("gemma2-9b", "train_4k", "single"), ("codeqwen1.5-7b", "decode_32k", "single"),
+              ("llama3.2-1b", "train_4k", "multi")]
+
+# one package's dry-run of FLOP_CELLS, its CLI in one process; {pkg} is
+# repro or repro_torch (the reference's main reads sys.argv)
+_FLOP_CELLS = """
+import json, sys
+from {pkg}.launch import dryrun
+out, cells = sys.argv[1], json.loads(sys.argv[2])
+for arch, shape, mesh in cells:
+    sys.argv = ["dryrun", "--arch", arch, "--shape", shape, "--mesh", mesh, "--out", out]
+    dryrun.main()
+"""
+
+# the other cells whose records the tests read, and the failure handling
 _CELLS = """
 import json, os, sys
 from repro_torch.launch import dryrun
 out = sys.argv[1]
-for argv in (["--arch", "llama3.2-1b", "--shape", "decode_32k", "--mesh", "single"],
-             ["--arch", "llama3.2-1b", "--shape", "train_4k", "--mesh", "both"]):
-    dryrun.main(argv + ["--out", out])
 fail = os.path.join(out, "fail")
 try:
     dryrun.main(["--arch", "no-such-arch", "--shape", "decode_32k", "--out", fail])
@@ -106,6 +123,10 @@ def runs(tmp_path_factory):
         "cli": _start(["-m", "repro_torch.launch.dryrun", "--arch", "rwkv6-1.6b", "--shape",
                        "long_500k", "--mesh", "multi", "--out", str(tmp / "cli")]),
         "cells": _start(["-c", _CELLS, str(tmp / "cells")]),
+        "ref_flops": _start(["-c", _FLOP_CELLS.format(pkg="repro"), str(tmp / "ref"),
+                             json.dumps(FLOP_CELLS)]),
+        "port_flops": _start(["-c", _FLOP_CELLS.format(pkg="repro_torch"), str(tmp / "port"),
+                              json.dumps(FLOP_CELLS)]),
     }
     try:
         done = {name: _finish(p) for name, p in procs.items()}
@@ -167,29 +188,48 @@ def test_cheapest_cell_end_to_end(runs):
 
 def test_decode_cell_dot_flops_by_hand(runs):
     """llama3.2-1b decode_32k single: this rank's 128/16 tokens through every
-    layer's products with whole weights (the port computes a leaf split over
-    "model" whole), the tied unembedding, and attention over the 32768-deep
-    cache (QK^T and PV)."""
+    layer's products on its blocks over "model" (its 32/16 query heads and
+    16/16 KV heads, its 8192/16 FF columns), its 1/16 of the tied
+    unembedding, and its heads' attention over the 32768-deep cache (QK^T
+    and PV): 3.41678e9, the reference's."""
     tmp, done = runs
-    _ok(done["cells"])
-    rec = _record(tmp / "cells" / "llama3.2-1b__decode_32k__single__baseline.json")
+    _ok(done["port_flops"])
+    rec = _record(tmp / "port" / "llama3.2-1b__decode_32k__single__baseline.json")
     cfg, _ = tp_adapt(tcfgs.get_config("llama3.2-1b"), 16)
-    d, dh, H, G, ff = cfg.d_model, cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+    tp = 16
+    d, dh, ff = cfg.d_model, cfg.head_dim_, cfg.d_ff // tp
+    H, G = cfg.n_heads // tp, cfg.n_kv_heads // tp
     T, S = 128 // 16, 32768
-    assert cfg.tie_embeddings and cfg.gated and G == 16
+    assert cfg.tie_embeddings and cfg.gated and G == 1
     weights = d * H * dh + 2 * d * G * dh + H * dh * d + 3 * d * ff
     want = (cfg.n_layers * (2 * T * weights + 4 * T * S * H * dh)
-            + 2 * T * d * cfg.vocab_padded)
+            + 2 * T * d * cfg.vocab_padded // tp)
+    assert want == pytest.approx(3.41678e9, rel=1e-5)
     assert rec["hlo_cost"]["dot_flops"] == pytest.approx(want, rel=0.01)
+
+
+@pytest.mark.parametrize("cell", FLOP_CELLS, ids=["/".join(c) for c in FLOP_CELLS])
+def test_dot_flops_equal_the_reference_s(runs, cell):
+    """Each rank's dot FLOPs of a dense-decoder cell are the reference's
+    (its GSPMD splits the products over "model"; the port splits them
+    alike): within 1%."""
+    tmp, done = runs
+    _ok(done["ref_flops"])
+    _ok(done["port_flops"])
+    name = "__".join(cell) + "__baseline.json"
+    ref, port = _record(tmp / "ref" / name), _record(tmp / "port" / name)
+    assert ref["ok"] is True and port["ok"] is True
+    assert port["hlo_cost"]["dot_flops"] == pytest.approx(ref["hlo_cost"]["dot_flops"],
+                                                          rel=1e-2)
 
 
 def test_train_collectives_cross_pods_only_on_two(runs):
     """llama3.2-1b train_4k: no DCN bytes on one pod; on two the data-parallel
     gradient reduce spans the pods."""
     tmp, done = runs
-    _ok(done["cells"])
-    single = _record(tmp / "cells" / "llama3.2-1b__train_4k__single__baseline.json")
-    multi = _record(tmp / "cells" / "llama3.2-1b__train_4k__multi__baseline.json")
+    _ok(done["port_flops"])
+    single = _record(tmp / "port" / "llama3.2-1b__train_4k__single__baseline.json")
+    multi = _record(tmp / "port" / "llama3.2-1b__train_4k__multi__baseline.json")
     assert single["ok"] is True and multi["ok"] is True
     assert single["hlo_cost"]["collective_dcn_bytes"] == 0
     assert single["hlo_cost"]["collective_ici_bytes"] > 0

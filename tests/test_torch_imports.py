@@ -43,7 +43,7 @@ DISTRIBUTION = ["repro_torch.comms.allreduce", "repro_torch.comms.alltoall",
                 "repro_torch.comms.allgather", "repro_torch.comms.p2p",
                 "repro_torch.comms.overlap", "repro_torch.optim.compress",
                 "repro_torch.launch.mesh", "repro_torch.sharding.specs",
-                "repro_torch.sharding.checks", "repro_torch.sharding.__init__",
+                "repro_torch.sharding.tp", "repro_torch.sharding.checks", "repro_torch.sharding.__init__",
                 "repro_torch.runtime.fault", "repro_torch.runtime.elastic",
                 "repro_torch.runtime.checks", "repro_torch.launch.dryrun",
                 "repro_torch.launch.hlo_analysis"]
@@ -51,8 +51,9 @@ DISTRIBUTION = ["repro_torch.comms.allreduce", "repro_torch.comms.alltoall",
 
 def test_distribution_modules_are_in_the_port():
     """The collectives, compression, the mesh helpers, the collective timer,
-    the sharding rules, the recovery modules, the dry-run and the cost
-    counter are port modules, so the two tests above walk them."""
+    the sharding rules, the split compute's operators, the recovery modules,
+    the dry-run and the cost counter are port modules, so the two tests
+    above walk them."""
     for name in DISTRIBUTION:
         assert (SRC / (name.replace(".", "/") + ".py")).is_file(), name
     assert "def bench_allreduce(" in (PORT / "core" / "benchmark.py").read_text()
