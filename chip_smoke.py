@@ -95,11 +95,16 @@ Phases, each printing its own lines, any failure ending the run non-zero:
                (b) llama3.2-1b at full width trained 3 steps over a (2, 2)
                world, its compute split over "model" (``sharding.tp``), its
                first loss within 2e-2 of phase 8's, with each step's gather,
-               forward and backward, model all-reduce, gradient reduce and
+               forward and backward, model collectives, gradient reduce and
                update seconds and each kind of collective's calls and bytes
-               a step; (c) the CPU
-               tests' world programs (expert-parallel cases, sharded train
-               steps) at smoke width, a card world against a host world.
+               a step; then, in the same world, rwkv6-1.6b the same way
+               (B=4 S=128, 2 steps, its time-mix and channel-mix split), its
+               first loss within 2e-2 of one device's on the same weights
+               and batch; (c) the
+               CPU tests' world programs (expert-parallel cases, sharded
+               train steps, llama-vision's and rwkv's among them) at smoke
+               width, a card world against a host world (each program pair
+               in one world a device).
  13. recovery — (a) llama3.2-1b at full width trained under
                ``runtime.run_with_recovery`` through an injected fault and a
                host loss (``shrink_and_replan``, a seeded backoff), its final
@@ -117,12 +122,12 @@ Phases, each printing its own lines, any failure ending the run non-zero:
                drills on mesh (2, 1) at full width: phase 10's drill lines,
                the unshed rows of the run without drills, the eager steps.
  14. dryrun  — the dry-run and the cost counter: ``python -m
-               repro_torch.launch.dryrun`` on llama3.2-1b ``decode_32k``
-               ``single`` in a child process (a fake world of 256 ranks on
-               meta tensors; this machine has no JAX), its record's
-               compute (the per-rank dot FLOPs of the products split over
-               "model", within 1% of the reference's), collectives, memory
-               and ICI/DCN bytes; the counter over one
+               repro_torch.launch.dryrun`` on llama3.2-1b's and
+               rwkv6-1.6b's ``decode_32k`` ``single`` in a child process (a
+               fake world of 256 ranks on meta tensors; this machine has no
+               JAX), each record's compute (the per-rank dot FLOPs of the
+               products split over "model", within 1% of the reference's),
+               collectives, memory and ICI/DCN bytes; the counter over one
                full-width llama3.2-1b prefill on the card (B=4, prompt
                512, bf16, kernels off), its matmul FLOPs within 1% of
                torch.profiler's own estimate for the same call, both beside
@@ -257,7 +262,11 @@ SHARD_MESH, SHARD_RANKS, SHARD_STEPS, SHARD_WARMUP = "2,2", 4, 3, 1
 SHARD_LOSS_TOL = 2e-2  # the reference's (tests/_multidevice_checks.py:164)
 # 12(c)'s sharded train cases on the card (each splits its compute over
 # "model"; the CPU tests run every case of sharding.checks.TRAIN_CASES)
-CARD_TRAIN_CASES = ["f32", "f32_microbatches", "f32_batch_3", "bf16"]
+CARD_TRAIN_CASES = ["f32", "f32_microbatches", "f32_batch_3", "bf16", "vision_f32",
+                    "rwkv_f32"]
+# 12(b)'s RWKV leg: rwkv6-1.6b at full width over the same (2, 2) world,
+# its time-mix and channel-mix split over "model" (32 heads, 2 a rank)
+RWKV_TRAIN_ARCH, RWKV_TRAIN_B, RWKV_TRAIN_S, RWKV_TRAIN_STEPS = "rwkv6-1.6b", 4, 128, 2
 RANKS_TIMEOUT = 900.0
 COLL_FIT_SIZES = tuple(4096 * 4 ** j for j in range(8))
 COLL_AUTOTUNE_SIZES = (1 << 20, 1 << 26)
@@ -2068,65 +2077,96 @@ def phase_ranks_serve(gpu: str) -> None:
                  f" | {gpu}")
 
 
-def phase_ranks_train(gpu: str, single_loss0: float) -> None:
-    """12(b): llama3.2-1b at full width trained over a (2, 2) world on the
-    card, its first loss held to phase 8's single-device step."""
+def _train_leg(arch: str, B: int, S: int, steps: int) -> tuple:
+    """(config, run config, world_run's kw) of a 12(b) leg: ``arch`` at full
+    width, bf16, trained ``steps`` steps from seed 0."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import RunConfig
+
+    cfg = get_config(arch)
+    run_cfg = RunConfig(model=cfg, seq_len=S, global_batch=B, n_microbatches=1,
+                        warmup_steps=SHARD_WARMUP, total_steps=steps)
+    return cfg, run_cfg, dict(seed=0, steps=steps, checkpoint_dir="", checkpoint_every=50,
+                              log_every=1)
+
+
+def phase_ranks_train(gpu: str, single_loss0: float) -> None:
+    """12(b): llama3.2-1b and rwkv6-1.6b at full width trained over a (2, 2)
+    world on the card (one world, in turn), each first loss held to the
+    single-device step's on the same weights and batch: phase 8's for
+    llama, ``launch.train.run``'s, taken here first, for rwkv6."""
+    from repro_torch.launch import train
     from repro_torch.launch.mesh import run_entry_world
     from repro_torch.sharding import checks as shard_checks
 
-    cfg = get_config(TRAIN_ARCH)
-    B, S = TRAIN_SETTINGS[0][1:3]
-    run_cfg = RunConfig(model=cfg, seq_len=S, global_batch=B, n_microbatches=1,
-                        warmup_steps=SHARD_WARMUP, total_steps=SHARD_STEPS)
-    kw = dict(seed=0, steps=SHARD_STEPS, checkpoint_dir="", checkpoint_every=50, log_every=1)
+    legs = [_train_leg(TRAIN_ARCH, *TRAIN_SETTINGS[0][1:3], SHARD_STEPS),
+            _train_leg(RWKV_TRAIN_ARCH, RWKV_TRAIN_B, RWKV_TRAIN_S, RWKV_TRAIN_STEPS)]
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg, run_cfg, _ = legs[1]
+    losses, _ = train.run(cfg, run_cfg, seed=0, steps=1, device="cuda", log_every=1)
+    singles = [(single_loss0, "phase 8"), (losses[0], "launch.train.run")]
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("ranks", f"{cfg.name} one device's first loss {losses[0]:.6f} in "
+                 f"{time.perf_counter() - t0:.1f} s | {gpu}")
     zero_counts()
     t0 = time.perf_counter()
-    out = run_entry_world(shard_checks.train_world_report, SHARD_RANKS, cfg, run_cfg,
-                          SHARD_MESH, 1, kw, device="cuda")
+    outs = run_entry_world(shard_checks.train_world_reports, SHARD_RANKS,
+                           [(cfg, run_cfg, SHARD_MESH, 1, kw) for cfg, run_cfg, kw in legs],
+                           device="cuda")
     wall = time.perf_counter() - t0
+    for i, ((cfg, run_cfg, kw), (loss0, single)) in enumerate(zip(legs, singles)):
+        _say_train_leg(gpu, cfg.name, run_cfg.global_batch, run_cfg.seq_len, kw["steps"],
+                       loss0, single, [o[i] for o in outs])
+    say("ranks", f"12(b) world wall {wall:.1f} s for {len(legs)} legs | {gpu}")
+
+
+def _say_train_leg(gpu: str, name: str, B: int, S: int, steps: int, single_loss0: float,
+                   single: str, out: list) -> None:
+    """Hold one 12(b) leg's first loss to ``single_loss0`` and print its
+    spans and collectives (``out``: every rank's ``train_world_report``)."""
     losses = out[0]["losses"]
     if any(o["losses"] != losses for o in out) or not all(np.isfinite(losses)):
-        raise AssertionError(f"sharded train losses {[o['losses'] for o in out]}")
+        raise AssertionError(f"{name} sharded train losses {[o['losses'] for o in out]}")
     dist0 = abs(losses[0] - single_loss0)
     if not dist0 < SHARD_LOSS_TOL:
-        raise AssertionError(f"sharded first loss {losses[0]} against phase 8's "
+        raise AssertionError(f"{name} sharded first loss {losses[0]} against {single}'s "
                              f"{single_loss0}: {dist0} (tol {SHARD_LOSS_TOL})")
     spans = collections.defaultdict(list)
-    model_ms = 0.0  # a step's model all-reduces: their spans close inside its train.grads
-    for name, sec in out[0]["spans"]:
-        if name == "tp.allreduce":
+    model_ms = 0.0  # a step's model collectives: their spans close inside its train.grads
+    for span, sec in out[0]["spans"]:
+        if span.startswith("tp."):
             model_ms += sec * 1e3
             continue
-        spans[name].append(sec * 1e3)
-        if name == "train.grads":
-            spans["tp.allreduce"].append(model_ms)
+        spans[span].append(sec * 1e3)
+        if span == "train.grads":
+            spans["tp"].append(model_ms)
             model_ms = 0.0
     calls, nbytes = out[0]["collective_calls"], out[0]["collective_bytes"]
 
     def per_step(kind: str) -> str:
-        return (f"{calls.get(kind, 0) / SHARD_STEPS:g} calls "
-                f"{nbytes.get(kind, 0) / SHARD_STEPS / 1e9:.4f} GB")
+        return (f"{calls.get(kind, 0) / steps:g} calls "
+                f"{nbytes.get(kind, 0) / steps / 1e9:.4f} GB")
 
-    say("ranks", f"{cfg.name} bf16 B={B} S={S} over {SHARD_RANKS} gloo ranks (mesh "
-                 f"{SHARD_MESH}), {SHARD_STEPS} steps warmup {SHARD_WARMUP}: losses "
-                 f"{[round(x, 4) for x in losses]}; first loss {losses[0]:.6f} against phase 8's "
+    say("ranks", f"{name} bf16 B={B} S={S} over {SHARD_RANKS} gloo ranks (mesh "
+                 f"{SHARD_MESH}), {steps} steps warmup {SHARD_WARMUP}: losses "
+                 f"{[round(x, 4) for x in losses]}; first loss {losses[0]:.6f} against {single}'s "
                  f"single-device {single_loss0:.6f}: {dist0:.2e} (tol {SHARD_LOSS_TOL}) | {gpu}")
-    say("ranks", f"{cfg.name} sharded step, compute split over 'model', walls (s) "
+    say("ranks", f"{name} sharded step, compute split over 'model', walls (s) "
                  f"{_per_rank(out[0]['walls'])}; per step (ms) gather "
                  f"{_per_rank(spans['train.gather'], '{:.1f}')}, forward and backward "
-                 f"{_per_rank(spans['train.grads'], '{:.1f}')} (of it model all-reduces "
-                 f"{_per_rank(spans['tp.allreduce'], '{:.1f}')}), gradient reduce "
+                 f"{_per_rank(spans['train.grads'], '{:.1f}')} (of it model collectives "
+                 f"{_per_rank(spans['tp'], '{:.1f}')}), gradient reduce "
                  f"{_per_rank(spans['train.reduce'], '{:.1f}')}, update "
                  f"{_per_rank(spans['train.update'], '{:.1f}')}; rank 0's collectives a step: "
                  f"all-gathers {per_step('all_gather')}, w_in exchanges "
                  f"{per_step('send_recv')}, model all-reduces {per_step('model_all_reduce')}, "
-                 f"other all-reduces {per_step('all_reduce')}; peak memory a rank (GB) "
-                 f"{_per_rank([o['peak_bytes'] / 1e9 for o in out])}; world wall {wall:.1f} s "
-                 f"| {gpu}")
+                 f"model reduce-scatters {per_step('model_reduce_scatter')}, model all-gathers "
+                 f"{per_step('model_all_gather')}, other all-reduces {per_step('all_reduce')}; "
+                 f"peak memory a rank (GB) {_per_rank([o['peak_bytes'] / 1e9 for o in out])}"
+                 f" | {gpu}")
 
 
 def phase_ranks_checks(gpu: str) -> None:
@@ -2139,20 +2179,20 @@ def phase_ranks_checks(gpu: str) -> None:
     from repro_torch.sharding import checks as shard_checks
 
     W = shard_checks.WORLD
-    for name, program, inputs, args, compare, bounds in (
-            ("expert-parallel", shard_checks.moe_program, shard_checks.moe_inputs, (),
-             shard_checks.compare_moe,
+    args = (shard_checks.moe_inputs(), shard_checks.train_inputs(), CARD_TRAIN_CASES)
+    card = run_world(shard_checks.ranks_program, W, *args, device="cuda", timeout=RANKS_TIMEOUT)
+    host = run_world(shard_checks.ranks_program, W, *args, device="cpu", timeout=RANKS_TIMEOUT)
+    for name, key, compare, bounds in (
+            ("expert-parallel", "moe", shard_checks.compare_moe,
              f"logits and aux f32 {shard_checks.CARD_TOL['float32']}, bf16 "
              f"{shard_checks.CARD_TOL['bfloat16']}; the train steps' blocks "
              f"{shard_checks.EP_TRAIN_TOL} of a leaf's largest magnitude; refused layouts "
              "raise the same ValueError on both"),
-            ("sharded train", shard_checks.train_program, shard_checks.train_inputs,
-             (CARD_TRAIN_CASES,), shard_checks.compare_train,
-             f"f32 blocks 1e-4 of a leaf's largest magnitude; bf16 parameters and loss "
+            ("sharded train", "train", shard_checks.compare_train,
+             f"f32 blocks {shard_checks.F32_TOL} of a leaf's largest magnitude, RWKV's "
+             f"{shard_checks.RWKV_F32_TOL}; bf16 parameters and loss "
              f"{shard_checks.TRAIN_BF16}")):
-        card = run_world(program, W, inputs(), *args, device="cuda", timeout=RANKS_TIMEOUT)
-        host = run_world(program, W, inputs(), *args, device="cpu", timeout=RANKS_TIMEOUT)
-        worst, bad = compare(card, host)
+        worst, bad = compare([r[key] for r in card], [r[key] for r in host])
         if bad:
             raise AssertionError(f"{name} checks, card against host: {bad}")
         say("ranks", f"{name} checks, {W} ranks on the card against {W} on the host: "
@@ -2164,10 +2204,14 @@ def phase_ranks(gpu: str, single_loss0: float) -> None:
     """Phase 12: the model across ranks on the card (see the module
     docstring)."""
     t0 = time.perf_counter()
-    phase_ranks_serve(gpu)
-    phase_ranks_train(gpu, single_loss0)
-    phase_ranks_checks(gpu)
-    say("ranks", f"ok in {time.perf_counter() - t0:.1f} s")
+    walls = []
+    for part in (phase_ranks_serve, lambda g: phase_ranks_train(g, single_loss0),
+                 phase_ranks_checks):
+        t1 = time.perf_counter()
+        part(gpu)
+        walls.append(time.perf_counter() - t1)
+    say("ranks", f"ok in {time.perf_counter() - t0:.1f} s (a {walls[0]:.1f}, b "
+                 f"{walls[1]:.1f}, c {walls[2]:.1f})")
 
 
 # -- phase 13: recovery and elastic re-scale -----------------------------------
@@ -2529,33 +2573,45 @@ def phase_mesh_drills(gpu: str, one_card_lines: list) -> None:
     fresh_planner()
 
 
-DRYRUN_CELL = ("llama3.2-1b", "decode_32k", "single")
+# the dry-run's cells in phase 14's child, each with the reference's own
+# per-rank dot FLOPs (its GSPMD splits the products over "model", RWKV's
+# time-mix and channel-mix too; tests/test_torch_dryrun.py holds the port
+# to them)
+DRYRUN_CELLS = {("llama3.2-1b", "decode_32k", "single"): 3.41678e9,
+                ("rwkv6-1.6b", "decode_32k", "single"): 1.45228e9}
 DRYRUN_TIMEOUT = 300.0
-# the reference's own dry-run of DRYRUN_CELL, per rank (its GSPMD splits the
-# products over "model"; tests/test_torch_dryrun.py holds the port to it)
-DRYRUN_REF_DOT_FLOPS = 3.41678e9
+# the child: each cell through the dry-run's CLI, one process
+_DRYRUN_CHILD = """
+import json, sys
+from repro_torch.launch import dryrun
+out = sys.argv[1]
+for arch, shape, mesh in json.loads(sys.argv[2]):
+    dryrun.main(["--arch", arch, "--shape", shape, "--mesh", mesh, "--out", out])
+"""
 COUNT_ARCH, COUNT_B, COUNT_P = "llama3.2-1b", 4, 512
 COUNT_TOL = 0.01  # the counter's matmul FLOPs against torch.profiler's
 MATMUL_EVENTS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
 
 
-def dryrun_cell() -> tuple:
-    """(The record of ``DRYRUN_CELL`` from ``python -m
-    repro_torch.launch.dryrun`` in a child process, the child's seconds)."""
+def dryrun_cells() -> tuple:
+    """({cell: its record} of ``DRYRUN_CELLS`` from ``repro_torch.launch.dryrun``
+    in one child process, the child's seconds)."""
     t0 = time.perf_counter()
-    arch, shape, mesh = DRYRUN_CELL
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH")) if p))
     with tempfile.TemporaryDirectory() as out:
-        proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-                               "--shape", shape, "--mesh", mesh, "--out", out],
+        proc = subprocess.run([sys.executable, "-c", _DRYRUN_CHILD, out,
+                               json.dumps(list(DRYRUN_CELLS))],
                               cwd=ROOT, env=env, capture_output=True, text=True,
                               timeout=DRYRUN_TIMEOUT)
         if proc.returncode != 0:
-            raise AssertionError(f"dryrun {DRYRUN_CELL} exited {proc.returncode}: "
+            raise AssertionError(f"dryrun {list(DRYRUN_CELLS)} exited {proc.returncode}: "
                                  f"{proc.stderr[-3000:]}")
-        with open(os.path.join(out, f"{arch}__{shape}__{mesh}__baseline.json")) as f:
-            return json.load(f), time.perf_counter() - t0
+        recs = {}
+        for cell in DRYRUN_CELLS:
+            with open(os.path.join(out, "__".join(cell) + "__baseline.json")) as f:
+                recs[cell] = json.load(f)
+        return recs, time.perf_counter() - t0
 
 
 def counted_prefill(cfg, params, tokens) -> tuple:
@@ -2586,7 +2642,7 @@ def phase_dryrun(gpu: str) -> None:
 
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        cell = pool.submit(dryrun_cell)  # the child traces on the host while the card counts
+        cells = pool.submit(dryrun_cells)  # the child traces on the host while the card counts
         cfg = get_config(COUNT_ARCH)
         params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
         rng = np.random.default_rng(0)
@@ -2617,22 +2673,26 @@ def phase_dryrun(gpu: str) -> None:
             raise AssertionError("the counter counted a prefill that launched kernels")
         finally:
             use_kernels(False)
-        rec, t_cell = cell.result()
-    hc = rec.get("hlo_cost", {})
-    split = hc.get("dot_flops", 0) / DRYRUN_REF_DOT_FLOPS
-    if rec.get("ok") is not True or not abs(split - 1) <= COUNT_TOL:
-        raise AssertionError(f"dryrun {DRYRUN_CELL}: dot_flops {split:.4f} x the reference's "
-                             f"{DRYRUN_REF_DOT_FLOPS:.6g}; record {json.dumps(rec)[:2000]}")
-    say("dryrun", f"{'/'.join(DRYRUN_CELL)} over 256 fake ranks in a child process "
-                  f"({t_cell:.1f} s, trace_s {rec['trace_s']}): per rank dot_flops, split over "
-                  f"'model', {hc['dot_flops']:.6g} ({split:.4f} x the reference's "
-                  f"{DRYRUN_REF_DOT_FLOPS:.6g}), collectives "
-                  f"{ {k: v['count'] for k, v in hc['collectives'].items() if v.get('count')} }, "
-                  f"hbm_bytes {hc['hbm_bytes']:.6g}, ICI bytes "
-                  f"{hc['collective_ici_bytes']:.6g}, DCN bytes {hc['collective_dcn_bytes']:.6g},"
-                  f" argument bytes {rec['memory']['argument_bytes']:.6g}, temp bytes "
-                  f"{rec['memory']['temp_bytes']:.6g}; JAX in this process: "
-                  f"{'jax' in sys.modules} | {gpu}")
+        recs, t_cells = cells.result()
+    for cell, ref in DRYRUN_CELLS.items():
+        rec = recs[cell]
+        hc = rec.get("hlo_cost", {})
+        split = hc.get("dot_flops", 0) / ref
+        if rec.get("ok") is not True or not abs(split - 1) <= COUNT_TOL:
+            raise AssertionError(f"dryrun {cell}: dot_flops {split:.4f} x the reference's "
+                                 f"{ref:.6g}; record {json.dumps(rec)[:2000]}")
+        say("dryrun", f"{'/'.join(cell)} over 256 fake ranks in a child process "
+                      f"({t_cells:.1f} s for {len(DRYRUN_CELLS)} cells, trace_s "
+                      f"{rec['trace_s']}): per rank dot_flops, split over 'model', "
+                      f"{hc['dot_flops']:.6g} ({split:.4f} x the reference's {ref:.6g}), "
+                      f"collectives "
+                      f"{ {k: v['count'] for k, v in hc['collectives'].items() if v.get('count')} }"
+                      f", hbm_bytes {hc['hbm_bytes']:.6g}, ICI bytes "
+                      f"{hc['collective_ici_bytes']:.6g}, DCN bytes "
+                      f"{hc['collective_dcn_bytes']:.6g}, argument bytes "
+                      f"{rec['memory']['argument_bytes']:.6g}, temp bytes "
+                      f"{rec['memory']['temp_bytes']:.6g}; JAX in this process: "
+                      f"{'jax' in sys.modules} | {gpu}")
     del params, tokens, counted
     gc.collect()
     torch.cuda.empty_cache()

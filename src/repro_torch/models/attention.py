@@ -7,7 +7,9 @@ attention switches to a KV-chunked online softmax above ``CHUNK_THRESHOLD``
 keys; with kernels on and Sq == Sk it goes to the flash kernel instead (the
 dispatch ``repro.models.attention.attend`` makes).
 Decode attention and cross-attention stay plain torch: the JAX package has
-no kernel for them.
+no kernel for them.  Given the rank's heads over the model axis
+(``sharding.tp``), self- and cross-attention compute on them and end in one
+all-reduce (:func:`tp_heads`).
 """
 from __future__ import annotations
 
@@ -194,6 +196,34 @@ def out_proj(p: dict, o: torch.Tensor) -> torch.Tensor:
     return o.reshape(*o.shape[:-2], H * dh) @ p["wo"].reshape(H * dh, d)
 
 
+def _head_split(cfg: ModelConfig, p: dict, dist, name: str
+                ) -> Tuple[bool, Optional[torch.Tensor]]:
+    """(whether ``p``'s ``wq``/``wo`` are this rank's heads, the KV head each
+    of them reads where ``wk``/``wv`` are whole beside them, else None);
+    ``name`` (``attn``, ``xattn``) names the weights in an error."""
+    split = tp.is_block(f"{name}/wq heads", p["wq"].shape[-2], cfg.n_heads, dist)
+    if tp.is_block(f"{name}/wo heads", p["wo"].shape[0], cfg.n_heads, dist) != split:
+        raise ValueError(f"{name}: wq {tuple(p['wq'].shape)} and wo {tuple(p['wo'].shape)} "
+                         "are not both whole or both blocks")
+    kv_split = tp.is_block(f"{name}/wk heads", p["wk"].shape[-2], cfg.n_kv_heads, dist)
+    if kv_split and not split:
+        raise ValueError(f"{name}: wk {tuple(p['wk'].shape)} is a block beside whole heads")
+    if not split or kv_split:
+        return split, None
+    _, r, n = tp.dist_group(dist)
+    H_l = cfg.n_heads // n
+    heads = torch.arange(r * H_l, (r + 1) * H_l, device=p["wq"].device)
+    return split, heads * cfg.n_kv_heads // cfg.n_heads
+
+
+def _whole_kv(p: dict, sel: Optional[torch.Tensor], dist) -> dict:
+    """``p`` with whole ``wk``/``wv`` that this rank's heads use in part
+    (``sel`` given) summing their gradients over the model axis."""
+    if sel is None:
+        return p
+    return dict(p, wk=tp.copy_to_model(p["wk"], dist), wv=tp.copy_to_model(p["wv"], dist))
+
+
 def tp_heads(cfg: ModelConfig, p: dict, x: torch.Tensor, dist=None
              ) -> Tuple[dict, torch.Tensor, bool, Optional[torch.Tensor]]:
     """(the weights and the input to compute with, whether the weights are
@@ -208,23 +238,10 @@ def tp_heads(cfg: ModelConfig, p: dict, x: torch.Tensor, dist=None
     (returned), and the gradients of the whole ``wk``/``wv``, which each
     rank uses in part, are summed over the model axis; so are the input's,
     which each rank's heads use in part."""
-    split = tp.is_block("attn/wq heads", p["wq"].shape[-2], cfg.n_heads, dist)
-    if tp.is_block("attn/wo heads", p["wo"].shape[0], cfg.n_heads, dist) != split:
-        raise ValueError(f"attn: wq {tuple(p['wq'].shape)} and wo {tuple(p['wo'].shape)} "
-                         "are not both whole or both blocks")
-    kv_split = tp.is_block("attn/wk heads", p["wk"].shape[-2], cfg.n_kv_heads, dist)
-    if kv_split and not split:
-        raise ValueError(f"attn: wk {tuple(p['wk'].shape)} is a block beside whole heads")
+    split, sel = _head_split(cfg, p, dist, "attn")
     if split:
         x = tp.copy_to_model(x, dist)
-    if not split or kv_split:
-        return p, x, split, None
-    _, r, n = tp.dist_group(dist)
-    H_l = cfg.n_heads // n
-    heads = torch.arange(r * H_l, (r + 1) * H_l, device=p["wq"].device)
-    sel = heads * cfg.n_kv_heads // cfg.n_heads
-    p = dict(p, wk=tp.copy_to_model(p["wk"], dist), wv=tp.copy_to_model(p["wv"], dist))
-    return p, x, split, sel
+    return _whole_kv(p, sel, dist), x, split, sel
 
 
 def kv_heads(t: torch.Tensor, sel: Optional[torch.Tensor]) -> torch.Tensor:
@@ -264,12 +281,19 @@ def cross_attention(
     p: dict,
     x: torch.Tensor,  # (B, S, d)
     kv: Tuple[torch.Tensor, torch.Tensor],  # precomputed (B, T, G, dh) pairs
+    dist=None,
 ) -> torch.Tensor:
     """Cross-attention over precomputed K/V (encoder output / image patches).
     No positional rotation, no mask (all frontend tokens visible), and never
-    the flash kernel, as in the JAX package."""
+    the flash kernel, as in the JAX package.  On all heads, or on this
+    rank's (as :func:`tp_heads`), ``kv`` then :func:`cross_kv`'s of the same
+    weights: the rank's KV heads, or all G, from which each query head's is
+    picked."""
     B, S, _ = x.shape
-    k, v = kv
+    split, sel = _head_split(cfg, p, dist, "xattn")
+    if split:
+        x = tp.copy_to_model(x, dist)
+    k, v = (kv_heads(t, sel) for t in kv)
     qg = _split_groups(_project(x, p["wq"]), k.shape[2])
     T = k.shape[1]
     if T > CHUNK_THRESHOLD:
@@ -278,14 +302,23 @@ def cross_attention(
         out = _attend_chunked(cfg, qg, k, v, zeros_q, zeros_k, 0, causal=False)
     else:
         out = _attend_dense(cfg, qg, k, v)
-    return out_proj(p, out.reshape(B, S, -1, cfg.head_dim_))
+    return attn_out(p, out.reshape(B, S, -1, cfg.head_dim_), split, dist)
 
 
-def cross_kv(cfg: ModelConfig, p: dict, enc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Cross-attention K/V (B, T, G, dh) from encoder / frontend states.
-    ``enc`` is cast to the weights' dtype first: the JAX package's einsum
-    promotes a bf16 frontend to f32 weights the same way."""
+def cross_kv(cfg: ModelConfig, p: dict, enc: torch.Tensor, dist=None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention K/V (B, T, G, dh) from encoder / frontend states, on
+    the KV heads of ``wk``/``wv``: all, or with ``dist`` this rank's block
+    of them beside its query heads (``enc``'s gradient, which each rank's
+    heads use in part, summed over the model axis; so are whole
+    ``wk``/``wv``'s beside split query heads).  ``enc`` is cast to the
+    weights' dtype first: the JAX package's einsum promotes a bf16 frontend
+    to f32 weights the same way."""
+    split, sel = _head_split(cfg, p, dist, "xattn")
     enc = enc.to(p["wk"].dtype)
+    if split:
+        enc = tp.copy_to_model(enc, dist)
+    p = _whole_kv(p, sel, dist)
     return _project(enc, p["wk"]), _project(enc, p["wv"])
 
 

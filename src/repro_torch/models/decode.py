@@ -21,11 +21,13 @@ package's jitted decode step.
 then works on its slot of the batch, and the MoE layer runs over the
 expert axes.  Given the rank's blocks over the model axis (the dry-run's
 serving steps), self-attention runs on its heads against its block of the
-KV caches, the MLP on its FF block, and the logits are its vocabulary
-block (``models.transformer``); given whole weights (serve's world) they
-compute whole.  A world's collectives run on the host (gloo) or outside any
-captured graph, so a step of a world is run eagerly; ``DecodeGraph`` is
-for ``dist=None``.
+KV caches, cross-attention on its heads against its block of the cross
+K/V, RWKV's time-mix on its heads against its block of the state (the
+token shifts whole), the MLP and RWKV's channel-mix on their FF blocks,
+and the logits are its vocabulary block (``models.transformer``); given
+whole weights (serve's world) they compute whole.  A world's collectives
+run on the host (gloo) or outside any captured graph, so a step of a
+world is run eagerly; ``DecodeGraph`` is for ``dist=None``.
 """
 from __future__ import annotations
 
@@ -124,9 +126,10 @@ def _prefill_layer(
         m = feed_forward(cfg, p, h, dist, with_aux=False)[0]
         return x + post_norm(cfg, p, "post_ln2", m), cache
     if kind == XATTN:
-        ck, cv = attn.cross_kv(cfg, p["xattn"], enc)
+        ck, cv = attn.cross_kv(cfg, p["xattn"], enc, dist)
         h = apply_norm(cfg, x, p["ln1"])
-        x = x + gate(p, "gate_attn", x) * attn.cross_attention(cfg, p["xattn"], h, (ck, cv))
+        x = x + gate(p, "gate_attn", x) * attn.cross_attention(cfg, p["xattn"], h, (ck, cv),
+                                                               dist)
         h = apply_norm(cfg, x, p["ln2"])
         x = x + gate(p, "gate_mlp", x) * mlp_apply(cfg, p["mlp"], h, dist)
         return x, {"ck": ck, "cv": cv}
@@ -134,17 +137,17 @@ def _prefill_layer(
         h = apply_norm(cfg, x, p["ln1"])
         a, kv = _prefill_attention(cfg, p["attn"], h, positions, capacity, 0, dist)
         x = x + a
-        ck, cv = attn.cross_kv(cfg, p["xattn"], enc)
+        ck, cv = attn.cross_kv(cfg, p["xattn"], enc, dist)
         h = apply_norm(cfg, x, p["ln_x"])
-        x = x + attn.cross_attention(cfg, p["xattn"], h, (ck, cv))
+        x = x + attn.cross_attention(cfg, p["xattn"], h, (ck, cv), dist)
         h = apply_norm(cfg, x, p["ln2"])
         return x + mlp_apply(cfg, p["mlp"], h, dist), {"kv": kv, "ck": ck, "cv": cv}
     if kind == RWKV:
         h = apply_norm(cfg, x, p["ln1"])
-        y, state = rwkv.rwkv_time_mix_prefill(cfg, p["tm_cm"], h)
+        y, state = rwkv.rwkv_time_mix_prefill(cfg, p["tm_cm"], h, dist=dist)
         x = x + y
         h2 = apply_norm(cfg, x, p["ln2"])
-        x = x + rwkv.rwkv_channel_mix(cfg, p["tm_cm"], h2)
+        x = x + rwkv.rwkv_channel_mix(cfg, p["tm_cm"], h2, dist)
         # the shifts are the last position's normed inputs, not x
         return x, {"state": state, "tm_shift": h[:, -1], "cm_shift": h2[:, -1]}
     if kind == RGLRU:
@@ -205,7 +208,7 @@ def _decode_layer(
         return x + post_norm(cfg, p, "post_ln2", m)
     if kind == XATTN:
         h = apply_norm(cfg, x, p["ln1"])
-        a = attn.cross_attention(cfg, p["xattn"], h, (cache["ck"], cache["cv"]))
+        a = attn.cross_attention(cfg, p["xattn"], h, (cache["ck"], cache["cv"]), dist)
         x = x + gate(p, "gate_attn", x) * a
         h = apply_norm(cfg, x, p["ln2"])
         return x + gate(p, "gate_mlp", x) * mlp_apply(cfg, p["mlp"], h, dist)
@@ -214,15 +217,15 @@ def _decode_layer(
         a, _ = attn.decode_attention(cfg, p["attn"], h, pos, cache["kv"], dist=dist)
         x = x + a
         h = apply_norm(cfg, x, p["ln_x"])
-        x = x + attn.cross_attention(cfg, p["xattn"], h, (cache["ck"], cache["cv"]))
+        x = x + attn.cross_attention(cfg, p["xattn"], h, (cache["ck"], cache["cv"]), dist)
         h = apply_norm(cfg, x, p["ln2"])
         return x + mlp_apply(cfg, p["mlp"], h, dist)
     if kind == RWKV:
         h = apply_norm(cfg, x, p["ln1"])
-        y, _ = rwkv.rwkv_time_mix_decode(cfg, p["tm_cm"], h, cache)
+        y, _ = rwkv.rwkv_time_mix_decode(cfg, p["tm_cm"], h, cache, dist)
         x = x + y
         h2 = apply_norm(cfg, x, p["ln2"])
-        y2, _ = rwkv.rwkv_channel_mix_decode(cfg, p["tm_cm"], h2, cache)
+        y2, _ = rwkv.rwkv_channel_mix_decode(cfg, p["tm_cm"], h2, cache, dist)
         return x + y2
     if kind == RGLRU:
         h = apply_norm(cfg, x, p["ln1"])

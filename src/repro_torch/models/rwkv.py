@@ -13,6 +13,15 @@ Three implementations, all agreeing (tested against the JAX package):
     an (L, L, K) product, cross-chunk via a carried state.
   * the CUDA kernel (``repro_torch.kernels.rwkv6``) for prefill on the card.
 
+Over the model axis (``sharding.tp``), given the rank's blocks, the layer
+computes on its heads as the reference's GSPMD splits it: the time-mix's
+projections column-parallel, the decay's low-rank product over the rank's
+rows of ``decay_A`` with one all-reduce, WKV and the group norm on the
+rank's heads, ``wo`` row-parallel with one all-reduce; the channel-mix's
+``cm_k`` column- and ``cm_v`` row-parallel, its gate on the rank's columns
+of ``cm_r`` between a reduce-scatter and an all-gather.  Whole leaves
+compute whole.
+
 Stability: all decay algebra runs on log-decays; every exp() argument is a
 *difference* of cumulative log-decays bounded above by 0, so nothing
 overflows regardless of chunk length.
@@ -29,6 +38,7 @@ from repro_torch.kernels.config import kernels_enabled
 from repro_torch.kernels.rwkv6 import ops as wkv_ops
 from repro_torch.kernels.rwkv6.ref import wkv6_ref
 from repro_torch.models.common import dense_init, dtype_of
+from repro_torch.sharding import tp
 
 WKV_CHUNK = 32
 DECAY_LORA = 64
@@ -149,13 +159,50 @@ def _group_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 64e-5) -> tor
     return ((xf - mu) * torch.rsqrt(var + eps) * scale[None, None]).to(x.dtype)
 
 
-def _time_mix_inputs(cfg: ModelConfig, p: dict, x: torch.Tensor, shifted: torch.Tensor):
+# the leaves a split layer holds as this rank's blocks over the model axis
+# (``specs.SPLIT_COMPUTE``): (dim, whole size from (d, ff, H)) each
+_SPLIT_DIMS = {"wr": (-1, "d"), "wk": (-1, "d"), "wv": (-1, "d"), "wg": (-1, "d"),
+               "wo": (0, "d"), "decay_B": (-1, "d"), "ln_scale": (0, "H"),
+               "cm_k": (-1, "ff"), "cm_v": (0, "ff")}
+
+
+def tp_split(cfg: ModelConfig, p: dict, dist=None) -> bool:
+    """Whether the layer's leaves (one layer's, unstacked) are this rank's
+    blocks over the model axis: its heads' channels of ``wr``/``wk``/``wv``/
+    ``wg``/``decay_B`` and rows of ``wo``, its heads of ``ln_scale``, its FF
+    block of ``cm_k``/``cm_v`` (all of them or none; anything else raises).
+    The other leaves are whole either way."""
+    whole = {"d": cfg.d_model, "ff": cfg.d_ff, "H": cfg.d_model // cfg.rwkv_head_dim}
+    got = {k: tp.is_block(f"tm_cm/{k}", p[k].shape[dim], whole[w], dist)
+           for k, (dim, w) in _SPLIT_DIMS.items()}
+    if len(set(got.values())) > 1:
+        raise ValueError(f"tm_cm: blocks {sorted(k for k, v in got.items() if v)} beside whole "
+                         f"{sorted(k for k, v in got.items() if not v)}")
+    return got["wr"]
+
+
+def _time_mix_inputs(cfg: ModelConfig, p: dict, x: torch.Tensor, shifted: torch.Tensor,
+                     split: bool = False, dist=None):
+    """r, k, v, g and log_w of the time-mix (B, S, d), or where ``split`` this
+    rank's channels of each (its heads'): its columns of ``wr``/``wk``/``wv``/
+    ``wg`` and ``decay_B``, its slice of ``w0``, and the decay's low-rank
+    product over its rows of ``decay_A`` summed over the model axis.  ``x``
+    and ``shifted`` are then already summing their gradients over it."""
+    mu = tp.copy_to_model(p["mu"], dist) if split else p["mu"]
     xf, sf = x.float(), shifted.float()
-    mixed = xf[None] + (sf - xf)[None] * p["mu"][:, None, None, :]  # (5, B, S, d)
+    mixed = xf[None] + (sf - xf)[None] * mu[:, None, None, :]  # (5, B, S, d)
     mw, mr, mk, mv, mg = mixed
-    log_w = -torch.exp(
-        torch.clamp(p["w0"] + torch.tanh(mw @ p["decay_A"]) @ p["decay_B"], -8.0, 8.0)
-    )  # (B, S, d) f32, < 0
+    if split:
+        decay_a = tp.model_block(p["decay_A"], 0, dist)
+        _, r, _ = tp.dist_group(dist)
+        rows = decay_a.shape[0]
+        z = tp.reduce_from_model(mw.narrow(-1, r * rows, rows) @ decay_a, dist)
+        z = tp.copy_to_model(z, dist)  # its consumer, decay_B's columns, is split
+        w0 = tp.model_block(p["w0"], 0, dist)
+    else:
+        z, w0 = mw @ p["decay_A"], p["w0"]
+    log_w = -torch.exp(torch.clamp(w0 + torch.tanh(z) @ p["decay_B"], -8.0, 8.0))
+    # (B, S, d) f32, < 0
     dt = x.dtype
     r = mr.to(dt) @ p["wr"]
     k = mk.to(dt) @ p["wk"]
@@ -165,9 +212,25 @@ def _time_mix_inputs(cfg: ModelConfig, p: dict, x: torch.Tensor, shifted: torch.
 
 
 def _heads(cfg: ModelConfig, a: torch.Tensor) -> torch.Tensor:
-    B, S, d = a.shape
+    """(B, S, c) -> (B, S, c // K, K): all heads, or the rank's."""
+    B, S, c = a.shape
     K = cfg.rwkv_head_dim
-    return a.reshape(B, S, d // K, K)
+    return a.reshape(B, S, c // K, K)
+
+
+def _bonus(cfg: ModelConfig, p: dict, split: bool, dist) -> torch.Tensor:
+    """``u`` as (heads, K): all, or this rank's heads' slice."""
+    u = tp.model_block(p["u"], 0, dist) if split else p["u"]
+    return u.reshape(-1, cfg.rwkv_head_dim)
+
+
+def _time_mix_out(p: dict, y: torch.Tensor, g: torch.Tensor, split: bool, dist
+                  ) -> torch.Tensor:
+    """The group-normed heads ``y`` (B, S, H, K) gated by ``g`` through
+    ``wo``; row-parallel where ``split`` (the partial outputs summed)."""
+    y = _group_norm(y, p["ln_scale"])
+    out = (y.reshape(g.shape) * g) @ p["wo"]
+    return tp.reduce_from_model(out, dist) if split else out
 
 
 def _wkv_dispatch(rh, kh, vh, lwh, u, chunked: bool, chunk: int = WKV_CHUNK):
@@ -182,37 +245,49 @@ def _wkv_dispatch(rh, kh, vh, lwh, u, chunked: bool, chunk: int = WKV_CHUNK):
 
 
 def rwkv_time_mix_prefill(
-    cfg: ModelConfig, p: dict, x: torch.Tensor, *, chunked: bool = True
+    cfg: ModelConfig, p: dict, x: torch.Tensor, *, chunked: bool = True, dist=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Time-mix over the whole sequence; also returns the final WKV state
-    (B, H, K, V) f32."""
-    shifted = _shift(x)
-    r, k, v, g, log_w = _time_mix_inputs(cfg, p, x, shifted)
-    H = cfg.d_model // cfg.rwkv_head_dim
-    u = p["u"].reshape(H, cfg.rwkv_head_dim)
+    (B, H, K, V) f32: of all heads, or with ``dist`` and this rank's blocks
+    (:func:`tp_split`) of its heads."""
+    split = tp_split(cfg, p, dist)
+    if split:
+        x = tp.copy_to_model(x, dist)
+    r, k, v, g, log_w = _time_mix_inputs(cfg, p, x, _shift(x), split, dist)
     rh, kh, vh, lwh = (_heads(cfg, a) for a in (r, k, v, log_w))
-    y, state = _wkv_dispatch(rh, kh, vh, lwh, u, chunked, cfg.wkv_chunk)
-    y = _group_norm(y, p["ln_scale"])
-    y = y.reshape(x.shape) * g
-    return y @ p["wo"], state
+    y, state = _wkv_dispatch(rh, kh, vh, lwh, _bonus(cfg, p, split, dist), chunked,
+                             cfg.wkv_chunk)
+    return _time_mix_out(p, y, g, split, dist), state
 
 
 def rwkv_time_mix(
-    cfg: ModelConfig, p: dict, x: torch.Tensor, *, chunked: bool = True
+    cfg: ModelConfig, p: dict, x: torch.Tensor, *, chunked: bool = True, dist=None
 ) -> torch.Tensor:
-    return rwkv_time_mix_prefill(cfg, p, x, chunked=chunked)[0]
+    return rwkv_time_mix_prefill(cfg, p, x, chunked=chunked, dist=dist)[0]
 
 
-def _channel_mix(p: dict, x: torch.Tensor, shifted: torch.Tensor) -> torch.Tensor:
+def _channel_mix(p: dict, x: torch.Tensor, shifted: torch.Tensor, split: bool = False,
+                 dist=None) -> torch.Tensor:
+    """sigmoid(mr @ cm_r) * (relu(mk @ cm_k)² @ cm_v); where ``split`` on this
+    rank's FF block of ``cm_k``/``cm_v``, the partial outputs reduce-scattered
+    over channels, gated there by the rank's columns of ``cm_r``, and
+    gathered whole (``x`` and ``shifted`` already summing their gradients)."""
+    cmu = tp.copy_to_model(p["cmu"], dist) if split else p["cmu"]
     xf, sf = x.float(), shifted.float()
-    mk = (xf + (sf - xf) * p["cmu"][0]).to(x.dtype)
-    mr = (xf + (sf - xf) * p["cmu"][1]).to(x.dtype)
+    mk = (xf + (sf - xf) * cmu[0]).to(x.dtype)
+    mr = (xf + (sf - xf) * cmu[1]).to(x.dtype)
     kk = torch.square(F.relu(mk @ p["cm_k"]))
-    return torch.sigmoid(mr @ p["cm_r"]) * (kk @ p["cm_v"])
+    if not split:
+        return torch.sigmoid(mr @ p["cm_r"]) * (kk @ p["cm_v"])
+    gate = torch.sigmoid(mr @ tp.model_block(p["cm_r"], 1, dist))
+    return tp.gather_from_model(gate * tp.scatter_to_model(kk @ p["cm_v"], dist), dist)
 
 
-def rwkv_channel_mix(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    return _channel_mix(p, x, _shift(x))
+def rwkv_channel_mix(cfg: ModelConfig, p: dict, x: torch.Tensor, dist=None) -> torch.Tensor:
+    split = tp_split(cfg, p, dist)
+    if split:
+        x = tp.copy_to_model(x, dist)
+    return _channel_mix(p, x, _shift(x), split, dist)
 
 
 # --------------------------------------------------------------------------
@@ -235,27 +310,25 @@ def init_rwkv_cache(cfg: ModelConfig, batch: int, device=None) -> dict:
 
 
 def rwkv_time_mix_decode(
-    cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict
+    cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict, dist=None
 ) -> Tuple[torch.Tensor, dict]:
-    """x (B, 1, d); updates cache['state'] and cache['tm_shift'] in place."""
-    B = x.shape[0]
-    shifted = cache["tm_shift"][:, None]
-    r, k, v, g, log_w = _time_mix_inputs(cfg, p, x, shifted)
-    H = cfg.d_model // cfg.rwkv_head_dim
-    u = p["u"].reshape(H, cfg.rwkv_head_dim)
+    """x (B, 1, d); updates cache['state'] and cache['tm_shift'] in place.
+    With ``dist`` and this rank's blocks (:func:`tp_split`) the state is its
+    heads' (B, H/n, K, V) and the shift whole."""
+    split = tp_split(cfg, p, dist)
+    r, k, v, g, log_w = _time_mix_inputs(cfg, p, x, cache["tm_shift"][:, None], split, dist)
     y, new_state = wkv_decode_step(*(_heads(cfg, a)[:, 0] for a in (r, k, v, log_w)),
-                                   u, cache["state"])
-    y = _group_norm(y.reshape(B, 1, H, cfg.rwkv_head_dim), p["ln_scale"])
-    y = y.reshape(B, 1, cfg.d_model) * g
+                                   _bonus(cfg, p, split, dist), cache["state"])
+    out = _time_mix_out(p, y[:, None], g, split, dist)
     cache["state"].copy_(new_state)
     cache["tm_shift"].copy_(x[:, 0])
-    return y @ p["wo"], cache
+    return out, cache
 
 
 def rwkv_channel_mix_decode(
-    cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict
+    cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict, dist=None
 ) -> Tuple[torch.Tensor, dict]:
-    """x (B, 1, d); updates cache['cm_shift'] in place."""
-    out = _channel_mix(p, x, cache["cm_shift"][:, None])
+    """x (B, 1, d); updates cache['cm_shift'] (whole) in place."""
+    out = _channel_mix(p, x, cache["cm_shift"][:, None], tp_split(cfg, p, dist), dist)
     cache["cm_shift"].copy_(x[:, 0])
     return out, cache

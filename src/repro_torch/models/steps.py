@@ -19,14 +19,18 @@ With ``dist`` it is the sharded step.  Each rank holds its block of every
 parameter and AdamW moment (by ``sharding.param_shardings``) and its slot
 of the batch.  The step gathers each leaf for compute (``train.gather``,
 ``specs.compute_shardings``): a leaf whose products split over the model
-axis (self-attention's, the dense MLP's, the vocabulary's) over its FSDP
-axes only, keeping its model block (a gated ``w_in``'s storage block is
-exchanged into its compute block), any other leaf whole.  Forward and
-backward then split over the model axis as the reference's GSPMD splits
-them (``sharding.tp``: the rank's heads, FF block and vocabulary block,
-one all-reduce per attention block and per MLP, the vocabulary-parallel
-cross-entropy), so each rank's gradient of a split leaf is its model block
-of the whole gradient and of any other leaf the whole gradient.  The step
+axis (self- and cross-attention's, the dense MLP's, RWKV's time-mix and
+channel-mix's, the vocabulary's) over its FSDP axes only, keeping its
+model block (a gated ``w_in``'s storage block is exchanged into its
+compute block), any other leaf whole.  Forward and backward then split
+over the model axis as the reference's GSPMD splits them
+(``sharding.tp``: the rank's heads, FF block and vocabulary block, one
+all-reduce per attention block and per MLP, RWKV's decay and output
+all-reduces and its channel-mix's reduce-scatter and all-gather, the
+vocabulary-parallel cross-entropy), so each rank's gradient of a split
+leaf is its model block of the whole gradient and of any other leaf the
+whole gradient (summed over the model axis where the rank used a block
+of it: ``tp.model_block``).  The step
 sums the gradients over the data axes and divides (``train.reduce``),
 keeps the rank's storage block (exchanging a gated ``w_in``'s back) and
 applies AdamW to the blocks, so that each rank ends with its block of what

@@ -16,15 +16,15 @@ axes where they divide the batch, else the whole batch; ``_dp_spec``) and
 returns its slot of the reference's output.  Where the parameters are the
 rank's blocks over the model axis (``specs.ComputeSharding``) the dense
 compute splits over it as the reference's GSPMD splits it
-(``sharding.tp``): self-attention on the rank's heads and the MLP on its FF
-block, each ending in one all-reduce, the embedding and unembedding on its
-vocabulary block (the logits are then that block).  Whole parameters
-compute whole on every rank; each layer tells the two apart by its
-weights' shapes and raises on any other.  Cross-attention and the RWKV and
-RG-LRU blocks compute whole.  The MoE layer runs
-``moe.moe_apply_sharded_inner`` over the expert axes with the rank's
-virtual expert (``_moe_call``); with ``dist=None`` it is the dense
-single-device path, the reference's branch.
+(``sharding.tp``): self- and cross-attention on the rank's heads and the
+MLP on its FF block, each ending in one all-reduce, RWKV's time-mix on its
+heads and its channel-mix on its FF block (``models.rwkv``), the embedding
+and unembedding on its vocabulary block (the logits are then that block).
+Whole parameters compute whole on every rank; each layer tells the two
+apart by its weights' shapes and raises on any other.  The RG-LRU block
+computes whole.  The MoE layer runs ``moe.moe_apply_sharded_inner`` over
+the expert axes with the rank's virtual expert (``_moe_call``); with
+``dist=None`` it is the dense single-device path, the reference's branch.
 """
 from __future__ import annotations
 
@@ -379,7 +379,8 @@ def _apply_layer_full(
         return x + post_norm(cfg, p, "post_ln2", m)
     if kind == XATTN:
         h = apply_norm(cfg, x, p["ln1"])
-        a = attn.cross_attention(cfg, p["xattn"], h, attn.cross_kv(cfg, p["xattn"], enc))
+        a = attn.cross_attention(cfg, p["xattn"], h, attn.cross_kv(cfg, p["xattn"], enc, dist),
+                                 dist)
         x = x + gate(p, "gate_attn", x) * a
         h = apply_norm(cfg, x, p["ln2"])
         return x + gate(p, "gate_mlp", x) * mlp_apply(cfg, p["mlp"], h, dist)
@@ -387,14 +388,15 @@ def _apply_layer_full(
         h = apply_norm(cfg, x, p["ln1"])
         x = x + attn.self_attention(cfg, p["attn"], h, positions, dist=dist)
         h = apply_norm(cfg, x, p["ln_x"])
-        x = x + attn.cross_attention(cfg, p["xattn"], h, attn.cross_kv(cfg, p["xattn"], enc))
+        x = x + attn.cross_attention(cfg, p["xattn"], h,
+                                     attn.cross_kv(cfg, p["xattn"], enc, dist), dist)
         h = apply_norm(cfg, x, p["ln2"])
         return x + mlp_apply(cfg, p["mlp"], h, dist)
     if kind == RWKV:
         h = apply_norm(cfg, x, p["ln1"])
-        x = x + rwkv.rwkv_time_mix(cfg, p["tm_cm"], h)
+        x = x + rwkv.rwkv_time_mix(cfg, p["tm_cm"], h, dist=dist)
         h = apply_norm(cfg, x, p["ln2"])
-        return x + rwkv.rwkv_channel_mix(cfg, p["tm_cm"], h)
+        return x + rwkv.rwkv_channel_mix(cfg, p["tm_cm"], h, dist)
     if kind == RGLRU:
         h = apply_norm(cfg, x, p["ln1"])
         x = x + griffin.rglru_block(cfg, p["rec"], h)

@@ -31,9 +31,10 @@ reference's ``_path_str`` strings (``groups/0/0/attn/wq``).  In a
 on the mesh, and ``Sharding.gather`` puts the whole leaf back together with
 all-gathers over the spec's axes (through ``comms.routes``).
 ``compute_shardings`` says how a step computes with each leaf: the leaves
-whose products split over "model" (``SPLIT_COMPUTE``: self-attention, the
-dense MLP, the vocabulary; ``sharding.tp``) keep their model block and are
-gathered over their other axes only; every other leaf is gathered whole.
+whose products split over "model" (``SPLIT_COMPUTE``: self- and
+cross-attention, the dense MLP, RWKV's time-mix and channel-mix, the
+vocabulary; ``sharding.tp``) keep their model block and are gathered over
+their other axes only; every other leaf is gathered whole.
 """
 from __future__ import annotations
 
@@ -335,11 +336,21 @@ def param_shardings(
 # Split compute: the leaves whose products split over the model axis.
 # --------------------------------------------------------------------------
 
-# self-attention's projections (not cross-attention's), the dense MLP (not
-# the experts' or the recurrent blocks'), and the vocabulary: a step computes
-# with the rank's block of these over the model axis (``sharding.tp``); it
-# gathers any other leaf whole, and these too where the axis left them whole
-SPLIT_COMPUTE = re.compile(r"(^|/)(attn/w[qkvo]|mlp/w_(in|out)|embed/(tok|head))$")
+# attention's projections (self- and cross-attention's), the dense MLP (not
+# the experts' or the recurrent blocks'), RWKV's time-mix and channel-mix
+# products, and the vocabulary: a step computes with the rank's block of
+# these over the model axis (``sharding.tp``); it gathers any other leaf
+# whole, and these too where the axis left them whole.  RWKV's whole
+# ``decay_A`` and ``cm_r`` are narrowed to the rank's block inside the layer
+# (``tp.model_block``)
+SPLIT_COMPUTE = re.compile(r"(^|/)(x?attn/w[qkvo]|mlp/w_(in|out)|embed/(tok|head)|"
+                           r"tm_cm/(w[rkvgo]|decay_B|ln_scale|cm_[kv]))$")
+# leaves whose blocks a layer computes with only together: where one of a
+# group is left whole over the model axis, all are gathered whole.  RWKV's
+# ln_scale splits exactly where its heads divide the axis, so a time-mix
+# whose column blocks would cut a head computes whole
+_TOGETHER = {"mlp": ("w_in", "w_out"),
+             "tm_cm": ("wr", "wk", "wv", "wg", "wo", "decay_B", "ln_scale", "cm_k", "cm_v")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -389,10 +400,11 @@ def _without(spec: PartitionSpec, axis: str) -> PartitionSpec:
 def compute_shardings(shardings: Any, *, gated: bool, model_axis: str = "model"):
     """A tree of :class:`ComputeSharding` over a tree of storage
     :class:`Sharding` (``param_shardings``'s).  A leaf of ``SPLIT_COMPUTE``
-    split over ``model_axis`` keeps its model block; the MLP's ``w_in`` and
-    ``w_out`` keep theirs only together (an FF width whose 2·ff divides the
-    axis but ff does not computes whole).  ``gated``: the config's MLP is
-    gated, its ``w_in`` [gate | up]."""
+    split over ``model_axis`` keeps its model block; the leaves of a group
+    of ``_TOGETHER`` keep theirs only together (an FF width whose 2·ff
+    divides the axis but ff does not computes whole; so does an RWKV layer
+    whose heads do not divide it).  ``gated``: the config's MLP is gated,
+    its ``w_in`` [gate | up]."""
     by_path: Dict[str, Sharding] = {}
     map_with_path(by_path.__setitem__, shardings)
 
@@ -402,9 +414,10 @@ def compute_shardings(shardings: Any, *, gated: bool, model_axis: str = "model")
 
     def one(path: str, s: Sharding) -> ComputeSharding:
         keep = split(path)
-        if keep and path.endswith(("mlp/w_in", "mlp/w_out")):
-            base = path.rsplit("/", 1)[0]
-            keep = split(base + "/w_in") and split(base + "/w_out")
+        base, _, leaf = path.rpartition("/")
+        group = _TOGETHER.get(base.rpartition("/")[2], ())
+        if keep and leaf in group:
+            keep = all(split(f"{base}/{w}") for w in group)
         if not keep:
             return ComputeSharding(s, s, model_axis=model_axis)
         return ComputeSharding(s, Sharding(s.mesh, _without(s.spec, model_axis)),

@@ -9,6 +9,16 @@ Here each rank is a process, so the split is written out, Megatron-style:
   ``wq``/``wk``/``wv``), then the row-parallel ``wo`` and one all-reduce;
 * the dense MLP: the rank's FF columns of ``w_in`` (column-parallel), the
   same rows of ``w_out`` (row-parallel), one all-reduce;
+* cross-attention: as attention, its K/V from the frontend on the rank's
+  KV heads;
+* RWKV's time-mix: the rank's heads' channels of ``wr``/``wk``/``wv``/``wg``
+  and of the decay's ``decay_B`` (column-parallel), the decay's ``decay_A``
+  on the rank's rows of its input (a partial sum, one all-reduce), the WKV
+  recurrence and group norm on the rank's heads, the row-parallel ``wo``
+  and one all-reduce; its channel-mix: ``cm_k`` column- and ``cm_v``
+  row-parallel, the ``cm_v`` output reduce-scattered over channels
+  (:func:`scatter_to_model`), gated there by the rank's columns of
+  ``cm_r``, and all-gathered (:func:`gather_from_model`);
 * the vocabulary: the rank's rows of the embedding table (a masked lookup
   and an all-reduce), its logits of the unembedding, and the cross-entropy
   and greedy argmax over vocabulary blocks.
@@ -19,9 +29,12 @@ replicated activation into a column-parallel product; :func:`reduce_from_model`
 partial outputs.  With them every rank of the model axis holds the same
 replicated activations and the same loss, each split weight's gradient is
 the rank's block of the whole one, and each replicated weight's gradient is
-the whole one.  Every collective goes through ``comms.routes``, so the
+the whole one; a whole leaf that a rank uses only in part
+(:func:`model_block`) has its gradient summed over the model axis, so it
+too is the whole one.  Every collective goes through ``comms.routes``, so the
 dry-run's counter sees it; with a tracer on each all-reduce is a
-``tp.allreduce`` span (the card synchronised at both ends).
+``tp.allreduce`` span, each reduce-scatter a ``tp.scatter`` and each
+all-gather a ``tp.gather`` (the card synchronised at both ends).
 
 A layer tells its weights' blocks from whole ones by their shapes against
 the config (:func:`is_block`): a whole weight computes whole on every rank,
@@ -70,18 +83,24 @@ def is_block(what: str, have: int, whole: int, dist) -> bool:
                      f"over a model axis of {n}")
 
 
-def _all_reduce(t: torch.Tensor, group, op=tdist.ReduceOp.SUM) -> None:
-    from repro_torch.comms import routes
-
+def _traced(name: str, t: torch.Tensor, run) -> None:
+    """``run()``, a collective reading ``t``; with a tracer on, inside a span
+    ``name`` that starts and ends on an idle card."""
     if not trace.is_active():
-        routes.all_reduce(t, group, op)
+        run()
         return
     if t.is_cuda:
         torch.cuda.synchronize(t.device)
-    with trace.span("tp.allreduce", bytes=t.numel() * t.element_size()):
-        routes.all_reduce(t, group, op)
+    with trace.span(name, bytes=t.numel() * t.element_size()):
+        run()
         if t.is_cuda:
             torch.cuda.synchronize(t.device)
+
+
+def _all_reduce(t: torch.Tensor, group, op=tdist.ReduceOp.SUM) -> None:
+    from repro_torch.comms import routes
+
+    _traced("tp.allreduce", t, lambda: routes.all_reduce(t, group, op))
 
 
 class _CopyToModel(torch.autograd.Function):
@@ -113,6 +132,56 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
+class _ScatterToModel(torch.autograd.Function):
+    """The sum over the group of ``x`` (..., n·c), this rank's block of c
+    along the last dim (one reduce-scatter); the backward all-gathers the
+    blocks' gradients."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _reduce_scatter_last(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather_last(g, ctx.group), None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """Every rank's block ``x`` (..., c) joined along the last dim in group
+    order (one all-gather); the backward keeps this rank's block of the
+    gradient (every rank holds the whole one)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.rank, ctx.c = group, tdist.get_rank(group), x.shape[-1]
+        return _all_gather_last(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(-1, ctx.rank * ctx.c, ctx.c).contiguous(), None
+
+
+def _reduce_scatter_last(x: torch.Tensor, group) -> torch.Tensor:
+    from repro_torch.comms import routes
+
+    n = tdist.get_world_size(group)
+    inp = x.movedim(-1, 0).contiguous()
+    out = inp.new_empty((inp.shape[0] // n,) + tuple(inp.shape[1:]))
+    _traced("tp.scatter", inp, lambda: routes.reduce_scatter(out, inp, group))
+    return out.movedim(0, -1)
+
+
+def _all_gather_last(x: torch.Tensor, group) -> torch.Tensor:
+    from repro_torch.comms import routes
+
+    n = tdist.get_world_size(group)
+    inp = x.movedim(-1, 0).contiguous()
+    out = inp.new_empty((n * inp.shape[0],) + tuple(inp.shape[1:]))
+    _traced("tp.gather", inp, lambda: routes.all_gather(out, inp, group))
+    return out.movedim(0, -1)
+
+
 def copy_to_model(x: torch.Tensor, dist) -> torch.Tensor:
     """``x``, alike on every rank of the model axis, into a product split over
     it: the backward sums the ranks' partial gradients."""
@@ -124,6 +193,29 @@ def reduce_from_model(x: torch.Tensor, dist) -> torch.Tensor:
     """The sum over the model axis of the ranks' partial outputs ``x``."""
     group = dist_group(dist)[0]
     return x if group is None else _ReduceFromModel.apply(x, group)
+
+
+def scatter_to_model(x: torch.Tensor, dist) -> torch.Tensor:
+    """This rank's block, along the last dim, of the sum over the model axis
+    of the ranks' partial outputs ``x``: a reduce-scatter, the bytes of an
+    all-reduce's first half."""
+    return _ScatterToModel.apply(x, dist_group(dist)[0])
+
+
+def gather_from_model(x: torch.Tensor, dist) -> torch.Tensor:
+    """The ranks' blocks ``x`` joined along the last dim over the model axis,
+    alike on every rank (the inverse of :func:`scatter_to_model`'s split)."""
+    return _GatherFromModel.apply(x, dist_group(dist)[0])
+
+
+def model_block(t: torch.Tensor, dim: int, dist) -> torch.Tensor:
+    """This rank's block along ``dim`` of a leaf ``t`` held whole on every
+    rank of the model axis (its products split, its storage not); the
+    backward sums the gradient over the axis, so the whole leaf's gradient
+    is whole on every rank."""
+    _, r, n = dist_group(dist)
+    size = t.shape[dim] // n
+    return copy_to_model(t, dist).narrow(dim, r * size, size)
 
 
 # --------------------------------------------------------------------------

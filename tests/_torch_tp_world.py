@@ -1,7 +1,8 @@
 """One rank's program for ``tests/test_torch_tp.py``: the operators of
-``repro_torch.sharding.tp`` and the dry-run's serving steps on a world of 4
-gloo ranks, meshes (1, 4) and (2, 2).  Imports no JAX (the ranks are
-spawned processes)."""
+``repro_torch.sharding.tp``, cross-attention and RWKV's time-mix and
+channel-mix on the rank's blocks, and the dry-run's serving steps on a
+world of 4 gloo ranks, meshes (1, 4) and (2, 2).  Imports no JAX (the ranks
+are spawned processes)."""
 import numpy as np
 import torch
 
@@ -9,18 +10,64 @@ WORLD = 4
 MESHES = ((1, 4), (2, 2))
 # the serving cases: (arch, mesh); smoke width, f32, tp_adapt's config
 SERVE_CASES = {"llama_1x4": ("llama3.2-1b", (1, 4)), "llama_2x2": ("llama3.2-1b", (2, 2)),
-               "gemma2_2x2": ("gemma2-9b", (2, 2))}
+               "gemma2_2x2": ("gemma2-9b", (2, 2)),
+               "vision_1x4": ("llama-3.2-vision-11b", (1, 4)),
+               "rwkv_2x2": ("rwkv6-1.6b", (2, 2))}
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 8, 3
+# rwkv6 at 8 heads of 16, so that its heads split over a model axis of 4
+# (the sharded train step's rwkv_f32 case); its smoke config has 2 of 64
+RWKV_CHANGES = {"rwkv_head_dim": 16}
+# the layers on blocks: name -> (arch, the layer); llama-vision's 4 heads
+# read 2 KV heads (whole beside the rank's heads on (1, 4), split on
+# (2, 2)), whisper's 4 heads 4 (split on both)
+LAYER_CASES = {"xattn_vision": ("llama-3.2-vision-11b", "xattn"),
+               "xattn_whisper": ("whisper-small", "xattn"),
+               "time_mix": ("rwkv6-1.6b", "tm_cm"), "channel_mix": ("rwkv6-1.6b", "tm_cm")}
+LAYER_BATCH, LAYER_SEQ = 2, 5
 
 
-def serve_config(case: str):
+def _config(arch: str):
     import dataclasses
 
     from repro_torch.configs import smoke_config
+
+    changes = RWKV_CHANGES if arch == "rwkv6-1.6b" else {}
+    return dataclasses.replace(smoke_config(arch), dtype="float32", **changes)
+
+
+def serve_config(case: str):
     from repro_torch.sharding.specs import tp_adapt
 
     arch, dims = SERVE_CASES[case]
-    return tp_adapt(dataclasses.replace(smoke_config(arch), dtype="float32"), dims[1])[0]
+    return tp_adapt(_config(arch), dims[1])[0]
+
+
+def layer_config(case: str):
+    return _config(LAYER_CASES[case][0])
+
+
+def layer_apply(case: str, cfg, p: dict, x, enc, dist):
+    """The case's layer on ``p`` (whole, or this rank's blocks with ``dist``)."""
+    from repro_torch.models import attention, rwkv
+
+    if case.startswith("xattn"):
+        return attention.cross_attention(cfg, p, x, attention.cross_kv(cfg, p, enc, dist), dist)
+    if case == "time_mix":
+        return rwkv.rwkv_time_mix(cfg, p, x, dist=dist)
+    return rwkv.rwkv_channel_mix(cfg, p, x, dist)
+
+
+def layer_blocks(case: str, p: dict, model: int, rank: int) -> dict:
+    """(``p`` with the leaves that a split layer holds as blocks cut to
+    model rank ``rank``'s of ``model``, whether each leaf was cut)."""
+    from repro_torch.sharding import specs
+
+    key = LAYER_CASES[case][1]
+    plan = specs.compute_shardings(
+        specs.param_shardings({key: p}, {"model": model}, fsdp=False), gated=False)[key]
+    cut = {k: plan[k].gather != plan[k].storage for k in p}
+    return ({k: plan[k].storage.block(t, {"model": rank}) if cut[k] else t
+             for k, t in p.items()}, cut)
 
 
 def _ops(device, inputs, mesh) -> dict:
@@ -50,6 +97,35 @@ def _ops(device, inputs, mesh) -> dict:
     return out
 
 
+def _layers(device, inputs, mesh) -> dict:
+    """Each layer of ``LAYER_CASES`` on this rank's blocks: its output and the
+    gradients of (output · the inputs' weight) with respect to its input,
+    the frontend states (cross-attention) and each leaf (a cut leaf's its
+    block)."""
+    from repro_torch.launch.mesh import axes_index
+    from repro_torch.models.transformer import DistContext
+
+    dist = DistContext(mesh=mesh, dp_axes=("data",))
+    r, n = axes_index(mesh, ("model",)), mesh.shape[1]
+    out = {}
+    for case in LAYER_CASES:
+        cfg = layer_config(case)
+        whole = {k: t.to(device) for k, t in inputs["layers"][case].items()}
+        p, _ = layer_blocks(case, whole, n, r)
+        p = {k: t.detach().clone().requires_grad_() for k, t in p.items()}
+        x = inputs["layer_x"].to(device).requires_grad_()
+        enc = inputs["layer_enc"][case].to(device).requires_grad_()
+        y = layer_apply(case, cfg, p, x, enc, dist)
+        names = list(p)
+        leaves = [x, enc] + [p[k] for k in names] if case.startswith("xattn") else \
+            [x] + [p[k] for k in names]
+        grads = torch.autograd.grad((y * inputs["layer_w"].to(device)).sum(), leaves,
+                                    allow_unused=True, materialize_grads=True)
+        keys = ["x", "enc"] + names if case.startswith("xattn") else ["x"] + names
+        out[case] = {"out": y.detach(), "grads": dict(zip(keys, grads))}
+    return out
+
+
 def _serve(device, inputs, case: str, mesh) -> dict:
     """The dry-run's serving steps (``launch.dryrun.serving_steps``) on this
     rank's blocks: prefill, then SERVE_STEPS greedy decode steps, each
@@ -70,7 +146,9 @@ def _serve(device, inputs, case: str, mesh) -> dict:
     params = tree_map2(lambda s, t: s.shard(t.to(device)), p_sh, inputs["serve_params"][case])
     prefill, decode = dryrun.serving_steps(cfg, dist, p_sh, c_sh, cap)
     tokens = batch_slot(dist, inputs["prompts"].to(device))
-    tok, logits, caches = prefill(params, tokens)
+    front = inputs["frontends"].get(case)
+    tok, logits, caches = prefill(params, tokens,
+                                  None if front is None else batch_slot(dist, front.to(device)))
     # copies: decode writes the caches in place
     host = lambda t: t.detach().cpu().clone()  # noqa: E731
     out = {"tokens": [host(tok)], "logits": [host(logits)],
@@ -89,6 +167,7 @@ def program(device: torch.device, inputs: dict) -> dict:
 
     meshes = {dims: make_mesh(dims, ("data", "model"), device.type) for dims in MESHES}
     out = {f"ops_{a}x{b}": _ops(device, inputs, meshes[(a, b)]) for a, b in MESHES}
+    out.update({f"layers_{a}x{b}": _layers(device, inputs, meshes[(a, b)]) for a, b in MESHES})
     for case, (_, dims) in SERVE_CASES.items():
         out[case] = _serve(device, inputs, case, meshes[dims])
     return out
@@ -97,7 +176,13 @@ def program(device: torch.device, inputs: dict) -> dict:
 def inputs(seed: int = 0) -> dict:
     """Whole tensors drawn from ``seed``: logits (with equal maxima across
     blocks in ``tied``), labels, an embedding table and ids, a gated w_in,
-    the serving cases' weights and prompts."""
+    the layers' weights (RWKV's mixes, decay base, bonus and norm scale
+    drawn too, not the constants they start from), input, frontend states
+    and output weight, the serving cases' weights (the XATTN gates drawn
+    non-zero), prompts and frontends."""
+    from repro_torch.models.attention import attn_params
+    from repro_torch.models.convert import draw_xattn_gates
+    from repro_torch.models.rwkv import rwkv_params
     from repro_torch.models.transformer import init_params
 
     rng = np.random.default_rng(seed)
@@ -106,7 +191,7 @@ def inputs(seed: int = 0) -> dict:
     tied = f32(3, V)
     tied[0, 5] = tied[0, 29] = tied[0].abs().max() + 1  # blocks 0 and 3 of 4 tie
     tied[1, 20] = tied[1, 21] = tied[1].abs().max() + 1  # within block 2
-    return {
+    out = {
         "logits": f32(2, 5, V), "labels": torch.from_numpy(rng.integers(0, V, (2, 5))),
         "tied": tied, "table": f32(V, 6), "ids": torch.from_numpy(rng.integers(0, V, (3, 7))),
         "embed_weight": f32(3, 7, 6), "w_in": f32(6, 2 * 16),
@@ -115,3 +200,28 @@ def inputs(seed: int = 0) -> dict:
         "prompts": torch.from_numpy(rng.integers(0, 512, (SERVE_BATCH, SERVE_PROMPT))
                                     .astype(np.int32)),
     }
+    layers, enc = {}, {}
+    for case, (arch, key) in LAYER_CASES.items():
+        cfg = layer_config(case)
+        gen = torch.Generator().manual_seed(seed)
+        if key == "xattn":
+            width = cfg.frontend_dim or cfg.d_model
+            layers[case] = attn_params(cfg, gen, kv_input_dim=width)
+        else:
+            p = rwkv_params(cfg, gen)
+            for k in ("mu", "cmu", "u", "ln_scale"):
+                p[k] = p[k] + 0.3 * f32(*p[k].shape)
+            p["w0"] = p["w0"] + 0.5 * f32(*p["w0"].shape)
+            layers[case] = p
+        width = cfg.frontend_dim or cfg.d_model
+        enc[case] = f32(LAYER_BATCH, max(cfg.frontend_tokens, 1), width)
+    frontends = {}
+    for c, tree in out["serve_params"].items():
+        draw_xattn_gates(tree, rng, leaf=torch.from_numpy)
+        cfg = serve_config(c)
+        if cfg.frontend_tokens:
+            frontends[c] = f32(SERVE_BATCH, cfg.frontend_tokens, cfg.frontend_dim or cfg.d_model)
+    d = layer_config("time_mix").d_model
+    out.update(layers=layers, layer_enc=enc, layer_x=f32(LAYER_BATCH, LAYER_SEQ, d),
+               layer_w=f32(LAYER_BATCH, LAYER_SEQ, d), frontends=frontends)
+    return out

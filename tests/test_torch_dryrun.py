@@ -6,8 +6,9 @@ in one module fixture.  Checked: the meta fields of every arch x shape x mesh
 cell (and the serving layout of the MoE archs) against the reference's
 ``build_cell``; the cheapest cell end to end through the CLI, its record read
 by ``benchmarks/roofline.py::terms``; a cell whose ``dot_flops`` is computed
-by hand; the per-rank ``dot_flops`` of seven dense-decoder cells against
-the reference's own dry-run (both split the products over "model"); the
+by hand; the per-rank ``dot_flops`` of seven dense-decoder cells and of
+llama-3.2-vision-11b's and rwkv6-1.6b's ``decode_32k`` against the
+reference's own dry-run (both split the products over "model"); the
 collective tiers of a training cell on one pod and on two; and the failure
 and ``--skip-existing`` handling.
 """
@@ -50,12 +51,15 @@ for mk in ("single", "multi"):
 print(json.dumps(out))
 """
 
-# the dense-decoder cells whose per-rank dot_flops both packages count:
-# (arch, shape, mesh)
+# the cells whose per-rank dot_flops both packages count: (arch, shape,
+# mesh); the dense decoders, llama-vision's cross-attention and rwkv6's
+# time-mix and channel-mix (their train_4k cells trace for minutes)
 FLOP_CELLS = [("llama3.2-1b", "train_4k", "single"), ("llama3.2-1b", "prefill_32k", "single"),
               ("llama3.2-1b", "decode_32k", "single"), ("olmo-1b", "prefill_32k", "single"),
               ("gemma2-9b", "train_4k", "single"), ("codeqwen1.5-7b", "decode_32k", "single"),
-              ("llama3.2-1b", "train_4k", "multi")]
+              ("llama3.2-1b", "train_4k", "multi"),
+              ("llama-3.2-vision-11b", "decode_32k", "single"),
+              ("rwkv6-1.6b", "decode_32k", "single")]
 
 # one package's dry-run of FLOP_CELLS, its CLI in one process; {pkg} is
 # repro or repro_torch (the reference's main reads sys.argv)
@@ -210,9 +214,9 @@ def test_decode_cell_dot_flops_by_hand(runs):
 
 @pytest.mark.parametrize("cell", FLOP_CELLS, ids=["/".join(c) for c in FLOP_CELLS])
 def test_dot_flops_equal_the_reference_s(runs, cell):
-    """Each rank's dot FLOPs of a dense-decoder cell are the reference's
-    (its GSPMD splits the products over "model"; the port splits them
-    alike): within 1%."""
+    """Each rank's dot FLOPs of a cell are the reference's (its GSPMD splits
+    the products over "model", cross-attention's and RWKV's included; the
+    port splits them alike): within 1%."""
     tmp, done = runs
     _ok(done["ref_flops"])
     _ok(done["port_flops"])

@@ -9,11 +9,14 @@ columns once.  On a world of 4 gloo ranks, meshes (1, 4) and (2, 2)
 (``tests/_torch_tp_world.py``): the vocabulary-parallel cross-entropy and
 its gradient, the greedy pick (ties across blocks), the embedding lookup
 and its gradient, and the gated exchange and its inverse, each against the
-whole tensor's plain version; and the dry-run's ``prefill_step`` and
-``decode_step`` (``launch.dryrun.serving_steps``) on each rank's blocks:
-the next tokens, the logits gathered whole and the KV caches' blocks
-(split over their KV heads) equal the single-device serving steps at f32
-1e-4.
+whole tensor's plain version; cross-attention (KV heads whole beside the
+rank's heads, and split) and RWKV's time-mix and channel-mix on each rank's
+blocks, forward and gradients, against the whole layer at f32 1e-4; and
+the dry-run's ``prefill_step`` and ``decode_step``
+(``launch.dryrun.serving_steps``) on each rank's blocks: the next tokens,
+the logits gathered whole and the caches' blocks (the self- and
+cross-attention K/V split over their KV heads, RWKV's state over its heads)
+equal the single-device serving steps at f32 1e-4.
 """
 import dataclasses
 
@@ -28,6 +31,7 @@ from repro_torch.models import decode as dec
 from repro_torch.models.attention import self_attention
 from repro_torch.models.common import mlp_apply
 from repro_torch.models.convert import tree_leaves, tree_map
+from repro_torch.models.rwkv import tp_split
 from repro_torch.models.transformer import DistContext, param_shapes
 from repro_torch.sharding import specs, tp
 
@@ -96,6 +100,53 @@ def test_compute_shardings_keep_the_split_leaves_model_blocks():
         assert layer["ln1"]["scale"].gather == layer["ln1"]["scale"].storage
 
 
+@pytest.mark.parametrize("head_dim,split", [(16, True), (64, False)])
+def test_compute_shardings_split_rwkv_only_together(head_dim, split):
+    """On (2, 4): RWKV's nine split leaves keep their model blocks together,
+    where its heads (d / head_dim) divide the axis: 8 heads of 16 do, 2 of
+    64 do not (``wr``'s columns would split 4 ways and cut a head), and then
+    none does.  ``cm_r``, ``decay_A`` and the mixes are stored whole over
+    "model" and gathered whole either way (the layer narrows them)."""
+    cfg = dataclasses.replace(smoke_config("rwkv6-1.6b"), rwkv_head_dim=head_dim)
+    plan = specs.compute_shardings(
+        specs.param_shardings(param_shapes(cfg), {"data": 2, "model": 4}), gated=cfg.gated)
+    layer = plan["groups"][0][0]["tm_cm"]
+    kept = {k for k, c in layer.items() if c.gather != c.storage
+            and "model" not in tree_leaves(c.gather.spec)}
+    assert kept == ({"wr", "wk", "wv", "wg", "wo", "decay_B", "ln_scale", "cm_k", "cm_v"}
+                    if split else set())
+    for k in ("cm_r", "decay_A", "mu", "cmu", "w0", "u"):
+        assert "model" not in tree_leaves(layer[k].storage.spec), k
+
+
+def test_compute_shardings_split_cross_attention():
+    """llama-vision's XATTN projections on (2, 4): wq and wo keep their model
+    blocks (4 heads), wk and wv (2 KV heads) have none to keep."""
+    cfg = smoke_config("llama-3.2-vision-11b")
+    plan = specs.compute_shardings(
+        specs.param_shardings(param_shapes(cfg), {"data": 2, "model": 4}), gated=cfg.gated)
+    xattn = plan["groups"][0][4]["xattn"]
+    assert {k for k, c in xattn.items() if "model" in tree_leaves(c.storage.spec)
+            and "model" not in tree_leaves(c.gather.spec)} == {"wq", "wo"}
+
+
+def test_rwkv_and_cross_attention_raise_on_mixed_blocks():
+    """An RWKV layer with ``wr``'s block beside a whole ``wo``, and a
+    cross-attention with an odd head count, raise: nothing falls back."""
+    from repro_torch.models import attention, rwkv
+
+    cfg = dataclasses.replace(smoke_config("rwkv6-1.6b"), dtype="float32", rwkv_head_dim=16)
+    p = rwkv.rwkv_params(cfg, torch.Generator().manual_seed(0))
+    p["wr"] = p["wr"][:, :cfg.d_model // 4]
+    with pytest.raises(ValueError, match=r"tm_cm: blocks \['wr'\] beside whole"):
+        rwkv.tp_split(cfg, p, _dist(1, 4))
+    v = dataclasses.replace(smoke_config("llama-3.2-vision-11b"), dtype="float32")
+    a = attention.attn_params(v, torch.Generator().manual_seed(0), kv_input_dim=v.frontend_dim)
+    a["wq"] = a["wq"][:, :3]
+    with pytest.raises(ValueError, match="xattn/wq heads: 3 of 4"):
+        attention.cross_kv(v, a, torch.zeros((1, 2, v.frontend_dim)), _dist(1, 4))
+
+
 @pytest.mark.parametrize("n", [2, 3, 4, 8, 16])
 def test_gated_sources_tile_the_columns_once(n):
     """Over n ranks (f = ff / n columns a half), rank r's compute halves are
@@ -148,6 +199,42 @@ def test_vocab_ops_and_exchange_equal_the_whole_versions(world, dims):
         np.testing.assert_array_equal(out["w_in_back"], inp["w_in"].chunk(n, -1)[m].numpy())
 
 
+@pytest.mark.parametrize("case", list(tpw.LAYER_CASES))
+@pytest.mark.parametrize("dims", tpw.MESHES)
+def test_layers_on_blocks_equal_the_whole_layer(world, dims, case):
+    """Each rank's output of the layer on its blocks is the whole layer's;
+    the gradients of its input (and frontend states) are the whole ones, of
+    a leaf it holds as a block that block of the whole one, of any other
+    leaf the whole one (summed over the model axis where the rank used a
+    part of it), at f32 1e-4 of each tensor's largest magnitude."""
+    inp, ranks = world
+    cfg = tpw.layer_config(case)
+    p = {k: t.clone().requires_grad_() for k, t in inp["layers"][case].items()}
+    x = inp["layer_x"].clone().requires_grad_()
+    enc = inp["layer_enc"][case].clone().requires_grad_()
+    y = tpw.layer_apply(case, cfg, p, x, enc, None)
+    keys = (["x", "enc"] if case.startswith("xattn") else ["x"]) + list(p)
+    leaves = {"x": x, "enc": enc, **p}
+    grads = dict(zip(keys, torch.autograd.grad((y * inp["layer_w"]).sum(),
+                                               [leaves[k] for k in keys],
+                                               allow_unused=True, materialize_grads=True)))
+    n = dims[1]
+    for rank, got in enumerate(ranks):
+        m = _rank_coord(dims, rank)[1]
+        out = got[f"layers_{dims[0]}x{dims[1]}"][case]
+        blocks, cut = tpw.layer_blocks(case, {k: grads[k] for k in p}, n, m)
+        assert any(cut.values())
+        if not case.startswith("xattn"):
+            assert tp_split(cfg, tpw.layer_blocks(case, p, n, m)[0], _dist(*dims))
+        np.testing.assert_allclose(out["out"], y.detach().numpy(), rtol=0,
+                                   atol=TOL * float(y.detach().abs().max()))
+        for k in keys:
+            want = (blocks[k] if k in p else grads[k]).numpy()
+            np.testing.assert_allclose(out["grads"][k], want, rtol=0,
+                                       atol=TOL * max(float(np.abs(want).max()), 1e-30),
+                                       err_msg=f"rank {rank} {k}")
+
+
 def _single_device(case: str, inp: dict):
     """The single-device prefill and greedy decode steps of the same
     weights and prompts: each step's tokens and logits, and the caches
@@ -156,7 +243,8 @@ def _single_device(case: str, inp: dict):
     params = inp["serve_params"][case]
     cap = tpw.SERVE_PROMPT + tpw.SERVE_STEPS
     with torch.no_grad():
-        logits, caches = dec.prefill(cfg, params, inp["prompts"], capacity=cap)
+        logits, caches = dec.prefill(cfg, params, inp["prompts"],
+                                     frontend=inp["frontends"].get(case), capacity=cap)
         first = tree_map(torch.clone, caches)
         toks, lg = [logits.argmax(-1)], [logits]
         for i in range(tpw.SERVE_STEPS):
@@ -171,17 +259,22 @@ def _single_device(case: str, inp: dict):
 def test_dryrun_serving_steps_equal_the_single_device_steps(world, case):
     """Each rank's next tokens are its slot's, its logits are its vocabulary
     block of its slot's (so gathered over "model" they are the whole
-    logits), and its caches are its blocks (batch slot, KV heads) of the
-    single-device caches, after prefill and after three decode steps, at
-    f32 1e-4."""
+    logits), and its caches are its blocks (batch slot; the self- and
+    cross-attention K/V's KV heads, RWKV's state's heads and token shifts'
+    channels) of the single-device caches, after prefill and after three
+    decode steps, at f32 1e-4."""
     inp, ranks = world
     cfg, toks, lg, first, last = _single_device(case, inp)
     dims = tpw.SERVE_CASES[case][1]
     mesh = dict(zip(("data", "model"), dims))
     c_sh = specs.cache_shardings(dec.init_caches(cfg, tpw.SERVE_BATCH, tpw.SERVE_PROMPT
                                                  + tpw.SERVE_STEPS, device="meta"), mesh)
-    kv = [s for s in tree_leaves(c_sh) if len(s.spec) == 5]
-    assert kv and all(s.spec[3] == "model" for s in kv)  # split over KV heads
+    heads = {}  # the leaves split over heads: their head dim over "model"
+    specs.map_with_path(lambda path, s: heads.setdefault(path.rsplit("/", 1)[-1], []).append(
+        s.spec[2 if path.endswith("state") else 3]) if len(s.spec) == 5 else None, c_sh)
+    assert set(heads) == ({"state"} if "rwkv" in case else
+                          {"k", "v", "ck", "cv"} if "vision" in case else {"k", "v"})
+    assert all(e == "model" for es in heads.values() for e in es), heads
     rows = tpw.SERVE_BATCH // dims[0]
     for rank, got in enumerate(ranks):
         d, m = _rank_coord(dims, rank)
