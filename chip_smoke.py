@@ -98,13 +98,15 @@ Phases, each printing its own lines, any failure ending the run non-zero:
                forward and backward, model collectives, gradient reduce and
                update seconds and each kind of collective's calls and bytes
                a step; then, in the same world, rwkv6-1.6b the same way
-               (B=4 S=128, 2 steps, its time-mix and channel-mix split), its
+               (B=4 S=128, 2 steps, its time-mix and channel-mix split) and
+               recurrentgemma-9b at full width and depth 5 (B=4 S=128, 2
+               steps, its RG-LRU block split on the rank's channels), each
                first loss within 2e-2 of one device's on the same weights
                and batch; (c) the
                CPU tests' world programs (expert-parallel cases, sharded
-               train steps, llama-vision's and rwkv's among them) at smoke
-               width, a card world against a host world (each program pair
-               in one world a device).
+               train steps, llama-vision's, rwkv's and griffin's among them)
+               at smoke width, a card world against a host world (each
+               program pair in one world a device, the two worlds at once).
  13. recovery — (a) llama3.2-1b at full width trained under
                ``runtime.run_with_recovery`` through an injected fault and a
                host loss (``shrink_and_replan``, a seeded backoff), its final
@@ -122,8 +124,9 @@ Phases, each printing its own lines, any failure ending the run non-zero:
                drills on mesh (2, 1) at full width: phase 10's drill lines,
                the unshed rows of the run without drills, the eager steps.
  14. dryrun  — the dry-run and the cost counter: ``python -m
-               repro_torch.launch.dryrun`` on llama3.2-1b's and
-               rwkv6-1.6b's ``decode_32k`` ``single`` in a child process (a
+               repro_torch.launch.dryrun`` on llama3.2-1b's, rwkv6-1.6b's
+               and recurrentgemma-9b's ``decode_32k`` ``single`` in a child
+               process (a
                fake world of 256 ranks on meta tensors; this machine has no
                JAX), each record's compute (the per-rank dot FLOPs of the
                products split over "model", within 1% of the reference's),
@@ -263,10 +266,16 @@ SHARD_LOSS_TOL = 2e-2  # the reference's (tests/_multidevice_checks.py:164)
 # 12(c)'s sharded train cases on the card (each splits its compute over
 # "model"; the CPU tests run every case of sharding.checks.TRAIN_CASES)
 CARD_TRAIN_CASES = ["f32", "f32_microbatches", "f32_batch_3", "bf16", "vision_f32",
-                    "rwkv_f32"]
-# 12(b)'s RWKV leg: rwkv6-1.6b at full width over the same (2, 2) world,
-# its time-mix and channel-mix split over "model" (32 heads, 2 a rank)
-RWKV_TRAIN_ARCH, RWKV_TRAIN_B, RWKV_TRAIN_S, RWKV_TRAIN_STEPS = "rwkv6-1.6b", 4, 128, 2
+                    "rwkv_f32", "griffin_f32"]
+# 12(b)'s RWKV and griffin legs over the same (2, 2) world, B=4 S=128, 2
+# steps: rwkv6-1.6b at full width, its time-mix and channel-mix split over
+# "model" (32 heads, 2 a rank); recurrentgemma-9b at full width with one
+# group of each pattern, (RGLRU, RGLRU, LOCAL) x 1 and (RGLRU, RGLRU) x 1
+# (2.06 G parameters, 1.05 G of them the tied embedding; the 9 B model's
+# weights and moments, about 90 GB, do not fit four ranks on one card),
+# its RG-LRU block on the rank's 2048 of 4096 channels
+RWKV_TRAIN_ARCH, GRIFFIN_TRAIN_ARCH = "rwkv6-1.6b", "recurrentgemma-9b"
+LEG_B, LEG_S, LEG_STEPS = 4, 128, 2
 RANKS_TIMEOUT = 900.0
 COLL_FIT_SIZES = tuple(4096 * 4 ** j for j in range(8))
 COLL_AUTOTUNE_SIZES = (1 << 20, 1 << 26)
@@ -2077,13 +2086,22 @@ def phase_ranks_serve(gpu: str) -> None:
                  f" | {gpu}")
 
 
-def _train_leg(arch: str, B: int, S: int, steps: int) -> tuple:
-    """(config, run config, world_run's kw) of a 12(b) leg: ``arch`` at full
-    width, bf16, trained ``steps`` steps from seed 0."""
-    from repro_torch.configs import get_config
+def griffin_train_config():
+    """12(b)'s recurrentgemma-9b: full width, one group of each of its two
+    patterns (5 layers)."""
+    from repro_torch.configs import LayerGroup, get_config
+
+    cfg = get_config(GRIFFIN_TRAIN_ARCH)
+    groups = tuple(LayerGroup(g.pattern, 1) for g in cfg.groups)
+    depth = sum(len(g.pattern) for g in groups)
+    return dataclasses.replace(cfg, name=f"{GRIFFIN_TRAIN_ARCH}-depth{depth}", groups=groups)
+
+
+def _train_leg(cfg, B: int, S: int, steps: int) -> tuple:
+    """(config, run config, world_run's kw) of a 12(b) leg: ``cfg`` (a full
+    width config), bf16, trained ``steps`` steps from seed 0."""
     from repro_torch.configs.base import RunConfig
 
-    cfg = get_config(arch)
     run_cfg = RunConfig(model=cfg, seq_len=S, global_batch=B, n_microbatches=1,
                         warmup_steps=SHARD_WARMUP, total_steps=steps)
     return cfg, run_cfg, dict(seed=0, steps=steps, checkpoint_dir="", checkpoint_every=50,
@@ -2091,26 +2109,30 @@ def _train_leg(arch: str, B: int, S: int, steps: int) -> tuple:
 
 
 def phase_ranks_train(gpu: str, single_loss0: float) -> None:
-    """12(b): llama3.2-1b and rwkv6-1.6b at full width trained over a (2, 2)
-    world on the card (one world, in turn), each first loss held to the
-    single-device step's on the same weights and batch: phase 8's for
-    llama, ``launch.train.run``'s, taken here first, for rwkv6."""
+    """12(b): llama3.2-1b, rwkv6-1.6b and recurrentgemma-9b (depth 5) at full
+    width trained over a (2, 2) world on the card (one world, in turn), each
+    first loss held to the single-device step's on the same weights and
+    batch: phase 8's for llama, ``launch.train.run``'s, taken here first,
+    for the others."""
+    from repro_torch.configs import get_config
     from repro_torch.launch import train
     from repro_torch.launch.mesh import run_entry_world
     from repro_torch.sharding import checks as shard_checks
 
-    legs = [_train_leg(TRAIN_ARCH, *TRAIN_SETTINGS[0][1:3], SHARD_STEPS),
-            _train_leg(RWKV_TRAIN_ARCH, RWKV_TRAIN_B, RWKV_TRAIN_S, RWKV_TRAIN_STEPS)]
+    legs = [_train_leg(get_config(TRAIN_ARCH), *TRAIN_SETTINGS[0][1:3], SHARD_STEPS),
+            _train_leg(get_config(RWKV_TRAIN_ARCH), LEG_B, LEG_S, LEG_STEPS),
+            _train_leg(griffin_train_config(), LEG_B, LEG_S, LEG_STEPS)]
+    singles = [(single_loss0, "phase 8")]
+    for cfg, run_cfg, _ in legs[1:]:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        losses, _ = train.run(cfg, run_cfg, seed=0, steps=1, device="cuda", log_every=1)
+        singles.append((losses[0], "launch.train.run"))
+        say("ranks", f"{cfg.name} one device's first loss {losses[0]:.6f} in "
+                     f"{time.perf_counter() - t0:.1f} s | {gpu}")
     gc.collect()
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    cfg, run_cfg, _ = legs[1]
-    losses, _ = train.run(cfg, run_cfg, seed=0, steps=1, device="cuda", log_every=1)
-    singles = [(single_loss0, "phase 8"), (losses[0], "launch.train.run")]
-    gc.collect()
-    torch.cuda.empty_cache()
-    say("ranks", f"{cfg.name} one device's first loss {losses[0]:.6f} in "
-                 f"{time.perf_counter() - t0:.1f} s | {gpu}")
     zero_counts()
     t0 = time.perf_counter()
     outs = run_entry_world(shard_checks.train_world_reports, SHARD_RANKS,
@@ -2171,17 +2193,22 @@ def _say_train_leg(gpu: str, name: str, B: int, S: int, steps: int, single_loss0
 
 def phase_ranks_checks(gpu: str) -> None:
     """12(c): the CPU tests' world programs at smoke width, a world on CUDA
-    tensors against a world on the host (``sharding.checks.compare_moe``
-    and ``compare_train``): the expert-parallel cases rank by rank and two
-    sharded steps through the expert layer, the sharded train step's blocks
-    and metrics."""
+    tensors against a world on the host, the two at once
+    (``sharding.checks.compare_moe`` and ``compare_train``): the
+    expert-parallel cases rank by rank and two sharded steps through the
+    expert layer, the sharded train step's blocks and metrics."""
     from repro_torch.launch.mesh import run_world
     from repro_torch.sharding import checks as shard_checks
 
     W = shard_checks.WORLD
     args = (shard_checks.moe_inputs(), shard_checks.train_inputs(), CARD_TRAIN_CASES)
-    card = run_world(shard_checks.ranks_program, W, *args, device="cuda", timeout=RANKS_TIMEOUT)
-    host = run_world(shard_checks.ranks_program, W, *args, device="cpu", timeout=RANKS_TIMEOUT)
+    # the host world runs beside the card world: both are checks, neither is timed
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        host = pool.submit(run_world, shard_checks.ranks_program, W, *args, device="cpu",
+                           timeout=RANKS_TIMEOUT)
+        card = run_world(shard_checks.ranks_program, W, *args, device="cuda",
+                         timeout=RANKS_TIMEOUT)
+        host = host.result()
     for name, key, compare, bounds in (
             ("expert-parallel", "moe", shard_checks.compare_moe,
              f"logits and aux f32 {shard_checks.CARD_TOL['float32']}, bf16 "
@@ -2575,10 +2602,11 @@ def phase_mesh_drills(gpu: str, one_card_lines: list) -> None:
 
 # the dry-run's cells in phase 14's child, each with the reference's own
 # per-rank dot FLOPs (its GSPMD splits the products over "model", RWKV's
-# time-mix and channel-mix too; tests/test_torch_dryrun.py holds the port
-# to them)
+# time-mix and channel-mix and the RG-LRU block too;
+# tests/test_torch_dryrun.py holds the port to them)
 DRYRUN_CELLS = {("llama3.2-1b", "decode_32k", "single"): 3.41678e9,
-                ("rwkv6-1.6b", "decode_32k", "single"): 1.45228e9}
+                ("rwkv6-1.6b", "decode_32k", "single"): 1.45228e9,
+                ("recurrentgemma-9b", "decode_32k", "single"): 9.21117568e9}
 DRYRUN_TIMEOUT = 300.0
 # the child: each cell through the dry-run's CLI, one process
 _DRYRUN_CHILD = """

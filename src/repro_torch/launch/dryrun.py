@@ -30,25 +30,28 @@ is written.
 The compute splits over "model" as the reference's GSPMD splits it
 (``sharding.tp``): self- and cross-attention on the rank's heads, the dense
 MLP on its FF block, RWKV's time-mix on its heads and its channel-mix on
-its FF block, the embedding, unembedding and greedy pick on its vocabulary
-block.  The serving steps (:func:`serving_steps`) take this rank's blocks
-(``param_shardings``, ``cache_shardings``) and gather for compute
-(``specs.compute_shardings``): a split leaf over its FSDP axes only, the
-self- and cross-attention caches over their sequence dim only (the batch
-dim stays the rank's slot and the KV-head dim its heads), RWKV's state
-not at all (its slot, its heads), the MoE weights but for their expert dim
+its FF block, the RG-LRU block on its channels (its gates on its columns
+of their blocks), the embedding, unembedding and greedy pick on its
+vocabulary block.  The serving steps (:func:`serving_steps`) take this
+rank's blocks (``param_shardings``, ``cache_shardings``) and gather for
+compute (``specs.compute_shardings``): a split leaf over its FSDP axes
+only, the self- and cross-attention caches over their sequence dim only
+(the batch dim stays the rank's slot and the KV-head dim its heads),
+RWKV's state and the RG-LRU's ``h`` and ``conv`` not at all (the rank's
+slot, its heads or channels), the MoE weights but for their expert dim
 (the rank's virtual experts), and every other leaf whole (RWKV's token
-shifts, RG-LRU's leaves, and ``long_500k``'s sequence split of a cache);
-they hand back the next tokens, the rank's logits block and its blocks of
-the new caches.  ``train_step`` gathers for compute
-itself.  The gathers are counted as the all-gathers they are, the gated
-MLP's exchange as collective-permutes.  On the dense decoders, on
-llama-3.2-vision-11b and on rwkv6-1.6b's ``decode_32k`` the per-rank
-``dot_flops`` is then the reference's; where the reference also splits
-over "data" (``long_500k``), splits what the port computes whole
-(RG-LRU; the weight gradients of leaves computed whole, as whisper's
-unsplit heads') or computes whole what the port splits (rwkv6's ``cm_r``
-in training), it differs (PERF.md, section 6).  ``hbm_bytes`` is
+shifts, the RG-LRU's gates where their 8 blocks do not divide the axis,
+and ``long_500k``'s sequence split of a cache); they hand back the next
+tokens, the rank's logits block and its blocks of the new caches.
+``train_step`` gathers for compute itself.  The gathers are counted as the
+all-gathers they are, the gated MLP's exchange as collective-permutes.  On
+the dense decoders, llama-3.2-vision-11b, rwkv6-1.6b's ``decode_32k`` and
+recurrentgemma-9b's ``decode_32k``, ``prefill_32k`` and ``train_4k`` the
+per-rank ``dot_flops`` is then the reference's; where the reference also
+splits over "data" (``long_500k``), splits what the port computes whole
+(the weight gradients of leaves computed whole, as whisper's unsplit
+heads') or computes whole what the port splits (rwkv6's ``cm_r`` in
+training), it differs (PERF.md, section 6).  ``hbm_bytes`` is
 eager's (no fusion), larger than XLA's post-fusion count.
 
 Usage:
@@ -113,8 +116,10 @@ def _compute_shardings(p_sh, c_sh, gated: bool):
     serving steps: ``compute_shardings``, with the MoE weights' expert dim
     (dim 1, under the group's stack) kept as the rank's block; the caches
     keep their batch dim (dim 1), the self- and cross-attention caches their
-    KV-head dim (dim 3 of (count, B, capacity, G, dh)) and RWKV's state its
-    head dim (dim 2 of (count, B, H, K, V))."""
+    KV-head dim (dim 3 of (count, B, capacity, G, dh)), RWKV's state its
+    head dim (dim 2 of (count, B, H, K, V)) and the RG-LRU's ``h`` and
+    ``conv`` their channels (dim 2 of (count, B, W), dim 3 of (count, B,
+    width - 1, W))."""
     from repro_torch.sharding.specs import compute_shardings, map_with_path
 
     def param(path, c):
@@ -123,10 +128,11 @@ def _compute_shardings(p_sh, c_sh, gated: bool):
         return c
 
     def cache(path, s):
-        if re.search(r"(^|/)(k|v|ck|cv)$", path):
+        if re.search(r"(^|/)(k|v|ck|cv|conv)$", path):
             return _unsplit(s, {1, 3})
-        return _unsplit(s, {1, 2} if re.search(r"(^|/)state$", path) and len(s.spec) == 5
-                        else {1})
+        if re.search(r"(^|/)(state|h)$", path):
+            return _unsplit(s, {1, 2})
+        return _unsplit(s, {1})
 
     return (map_with_path(param, compute_shardings(p_sh, gated=gated)),
             map_with_path(cache, c_sh))

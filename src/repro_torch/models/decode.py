@@ -23,7 +23,8 @@ expert axes.  Given the rank's blocks over the model axis (the dry-run's
 serving steps), self-attention runs on its heads against its block of the
 KV caches, cross-attention on its heads against its block of the cross
 K/V, RWKV's time-mix on its heads against its block of the state (the
-token shifts whole), the MLP and RWKV's channel-mix on their FF blocks,
+token shifts whole), the RG-LRU block on its channels against its blocks
+of h and the conv tail, the MLP and RWKV's channel-mix on their FF blocks,
 and the logits are its vocabulary block (``models.transformer``); given
 whole weights (serve's world) they compute whole.  A world's collectives
 run on the host (gloo) or outside any captured graph, so a step of a
@@ -152,7 +153,7 @@ def _prefill_layer(
         return x, {"state": state, "tm_shift": h[:, -1], "cm_shift": h2[:, -1]}
     if kind == RGLRU:
         h = apply_norm(cfg, x, p["ln1"])
-        y, cache = griffin.rglru_block_prefill(cfg, p["rec"], h)
+        y, cache = griffin.rglru_block_prefill(cfg, p["rec"], h, dist)
         x = x + y
         h = apply_norm(cfg, x, p["ln2"])
         return x + mlp_apply(cfg, p["mlp"], h, dist), cache
@@ -229,7 +230,7 @@ def _decode_layer(
         return x + y2
     if kind == RGLRU:
         h = apply_norm(cfg, x, p["ln1"])
-        y, _ = griffin.rglru_block_decode(cfg, p["rec"], h, cache)
+        y, _ = griffin.rglru_block_decode(cfg, p["rec"], h, cache, dist)
         x = x + y
         h = apply_norm(cfg, x, p["ln2"])
         return x + mlp_apply(cfg, p["mlp"], h, dist)

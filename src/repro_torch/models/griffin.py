@@ -22,6 +22,17 @@ doubling passes, the counterpart of the JAX package's
 take their h from it; the JAX package's prefill calls ``associative_scan``
 directly and reaches its Pallas kernel only through ``rglru_block``.  Decode
 is the single-step form and updates the cache in place.
+
+Over the model axis (``sharding.tp``), given the rank's blocks, the block
+computes on the rank's W/n channels as the reference's GSPMD splits it:
+``w_gate`` and ``w_in`` column-parallel, the conv, Lambda, the gates'
+elementwise part and the scan per channel with no collective, ``w_out``
+row-parallel and one all-reduce.  The block-diagonal gates run on the
+rank's blocks where its channels are whole blocks (n divides the 8 blocks);
+where one block spans several ranks (n a multiple of 8) each rank gathers
+u's channels once, narrows them to its block's input and applies its
+columns of that block (:func:`block_columns`), 1/n of the whole product.
+Whole leaves compute whole.
 """
 from __future__ import annotations
 
@@ -34,6 +45,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.config import kernels_enabled
 from repro_torch.kernels.rglru import ops as lru_ops
 from repro_torch.models.common import dense_init, dtype_of
+from repro_torch.sharding import tp
 
 N_BLOCKS = 8
 C_RGLRU = 8.0
@@ -65,18 +77,60 @@ def rglru_params(cfg: ModelConfig, gen: torch.Generator, lead: Tuple[int, ...] =
 
 
 def _block_linear(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Block-diagonal linear: x (..., W) @ blockdiag(w (N, bw, bw))."""
+    """Block-diagonal linear: x (..., k·bw) @ blockdiag(w (k, bw, bw)), k the
+    N_BLOCKS blocks of the whole leaf or a rank's blocks of it."""
     shape = x.shape
-    xb = x.reshape(shape[:-1] + (N_BLOCKS, shape[-1] // N_BLOCKS))
+    k = w.shape[0]
+    xb = x.reshape(shape[:-1] + (k, shape[-1] // k))
     yb = torch.einsum("...nw,nwk->...nk", xb, w)
     return yb.reshape(shape)
 
 
-def _gates(p: dict, u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(a, gated input), both f32, for u (..., W)."""
+def block_columns(w: torch.Tensor, u: torch.Tensor, r: int, n: int,
+                  n_blocks: int = N_BLOCKS) -> torch.Tensor:
+    """Columns [r·W/n, (r+1)·W/n) of u (..., W) @ blockdiag(w (n_blocks, bw,
+    bw)), from the input they need alone: where n divides n_blocks, rank
+    r's n_blocks/n blocks on its own channels; where n is a multiple of
+    n_blocks, its W/n columns of block r·n_blocks/n on that block's bw
+    channels.  Raises on any other n."""
+    W = u.shape[-1]
+    bw, c = W // n_blocks, W // n
+    if n_blocks % n == 0:
+        k = n_blocks // n
+        return _block_linear(w.narrow(0, r * k, k), u.narrow(-1, r * c, c))
+    if n % n_blocks == 0:
+        blk, j = divmod(r, n // n_blocks)
+        return u.narrow(-1, blk * bw, bw) @ w[blk].narrow(-1, j * c, c)
+    raise ValueError(f"rec gate: {n_blocks} blocks over a model axis of {n}")
+
+
+def _gate_products(p: dict, uf: torch.Tensor, split: bool = False, dist=None,
+                   n_blocks: int = N_BLOCKS) -> Tuple[torch.Tensor, torch.Tensor]:
+    """BlockDiag_a(u) and BlockDiag_x(u) of uf (..., W) f32; where ``split``,
+    this rank's columns of each from its channels uf (..., W/n): on its
+    blocks of ``gate_a``/``gate_x`` (stored split, or narrowed from whole
+    leaves whose gradients then sum over the model axis), or, where a block
+    spans ranks, on its columns of its block after one gather of u's
+    channels (whose backward sums the ranks' gradients, a reduce-scatter)."""
+    ga, gx = p["gate_a"], p["gate_x"]
+    if not split or ga.shape[0] != n_blocks:
+        return _block_linear(ga, uf), _block_linear(gx, uf)
+    _, r, n = tp.dist_group(dist)
+    if n_blocks % n == 0:
+        return tuple(_block_linear(tp.model_block(g, 0, dist), uf) for g in (ga, gx))
+    whole = tp.gather_to_model(uf, dist)
+    return tuple(block_columns(tp.copy_to_model(g, dist), whole, r, n, n_blocks)
+                 for g in (ga, gx))
+
+
+def _gates(p: dict, u: torch.Tensor, split: bool = False, dist=None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(a, gated input), both f32, for u (..., W), or where ``split`` this
+    rank's channels (..., W/n) with its blocks of Lambda."""
     uf = u.float()
-    r = torch.sigmoid(_block_linear(p["gate_a"], uf))
-    i = torch.sigmoid(_block_linear(p["gate_x"], uf))
+    za, zx = _gate_products(p, uf, split, dist)
+    r = torch.sigmoid(za)
+    i = torch.sigmoid(zx)
     log_a = -C_RGLRU * F.softplus(p["lam"]) * r  # (<= 0)
     a = torch.exp(log_a)
     # sqrt(1 - a^2) computed stably via expm1: 1 - exp(2 log_a)
@@ -114,9 +168,11 @@ def rglru_scan(p: dict, u: torch.Tensor) -> torch.Tensor:
     return _scan_dispatch(a, gin).to(u.dtype)
 
 
-def rglru_step(p: dict, u: torch.Tensor, h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One step.  u: (B, W); h: (B, W) f32 carried state."""
-    a, gin = _gates(p, u)
+def rglru_step(p: dict, u: torch.Tensor, h: torch.Tensor, split: bool = False, dist=None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One step.  u: (B, W); h: (B, W) f32 carried state (the rank's
+    channels of both where ``split``)."""
+    a, gin = _gates(p, u, split, dist)
     h_new = a * h + gin
     return h_new.to(u.dtype), h_new
 
@@ -146,31 +202,68 @@ def causal_conv_step(p: dict, u: torch.Tensor, conv_state: torch.Tensor):
 # Full block.
 # --------------------------------------------------------------------------
 
-def rglru_block(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+# the leaves a split block holds as this rank's blocks over the model axis
+# (``specs.SPLIT_COMPUTE``): the dim of W each.  ``gate_a``/``gate_x`` are
+# its blocks where n divides their N_BLOCKS, else whole
+_SPLIT_DIMS = {"w_gate": -1, "w_in": -1, "conv_w": -1, "conv_b": -1, "lam": -1, "w_out": 0}
+
+
+def tp_split(cfg: ModelConfig, p: dict, dist=None) -> bool:
+    """Whether the block's leaves (one layer's, unstacked) are this rank's
+    blocks over the model axis: its channels of ``w_gate``/``w_in``/
+    ``conv_w``/``conv_b``/``lam`` and rows of ``w_out`` (all of them or
+    none), beside its blocks of the gates or the whole gates.  Anything
+    else raises."""
+    W = lru_width(cfg)
+    got = {k: tp.is_block(f"rec/{k}", p[k].shape[dim], W, dist)
+           for k, dim in _SPLIT_DIMS.items()}
+    if len(set(got.values())) > 1:
+        raise ValueError(f"rec: blocks {sorted(k for k, v in got.items() if v)} beside whole "
+                         f"{sorted(k for k, v in got.items() if not v)}")
+    split = got["w_in"]
+    for k in ("gate_a", "gate_x"):
+        if tp.is_block(f"rec/{k} blocks", p[k].shape[0], N_BLOCKS, dist) and not split:
+            raise ValueError(f"rec: {k}'s blocks beside whole channels")
+    return split
+
+
+def _block_in(cfg: ModelConfig, p: dict, x: torch.Tensor, dist):
+    """(whether split, GeLU(x W_gate), x W_in) on all channels or this
+    rank's; ``x`` then sums its gradient over the model axis."""
+    split = tp_split(cfg, p, dist)
+    if split:
+        x = tp.copy_to_model(x, dist)
+    return split, F.gelu(x @ p["w_gate"], approximate="tanh"), x @ p["w_in"]
+
+
+def _block_out(p: dict, gate: torch.Tensor, h: torch.Tensor, split: bool, dist) -> torch.Tensor:
+    """(gate * h) W_out; row-parallel where ``split`` (the partial outputs summed)."""
+    out = (gate * h) @ p["w_out"]
+    return tp.reduce_from_model(out, dist) if split else out
+
+
+def rglru_block(cfg: ModelConfig, p: dict, x: torch.Tensor, dist=None) -> torch.Tensor:
     """Full-sequence recurrent block.  x: (B, S, d)."""
-    gate = F.gelu(x @ p["w_gate"], approximate="tanh")
-    u = causal_conv(p, x @ p["w_in"])
-    h = rglru_scan(p, u)
-    return (gate * h) @ p["w_out"]
+    return rglru_block_prefill(cfg, p, x, dist)[0]
 
 
-def rglru_block_prefill(cfg: ModelConfig, p: dict, x: torch.Tensor) -> Tuple[torch.Tensor, dict]:
-    """Full-sequence block that also returns the decode cache: h's last row in
-    f32 and the last width-1 inputs of the conv (zeros in front when the
-    sequence is shorter)."""
-    gate = F.gelu(x @ p["w_gate"], approximate="tanh")
-    u_raw = x @ p["w_in"]
+def rglru_block_prefill(cfg: ModelConfig, p: dict, x: torch.Tensor, dist=None
+                        ) -> Tuple[torch.Tensor, dict]:
+    """Full-sequence block that also returns the decode cache: h's last row
+    in f32 and the last width-1 inputs of the conv (zeros in front when the
+    sequence is shorter), of all channels or, with ``dist`` and this rank's
+    blocks (:func:`tp_split`), of its channels."""
+    split, gate, u_raw = _block_in(cfg, p, x, dist)
     u = causal_conv(p, u_raw)
-    a, gin = _gates(p, u)
+    a, gin = _gates(p, u, split, dist)
     hh = _scan_dispatch(a, gin)
-    h = hh.to(u.dtype)
+    out = _block_out(p, gate, hh.to(u.dtype), split, dist)
     width = cfg.conv_width
     conv_tail = u_raw[:, -(width - 1):]
     S = u_raw.shape[1]
     if S < width - 1:  # pad front with zeros (cold conv state)
         conv_tail = F.pad(conv_tail, (0, 0, width - 1 - S, 0))
-    cache = {"h": hh[:, -1].float(), "conv": conv_tail}
-    return (gate * h) @ p["w_out"], cache
+    return out, {"h": hh[:, -1].float(), "conv": conv_tail}
 
 
 def init_rglru_cache(cfg: ModelConfig, batch: int, device=None) -> dict:
@@ -182,17 +275,17 @@ def init_rglru_cache(cfg: ModelConfig, batch: int, device=None) -> dict:
 
 
 def rglru_block_decode(
-    cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict
+    cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict, dist=None
 ) -> Tuple[torch.Tensor, dict]:
     """x: (B, 1, d) -> (y, cache).  Unlike the JAX package, which returns a
     new cache, this writes the new h and conv state into ``cache`` in place
-    and returns the same dict."""
-    xt = x[:, 0]
-    gate = F.gelu(xt @ p["w_gate"], approximate="tanh")
-    u_raw = xt @ p["w_in"]
+    and returns the same dict.  With ``dist`` and this rank's blocks
+    (:func:`tp_split`) the cache's h (B, W/n) and conv (B, width-1, W/n) are
+    its channels."""
+    split, gate, u_raw = _block_in(cfg, p, x[:, 0], dist)
     u, conv_state = causal_conv_step(p, u_raw, cache["conv"])
-    h_out, h_state = rglru_step(p, u, cache["h"])
-    y = ((gate * h_out) @ p["w_out"])[:, None]
+    h_out, h_state = rglru_step(p, u, cache["h"], split, dist)
+    y = _block_out(p, gate, h_out, split, dist)[:, None]
     cache["h"].copy_(h_state)
     cache["conv"].copy_(conv_state)
     return y, cache

@@ -18,11 +18,11 @@ rank's blocks over the model axis (``specs.ComputeSharding``) the dense
 compute splits over it as the reference's GSPMD splits it
 (``sharding.tp``): self- and cross-attention on the rank's heads and the
 MLP on its FF block, each ending in one all-reduce, RWKV's time-mix on its
-heads and its channel-mix on its FF block (``models.rwkv``), the embedding
-and unembedding on its vocabulary block (the logits are then that block).
-Whole parameters compute whole on every rank; each layer tells the two
-apart by its weights' shapes and raises on any other.  The RG-LRU block
-computes whole.  The MoE layer runs ``moe.moe_apply_sharded_inner`` over
+heads and its channel-mix on its FF block (``models.rwkv``), the RG-LRU
+block on its channels (``models.griffin``), the embedding and unembedding
+on its vocabulary block (the logits are then that block).  Whole
+parameters compute whole on every rank; each layer tells the two apart by
+its weights' shapes and raises on any other.  The MoE layer runs ``moe.moe_apply_sharded_inner`` over
 the expert axes with the rank's virtual expert (``_moe_call``); with
 ``dist=None`` it is the dense single-device path, the reference's branch.
 """
@@ -399,7 +399,7 @@ def _apply_layer_full(
         return x + rwkv.rwkv_channel_mix(cfg, p["tm_cm"], h, dist)
     if kind == RGLRU:
         h = apply_norm(cfg, x, p["ln1"])
-        x = x + griffin.rglru_block(cfg, p["rec"], h)
+        x = x + griffin.rglru_block(cfg, p["rec"], h, dist)
         h = apply_norm(cfg, x, p["ln2"])
         return x + mlp_apply(cfg, p["mlp"], h, dist)
     raise ValueError(kind)

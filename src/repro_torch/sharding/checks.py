@@ -10,7 +10,7 @@ holding its virtual expert of each layer, and returns its slot of the
 logits and the aux loss.  :func:`train_program` runs the sharded
 ``train_step`` twice (the warm-up's step at lr 0, then one that moves the
 weights) for each case of :data:`TRAIN_CASES`, its compute split over
-"model", on a (2, 4) mesh (one case on (1, 8)) and returns the rank's
+"model", on a (2, 4) mesh (two cases on (1, 8)) and returns the rank's
 blocks of the parameters and moments, the steps' metrics and the
 collectives the first step and a forward pass made.
 The tests hold them against the JAX package's outputs; on the card, a
@@ -63,7 +63,9 @@ TRAIN_MESH = (2, 4)
 # whisper: the encoder, and the decoder's cross-attention on the rank's
 # head and KV head; rwkv: 8 heads of 16 over 4, the time-mix and
 # channel-mix split; its smoke config's 2 heads of 64 do not divide 4, so
-# that layer computes whole.
+# that layer computes whole; griffin: recurrentgemma's RG-LRU block on the
+# rank's 32 of 128 channels, 2 of its 8 gate blocks (on (1, 8): 16
+# channels, 1 block, attention's 4 heads whole).
 TRAIN_CASES = {
     "f32": (TRAIN_ARCH, "float32", 8, 1, TRAIN_MESH, ()),
     "f32_microbatches": (TRAIN_ARCH, "float32", 8, 2, TRAIN_MESH, ()),
@@ -78,6 +80,8 @@ TRAIN_CASES = {
     "whisper_f32": ("whisper-small", "float32", 8, 1, TRAIN_MESH, ()),
     "rwkv_f32": ("rwkv6-1.6b", "float32", 8, 1, TRAIN_MESH, (("rwkv_head_dim", 16),)),
     "rwkv_heads_whole": ("rwkv6-1.6b", "float32", 8, 1, TRAIN_MESH, ()),
+    "griffin_f32": ("recurrentgemma-9b", "float32", 8, 1, TRAIN_MESH, ()),
+    "griffin_f32_1x8": ("recurrentgemma-9b", "float32", 8, 1, (1, 8), ()),
 }
 TRAIN_SEQ = 32
 # f32 bound of the blocks after the two steps, of a leaf's largest magnitude.

@@ -33,7 +33,7 @@ all-gathers over the spec's axes (through ``comms.routes``).
 ``compute_shardings`` says how a step computes with each leaf: the leaves
 whose products split over "model" (``SPLIT_COMPUTE``: self- and
 cross-attention, the dense MLP, RWKV's time-mix and channel-mix, the
-vocabulary; ``sharding.tp``) keep their model block and are gathered over
+RG-LRU block, the vocabulary; ``sharding.tp``) keep their model block and are gathered over
 their other axes only; every other leaf is gathered whole.
 """
 from __future__ import annotations
@@ -337,20 +337,24 @@ def param_shardings(
 # --------------------------------------------------------------------------
 
 # attention's projections (self- and cross-attention's), the dense MLP (not
-# the experts' or the recurrent blocks'), RWKV's time-mix and channel-mix
-# products, and the vocabulary: a step computes with the rank's block of
-# these over the model axis (``sharding.tp``); it gathers any other leaf
-# whole, and these too where the axis left them whole.  RWKV's whole
-# ``decay_A`` and ``cm_r`` are narrowed to the rank's block inside the layer
-# (``tp.model_block``)
+# the experts'), RWKV's time-mix and channel-mix products, the RG-LRU block,
+# and the vocabulary: a step computes with the rank's block of these over
+# the model axis (``sharding.tp``); it gathers any other leaf whole, and
+# these too where the axis left them whole.  RWKV's whole ``decay_A`` and
+# ``cm_r`` and the RG-LRU's whole gates are narrowed to the rank's block
+# inside the layer (``tp.model_block``, ``griffin.block_columns``)
 SPLIT_COMPUTE = re.compile(r"(^|/)(x?attn/w[qkvo]|mlp/w_(in|out)|embed/(tok|head)|"
-                           r"tm_cm/(w[rkvgo]|decay_B|ln_scale|cm_[kv]))$")
+                           r"tm_cm/(w[rkvgo]|decay_B|ln_scale|cm_[kv])|"
+                           r"rec/(w_gate|w_in|conv_[wb]|lam|w_out|gate_[ax]))$")
 # leaves whose blocks a layer computes with only together: where one of a
-# group is left whole over the model axis, all are gathered whole.  RWKV's
-# ln_scale splits exactly where its heads divide the axis, so a time-mix
-# whose column blocks would cut a head computes whole
+# group is left whole over the model axis, every split-compute leaf of the
+# layer is gathered whole.  RWKV's ln_scale splits exactly where its heads
+# divide the axis, so a time-mix whose column blocks would cut a head
+# computes whole.  The RG-LRU's gates are not of its group: stored whole
+# where their 8 blocks do not divide the axis, the layer narrows them
 _TOGETHER = {"mlp": ("w_in", "w_out"),
-             "tm_cm": ("wr", "wk", "wv", "wg", "wo", "decay_B", "ln_scale", "cm_k", "cm_v")}
+             "tm_cm": ("wr", "wk", "wv", "wg", "wo", "decay_B", "ln_scale", "cm_k", "cm_v"),
+             "rec": ("w_gate", "w_in", "conv_w", "conv_b", "lam", "w_out")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -401,10 +405,11 @@ def compute_shardings(shardings: Any, *, gated: bool, model_axis: str = "model")
     """A tree of :class:`ComputeSharding` over a tree of storage
     :class:`Sharding` (``param_shardings``'s).  A leaf of ``SPLIT_COMPUTE``
     split over ``model_axis`` keeps its model block; the leaves of a group
-    of ``_TOGETHER`` keep theirs only together (an FF width whose 2·ff
-    divides the axis but ff does not computes whole; so does an RWKV layer
-    whose heads do not divide it).  ``gated``: the config's MLP is gated,
-    its ``w_in`` [gate | up]."""
+    of ``_TOGETHER`` keep theirs only together, and the layer's other
+    split-compute leaves only with them (an FF width whose 2·ff divides the
+    axis but ff does not computes whole; so does an RWKV layer whose heads
+    do not divide it, and an RG-LRU block whose width does not).
+    ``gated``: the config's MLP is gated, its ``w_in`` [gate | up]."""
     by_path: Dict[str, Sharding] = {}
     map_with_path(by_path.__setitem__, shardings)
 
@@ -416,7 +421,7 @@ def compute_shardings(shardings: Any, *, gated: bool, model_axis: str = "model")
         keep = split(path)
         base, _, leaf = path.rpartition("/")
         group = _TOGETHER.get(base.rpartition("/")[2], ())
-        if keep and leaf in group:
+        if keep and group:
             keep = all(split(f"{base}/{w}") for w in group)
         if not keep:
             return ComputeSharding(s, s, model_axis=model_axis)

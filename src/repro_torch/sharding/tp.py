@@ -162,6 +162,22 @@ class _GatherFromModel(torch.autograd.Function):
         return g.narrow(-1, ctx.rank * ctx.c, ctx.c).contiguous(), None
 
 
+class _GatherToModel(torch.autograd.Function):
+    """Every rank's block ``x`` (..., c) joined along the last dim in group
+    order (one all-gather), each rank then using its own part of the whole;
+    the backward sums the ranks' gradients and keeps this rank's block (one
+    reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_gather_last(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter_last(g, ctx.group), None
+
+
 def _reduce_scatter_last(x: torch.Tensor, group) -> torch.Tensor:
     from repro_torch.comms import routes
 
@@ -206,6 +222,15 @@ def gather_from_model(x: torch.Tensor, dist) -> torch.Tensor:
     """The ranks' blocks ``x`` joined along the last dim over the model axis,
     alike on every rank (the inverse of :func:`scatter_to_model`'s split)."""
     return _GatherFromModel.apply(x, dist_group(dist)[0])
+
+
+def gather_to_model(x: torch.Tensor, dist) -> torch.Tensor:
+    """The ranks' blocks ``x`` joined along the last dim over the model axis,
+    into products that differ by rank (the RG-LRU's gates across ranks): the
+    backward sums the ranks' gradients of the whole and keeps this rank's
+    block, a reduce-scatter (:func:`gather_from_model`'s backward only
+    narrows, right where every rank consumes the whole alike)."""
+    return _GatherToModel.apply(x, dist_group(dist)[0])
 
 
 def model_block(t: torch.Tensor, dim: int, dist) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """One rank's program for ``tests/test_torch_tp.py``: the operators of
-``repro_torch.sharding.tp``, cross-attention and RWKV's time-mix and
-channel-mix on the rank's blocks, and the dry-run's serving steps on a
-world of 4 gloo ranks, meshes (1, 4) and (2, 2).  Imports no JAX (the ranks
-are spawned processes)."""
+``repro_torch.sharding.tp``, cross-attention, RWKV's time-mix and
+channel-mix and the RG-LRU block on the rank's blocks, the RG-LRU's gates
+across ranks, and the dry-run's serving steps on a world of 4 gloo ranks,
+meshes (1, 4) and (2, 2).  Imports no JAX (the ranks are spawned
+processes)."""
 import numpy as np
 import torch
 
@@ -12,18 +13,25 @@ MESHES = ((1, 4), (2, 2))
 SERVE_CASES = {"llama_1x4": ("llama3.2-1b", (1, 4)), "llama_2x2": ("llama3.2-1b", (2, 2)),
                "gemma2_2x2": ("gemma2-9b", (2, 2)),
                "vision_1x4": ("llama-3.2-vision-11b", (1, 4)),
-               "rwkv_2x2": ("rwkv6-1.6b", (2, 2))}
+               "rwkv_2x2": ("rwkv6-1.6b", (2, 2)),
+               "griffin_2x2": ("recurrentgemma-9b", (2, 2))}
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 8, 3
 # rwkv6 at 8 heads of 16, so that its heads split over a model axis of 4
 # (the sharded train step's rwkv_f32 case); its smoke config has 2 of 64
 RWKV_CHANGES = {"rwkv_head_dim": 16}
 # the layers on blocks: name -> (arch, the layer); llama-vision's 4 heads
 # read 2 KV heads (whole beside the rank's heads on (1, 4), split on
-# (2, 2)), whisper's 4 heads 4 (split on both)
+# (2, 2)), whisper's 4 heads 4 (split on both); the RG-LRU's 128 channels in
+# 8 gate blocks, 2 blocks a rank on (1, 4), 4 on (2, 2)
 LAYER_CASES = {"xattn_vision": ("llama-3.2-vision-11b", "xattn"),
                "xattn_whisper": ("whisper-small", "xattn"),
-               "time_mix": ("rwkv6-1.6b", "tm_cm"), "channel_mix": ("rwkv6-1.6b", "tm_cm")}
+               "time_mix": ("rwkv6-1.6b", "tm_cm"), "channel_mix": ("rwkv6-1.6b", "tm_cm"),
+               "rglru": ("recurrentgemma-9b", "rec")}
 LAYER_BATCH, LAYER_SEQ = 2, 5
+# the RG-LRU's gates across ranks at a block count of 2 and a width of 16:
+# on (1, 4) each block spans 2 ranks (4 of its 8 columns a rank), on (2, 2)
+# each rank holds one block
+CROSS_BLOCKS, CROSS_WIDTH = 2, 16
 
 
 def _config(arch: str):
@@ -48,13 +56,22 @@ def layer_config(case: str):
 
 def layer_apply(case: str, cfg, p: dict, x, enc, dist):
     """The case's layer on ``p`` (whole, or this rank's blocks with ``dist``)."""
-    from repro_torch.models import attention, rwkv
+    from repro_torch.models import attention, griffin, rwkv
 
     if case.startswith("xattn"):
         return attention.cross_attention(cfg, p, x, attention.cross_kv(cfg, p, enc, dist), dist)
+    if case == "rglru":
+        return griffin.rglru_block(cfg, p, x, dist)
     if case == "time_mix":
         return rwkv.rwkv_time_mix(cfg, p, x, dist=dist)
     return rwkv.rwkv_channel_mix(cfg, p, x, dist)
+
+
+def layer_split(case: str, cfg, p: dict, dist) -> bool:
+    """The layer's own test of ``p``: its rank's blocks (True) or whole."""
+    from repro_torch.models import griffin, rwkv
+
+    return (griffin if case == "rglru" else rwkv).tp_split(cfg, p, dist)
 
 
 def layer_blocks(case: str, p: dict, model: int, rank: int) -> dict:
@@ -126,6 +143,26 @@ def _layers(device, inputs, mesh) -> dict:
     return out
 
 
+def _cross_gates(device, inputs, mesh) -> dict:
+    """``griffin._gate_products`` on this rank's channels of the inputs' u
+    with the whole gates at ``CROSS_BLOCKS`` blocks: the rank's columns of
+    both products, and the gradients of (both · the inputs' weights) with
+    respect to its channels of u and to each whole gate."""
+    from repro_torch.launch.mesh import axes_index
+    from repro_torch.models import griffin
+    from repro_torch.models.transformer import DistContext
+
+    dist = DistContext(mesh=mesh, dp_axes=("data",))
+    r, n = axes_index(mesh, ("model",)), mesh.shape[1]
+    g = inputs["cross"]
+    u = g["u"].chunk(n, -1)[r].contiguous().to(device).requires_grad_()
+    p = {k: g[k].to(device).requires_grad_() for k in ("gate_a", "gate_x")}
+    za, zx = griffin._gate_products(p, u, True, dist, n_blocks=CROSS_BLOCKS)
+    w = g["weight"].chunk(n, -1)[r].to(device)
+    gu, ga, gx = torch.autograd.grad((za * w[0] + zx * w[1]).sum(), [u, p["gate_a"], p["gate_x"]])
+    return {"za": za.detach(), "zx": zx.detach(), "u": gu, "gate_a": ga, "gate_x": gx}
+
+
 def _serve(device, inputs, case: str, mesh) -> dict:
     """The dry-run's serving steps (``launch.dryrun.serving_steps``) on this
     rank's blocks: prefill, then SERVE_STEPS greedy decode steps, each
@@ -168,6 +205,8 @@ def program(device: torch.device, inputs: dict) -> dict:
     meshes = {dims: make_mesh(dims, ("data", "model"), device.type) for dims in MESHES}
     out = {f"ops_{a}x{b}": _ops(device, inputs, meshes[(a, b)]) for a, b in MESHES}
     out.update({f"layers_{a}x{b}": _layers(device, inputs, meshes[(a, b)]) for a, b in MESHES})
+    out.update({f"cross_{a}x{b}": _cross_gates(device, inputs, meshes[(a, b)])
+                for a, b in MESHES})
     for case, (_, dims) in SERVE_CASES.items():
         out[case] = _serve(device, inputs, case, meshes[dims])
     return out
@@ -178,10 +217,13 @@ def inputs(seed: int = 0) -> dict:
     blocks in ``tied``), labels, an embedding table and ids, a gated w_in,
     the layers' weights (RWKV's mixes, decay base, bonus and norm scale
     drawn too, not the constants they start from), input, frontend states
-    and output weight, the serving cases' weights (the XATTN gates drawn
-    non-zero), prompts and frontends."""
+    and output weight (the RG-LRU's conv bias and Lambda drawn too), the
+    RG-LRU's gates across ranks (u, two gates, the outputs' weights), the
+    serving cases' weights (the XATTN gates drawn non-zero), prompts and
+    frontends."""
     from repro_torch.models.attention import attn_params
     from repro_torch.models.convert import draw_xattn_gates
+    from repro_torch.models.griffin import rglru_params
     from repro_torch.models.rwkv import rwkv_params
     from repro_torch.models.transformer import init_params
 
@@ -207,6 +249,9 @@ def inputs(seed: int = 0) -> dict:
         if key == "xattn":
             width = cfg.frontend_dim or cfg.d_model
             layers[case] = attn_params(cfg, gen, kv_input_dim=width)
+        elif key == "rec":
+            layers[case] = rglru_params(cfg, gen)
+            continue  # its draws come last
         else:
             p = rwkv_params(cfg, gen)
             for k in ("mu", "cmu", "u", "ln_scale"):
@@ -224,4 +269,13 @@ def inputs(seed: int = 0) -> dict:
     d = layer_config("time_mix").d_model
     out.update(layers=layers, layer_enc=enc, layer_x=f32(LAYER_BATCH, LAYER_SEQ, d),
                layer_w=f32(LAYER_BATCH, LAYER_SEQ, d), frontends=frontends)
+    rec = layers["rglru"]
+    rec["conv_b"] = 0.3 * f32(*rec["conv_b"].shape)
+    rec["lam"] = rec["lam"] + 0.5 * f32(*rec["lam"].shape)
+    enc["rglru"] = torch.zeros((LAYER_BATCH, 1, d))  # unused
+    bw = CROSS_WIDTH // CROSS_BLOCKS
+    out["cross"] = {"u": f32(LAYER_BATCH, LAYER_SEQ, CROSS_WIDTH),
+                    "gate_a": f32(CROSS_BLOCKS, bw, bw) / bw ** 0.5,
+                    "gate_x": f32(CROSS_BLOCKS, bw, bw) / bw ** 0.5,
+                    "weight": f32(2, LAYER_BATCH, LAYER_SEQ, CROSS_WIDTH)}
     return out

@@ -6,8 +6,9 @@ in one module fixture.  Checked: the meta fields of every arch x shape x mesh
 cell (and the serving layout of the MoE archs) against the reference's
 ``build_cell``; the cheapest cell end to end through the CLI, its record read
 by ``benchmarks/roofline.py::terms``; a cell whose ``dot_flops`` is computed
-by hand; the per-rank ``dot_flops`` of seven dense-decoder cells and of
-llama-3.2-vision-11b's and rwkv6-1.6b's ``decode_32k`` against the
+by hand; the per-rank ``dot_flops`` of seven dense-decoder cells, of
+llama-3.2-vision-11b's and rwkv6-1.6b's ``decode_32k`` and of
+recurrentgemma-9b's ``decode_32k`` and ``train_4k`` against the
 reference's own dry-run (both split the products over "model"); the
 collective tiers of a training cell on one pod and on two; and the failure
 and ``--skip-existing`` handling.
@@ -60,6 +61,10 @@ FLOP_CELLS = [("llama3.2-1b", "train_4k", "single"), ("llama3.2-1b", "prefill_32
               ("llama3.2-1b", "train_4k", "multi"),
               ("llama-3.2-vision-11b", "decode_32k", "single"),
               ("rwkv6-1.6b", "decode_32k", "single")]
+# recurrentgemma's RG-LRU block, in a subprocess of each package's own
+# started with the others: the reference's train_4k traces for about 30 s
+GRIFFIN_CELLS = [("recurrentgemma-9b", "decode_32k", "single"),
+                 ("recurrentgemma-9b", "train_4k", "single")]
 
 # one package's dry-run of FLOP_CELLS, its CLI in one process; {pkg} is
 # repro or repro_torch (the reference's main reads sys.argv)
@@ -131,6 +136,10 @@ def runs(tmp_path_factory):
                              json.dumps(FLOP_CELLS)]),
         "port_flops": _start(["-c", _FLOP_CELLS.format(pkg="repro_torch"), str(tmp / "port"),
                               json.dumps(FLOP_CELLS)]),
+        "ref_flops_griffin": _start(["-c", _FLOP_CELLS.format(pkg="repro"), str(tmp / "ref"),
+                                     json.dumps(GRIFFIN_CELLS)]),
+        "port_flops_griffin": _start(["-c", _FLOP_CELLS.format(pkg="repro_torch"),
+                                      str(tmp / "port"), json.dumps(GRIFFIN_CELLS)]),
     }
     try:
         done = {name: _finish(p) for name, p in procs.items()}
@@ -212,14 +221,16 @@ def test_decode_cell_dot_flops_by_hand(runs):
     assert rec["hlo_cost"]["dot_flops"] == pytest.approx(want, rel=0.01)
 
 
-@pytest.mark.parametrize("cell", FLOP_CELLS, ids=["/".join(c) for c in FLOP_CELLS])
+@pytest.mark.parametrize("cell", FLOP_CELLS + GRIFFIN_CELLS,
+                         ids=["/".join(c) for c in FLOP_CELLS + GRIFFIN_CELLS])
 def test_dot_flops_equal_the_reference_s(runs, cell):
     """Each rank's dot FLOPs of a cell are the reference's (its GSPMD splits
-    the products over "model", cross-attention's and RWKV's included; the
-    port splits them alike): within 1%."""
+    the products over "model", cross-attention's, RWKV's and the RG-LRU's
+    included; the port splits them alike): within 1%."""
     tmp, done = runs
-    _ok(done["ref_flops"])
-    _ok(done["port_flops"])
+    which = "_griffin" if cell in GRIFFIN_CELLS else ""
+    _ok(done["ref_flops" + which])
+    _ok(done["port_flops" + which])
     name = "__".join(cell) + "__baseline.json"
     ref, port = _record(tmp / "ref" / name), _record(tmp / "port" / name)
     assert ref["ok"] is True and port["ok"] is True

@@ -3,20 +3,26 @@
 
 Without a world: a layer tells its weights' blocks from whole ones by their
 shapes and raises on anything else; the compute plan keeps the model block
-of exactly the leaves split in compute (the MLP's two only together) and
-exchanges a gated ``w_in``; the exchange's sources tile the [gate | up]
-columns once.  On a world of 4 gloo ranks, meshes (1, 4) and (2, 2)
-(``tests/_torch_tp_world.py``): the vocabulary-parallel cross-entropy and
-its gradient, the greedy pick (ties across blocks), the embedding lookup
-and its gradient, and the gated exchange and its inverse, each against the
-whole tensor's plain version; cross-attention (KV heads whole beside the
-rank's heads, and split) and RWKV's time-mix and channel-mix on each rank's
-blocks, forward and gradients, against the whole layer at f32 1e-4; and
-the dry-run's ``prefill_step`` and ``decode_step``
-(``launch.dryrun.serving_steps``) on each rank's blocks: the next tokens,
-the logits gathered whole and the caches' blocks (the self- and
-cross-attention K/V split over their KV heads, RWKV's state over its heads)
-equal the single-device serving steps at f32 1e-4.
+of exactly the leaves split in compute (the MLP's two only together, the
+RG-LRU's with its gates only where its width splits) and exchanges a gated
+``w_in``; the exchange's sources tile the [gate | up] columns once; the
+RG-LRU's rank-columns function joined over n ranks is the whole
+block-diagonal product.  On a world of 4 gloo ranks, meshes (1, 4) and
+(2, 2) (``tests/_torch_tp_world.py``): the vocabulary-parallel
+cross-entropy and its gradient, the greedy pick (ties across blocks), the
+embedding lookup and its gradient, and the gated exchange and its inverse,
+each against the whole tensor's plain version; cross-attention (KV heads
+whole beside the rank's heads, and split), RWKV's time-mix and
+channel-mix and the RG-LRU block (its gates on the rank's blocks) on each
+rank's blocks, forward and gradients, against the whole layer at f32 1e-4;
+the RG-LRU's gates where a block spans ranks (a block count of 2 over 4
+ranks), each rank's columns and the gradients of its channels and of the
+whole gates against the whole block-diagonal products; and the dry-run's
+``prefill_step`` and ``decode_step`` (``launch.dryrun.serving_steps``) on
+each rank's blocks: the next tokens, the logits gathered whole and the
+caches' blocks (the self- and cross-attention K/V split over their KV
+heads, RWKV's state over its heads, the RG-LRU's h and conv tail over its
+channels) equal the single-device serving steps at f32 1e-4.
 """
 import dataclasses
 
@@ -31,7 +37,6 @@ from repro_torch.models import decode as dec
 from repro_torch.models.attention import self_attention
 from repro_torch.models.common import mlp_apply
 from repro_torch.models.convert import tree_leaves, tree_map
-from repro_torch.models.rwkv import tp_split
 from repro_torch.models.transformer import DistContext, param_shapes
 from repro_torch.sharding import specs, tp
 
@@ -147,6 +152,62 @@ def test_rwkv_and_cross_attention_raise_on_mixed_blocks():
         attention.cross_kv(v, a, torch.zeros((1, 2, v.frontend_dim)), _dist(1, 4))
 
 
+@pytest.mark.parametrize("model,lru_width,kept,gates", [
+    (4, 128, True, True), (8, 128, True, True), (16, 128, True, False),
+    (16, 8 * 3, False, False)])
+def test_compute_shardings_split_griffin_together(model, lru_width, kept, gates):
+    """On (1, n): the RG-LRU's six channel leaves keep their model blocks
+    where its width W divides the axis, and none does where it does not;
+    its gates (8 blocks) are stored split, and keep their blocks, only where
+    n divides 8, else stored and gathered whole (the layer narrows them)."""
+    cfg = dataclasses.replace(smoke_config("recurrentgemma-9b"), lru_width=lru_width)
+    plan = specs.compute_shardings(
+        specs.param_shardings(param_shapes(cfg), {"data": 1, "model": model}), gated=cfg.gated)
+    rec = plan["groups"][0][0]["rec"]
+    split = {k for k, c in rec.items() if "model" in tree_leaves(c.storage.spec)
+             and "model" not in tree_leaves(c.gather.spec)}
+    channels = {"w_gate", "w_in", "conv_w", "conv_b", "lam", "w_out"}
+    assert split == (channels if kept else set()) | ({"gate_a", "gate_x"} if gates else set())
+    for k in ("gate_a", "gate_x"):
+        assert ("model" in tree_leaves(rec[k].storage.spec)) is gates
+
+
+def test_griffin_raises_on_mixed_blocks():
+    """An RG-LRU block with ``w_in``'s block beside a whole ``w_out``, or with
+    its gates' blocks beside whole channels, raises: nothing falls back."""
+    from repro_torch.models import griffin
+
+    cfg = dataclasses.replace(smoke_config("recurrentgemma-9b"), dtype="float32")
+    p = griffin.rglru_params(cfg, torch.Generator().manual_seed(0))
+    q = dict(p, w_in=p["w_in"][:, :32])
+    with pytest.raises(ValueError, match=r"rec: blocks \['w_in'\] beside whole"):
+        griffin.rglru_block(cfg, q, torch.zeros((1, 3, cfg.d_model)), _dist(1, 4))
+    q = dict(p, gate_a=p["gate_a"][:2])
+    with pytest.raises(ValueError, match="rec: gate_a's blocks beside whole channels"):
+        griffin.tp_split(cfg, q, _dist(1, 4))
+    q = dict(p, lam=p["lam"][:48])
+    with pytest.raises(ValueError, match="rec/lam: 48 of 128 is neither whole"):
+        griffin.tp_split(cfg, q, _dist(1, 4))
+
+
+@pytest.mark.parametrize("n", [2, 4, 8, 16])
+def test_block_columns_joined_over_ranks_are_the_block_diagonal_product(n):
+    """Rank r's columns of u @ blockdiag(w) over n ranks (its own blocks on
+    its channels where n divides the 8 blocks; at 16 its half of one
+    block's columns on that block's input), joined over the ranks, equal
+    the whole product; an n that neither divides nor is a multiple of the
+    block count raises."""
+    from repro_torch.models import griffin
+
+    rng = np.random.default_rng(n)
+    w = torch.from_numpy(rng.standard_normal((8, 6, 6)))
+    u = torch.from_numpy(rng.standard_normal((2, 3, 8 * 6)))
+    joined = torch.cat([griffin.block_columns(w, u, r, n) for r in range(n)], -1)
+    torch.testing.assert_close(joined, griffin._block_linear(w, u), rtol=1e-12, atol=1e-12)
+    with pytest.raises(ValueError, match="8 blocks over a model axis of 3"):
+        griffin.block_columns(w, u, 0, 3)
+
+
 @pytest.mark.parametrize("n", [2, 3, 4, 8, 16])
 def test_gated_sources_tile_the_columns_once(n):
     """Over n ranks (f = ff / n columns a half), rank r's compute halves are
@@ -225,13 +286,44 @@ def test_layers_on_blocks_equal_the_whole_layer(world, dims, case):
         blocks, cut = tpw.layer_blocks(case, {k: grads[k] for k in p}, n, m)
         assert any(cut.values())
         if not case.startswith("xattn"):
-            assert tp_split(cfg, tpw.layer_blocks(case, p, n, m)[0], _dist(*dims))
+            assert tpw.layer_split(case, cfg, tpw.layer_blocks(case, p, n, m)[0], _dist(*dims))
         np.testing.assert_allclose(out["out"], y.detach().numpy(), rtol=0,
                                    atol=TOL * float(y.detach().abs().max()))
         for k in keys:
             want = (blocks[k] if k in p else grads[k]).numpy()
             np.testing.assert_allclose(out["grads"][k], want, rtol=0,
                                        atol=TOL * max(float(np.abs(want).max()), 1e-30),
+                                       err_msg=f"rank {rank} {k}")
+
+
+@pytest.mark.parametrize("dims", tpw.MESHES)
+def test_griffin_gates_across_ranks_equal_the_block_diagonal_product(world, dims):
+    """The RG-LRU's gates on whole leaves of ``CROSS_BLOCKS`` (2) blocks: on
+    (1, 4) each block spans 2 ranks (a gather of u's channels, each rank's
+    columns of its block), on (2, 2) each rank takes its block.  Each rank's
+    columns of both products are the whole block-diagonal products'; the
+    gradient of its channels of u is its block of the whole gradient (the
+    ranks' parts summed by the gather's reduce-scatter backward), and of
+    each gate the whole gradient, at f32 1e-4."""
+    from repro_torch.models import griffin
+
+    inp, ranks = world
+    g = inp["cross"]
+    u = g["u"].clone().requires_grad_()
+    p = {k: g[k].clone().requires_grad_() for k in ("gate_a", "gate_x")}
+    za, zx = griffin._block_linear(p["gate_a"], u), griffin._block_linear(p["gate_x"], u)
+    grads = torch.autograd.grad((za * g["weight"][0] + zx * g["weight"][1]).sum(),
+                                [u, p["gate_a"], p["gate_x"]])
+    n = dims[1]
+    for rank, got in enumerate(ranks):
+        m = _rank_coord(dims, rank)[1]
+        out = got[f"cross_{dims[0]}x{dims[1]}"]
+        wants = {"za": za.detach().chunk(n, -1)[m], "zx": zx.detach().chunk(n, -1)[m],
+                 "u": grads[0].chunk(n, -1)[m], "gate_a": grads[1], "gate_x": grads[2]}
+        for k, want in wants.items():
+            assert out[k].shape == want.shape, (rank, k)
+            np.testing.assert_allclose(out[k], want.numpy(), rtol=0,
+                                       atol=TOL * float(want.abs().max()),
                                        err_msg=f"rank {rank} {k}")
 
 
@@ -261,8 +353,8 @@ def test_dryrun_serving_steps_equal_the_single_device_steps(world, case):
     block of its slot's (so gathered over "model" they are the whole
     logits), and its caches are its blocks (batch slot; the self- and
     cross-attention K/V's KV heads, RWKV's state's heads and token shifts'
-    channels) of the single-device caches, after prefill and after three
-    decode steps, at f32 1e-4."""
+    channels, the RG-LRU's h and conv tail's channels) of the single-device
+    caches, after prefill and after three decode steps, at f32 1e-4."""
     inp, ranks = world
     cfg, toks, lg, first, last = _single_device(case, inp)
     dims = tpw.SERVE_CASES[case][1]
@@ -275,6 +367,11 @@ def test_dryrun_serving_steps_equal_the_single_device_steps(world, case):
     assert set(heads) == ({"state"} if "rwkv" in case else
                           {"k", "v", "ck", "cv"} if "vision" in case else {"k", "v"})
     assert all(e == "model" for es in heads.values() for e in es), heads
+    channels = []  # the RG-LRU's h and conv tail: their channels over "model"
+    specs.map_with_path(lambda path, s: channels.append(s.spec[-1]) if path.endswith(
+        ("/h", "/conv")) else None, c_sh)
+    assert len(channels) == (2 * 4 if "griffin" in case else 0)  # 4 stacks of RGLRU layers
+    assert all(e == "model" for e in channels), channels
     rows = tpw.SERVE_BATCH // dims[0]
     for rank, got in enumerate(ranks):
         d, m = _rank_coord(dims, rank)

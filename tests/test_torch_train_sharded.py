@@ -1,8 +1,10 @@
 """The sharded train step on an 8-process gloo world (mesh (2, 4), data x
-model, and one case on (1, 8)), as the reference's
+model, and two cases on (1, 8)), as the reference's
 ``sharded_train_step_matches`` check (``tests/_multidevice_checks.py``):
-smoke llama, gemma2, olmo, llama-vision, whisper and rwkv6 (8 heads of 16,
-and its own 2 heads of 64, which do not split 4 ways), the reference's
+smoke llama, gemma2, olmo, llama-vision, whisper, rwkv6 (8 heads of 16,
+and its own 2 heads of 64, which do not split 4 ways) and recurrentgemma
+(its RG-LRU block on 2 of 8 gate blocks a rank, and on (1, 8) on 1), the
+reference's
 weights (``init_params`` from ``PRNGKey(0)``, the XATTN gates drawn
 non-zero, carried across by ``params_from_jax``) and batches (``randint``
 from ``PRNGKey(1)``; the encoder models' frontends drawn with numpy,
@@ -23,7 +25,8 @@ single-device step at the reference's tolerances (loss 2e-2, parameters
 0.15).  Through ``comms.routes.observer``: the only all-gathers over a
 model group are RWKV's channel-mix's (forward and backward), and a forward
 pass makes one all-reduce over "model" for each split self- or
-cross-attention block and each split MLP, two for each split RWKV
+cross-attention block, each split MLP and each split RG-LRU block, two
+for each split RWKV
 time-mix, a reduce-scatter and an all-gather for each split channel-mix,
 and one all-reduce for the embedding.  ``launch.train.main`` with ``--mesh-shape 2,2`` prints the
 reference's lines once (rank 0), and resumes from its own checkpoint on
@@ -46,7 +49,7 @@ from repro.models import init_params as jinit_params
 from repro.models.steps import train_step as jtrain_step
 from repro.optim import init_state as jinit_state
 from repro_torch.launch import train as ttrain
-from repro_torch.configs.base import ATTN, ATTNX, LOCAL, RWKV, XATTN
+from repro_torch.configs.base import ATTN, ATTNX, LOCAL, RGLRU, RWKV, XATTN
 from repro_torch.launch.mesh import run_world
 from repro_torch.models.convert import (
     draw_xattn_gates,
@@ -228,8 +231,9 @@ def test_each_rank_holds_its_block_of_the_reference_s_step(world, case):
 def _model_collectives(case: str) -> tuple:
     """(the collectives over "model" a forward pass of a case's config makes
     on its mesh, by kind; the all-gathers over it a step makes): one
-    all-reduce for each split self- or cross-attention block, each split MLP
-    and the embedding; two all-reduces (the decay's partial sum, ``wo``), a
+    all-reduce for each split self- or cross-attention block, each split MLP,
+    each split RG-LRU block (its gates on the rank's blocks) and the
+    embedding; two all-reduces (the decay's partial sum, ``wo``), a
     reduce-scatter and an all-gather (the channel-mix) for each split RWKV
     layer, whose all-gathers a step makes twice (the reduce-scatter's
     backward)."""
@@ -237,8 +241,9 @@ def _model_collectives(case: str) -> tuple:
     heads = cfg.n_heads % tp == 0
     mlp = cfg.d_ff % tp == 0
     rwkv = (cfg.d_model // cfg.rwkv_head_dim) % tp == 0
+    rec = bool(cfg.lru_width) and cfg.lru_width % tp == 0
     per_kind = {ATTN: heads + mlp, LOCAL: heads + mlp, XATTN: heads + mlp,
-                ATTNX: 2 * heads + mlp, RWKV: 2 * rwkv}
+                ATTNX: 2 * heads + mlp, RWKV: 2 * rwkv, RGLRU: rec + mlp}
     reduces = sum(per_kind[k] * g.count for g in cfg.groups for k in g.pattern)
     reduces += cfg.encoder_layers * (heads + mlp) + (cfg.vocab_padded % tp == 0)
     rwkv_layers = rwkv * sum(g.count for g in cfg.groups for k in g.pattern if k == RWKV)
