@@ -76,8 +76,9 @@ Phases, each printing its own lines, any failure ending the run non-zero:
                a device): (a) the route table; (b) every wrapper and
                ``*_inner`` at the reference's check shapes on meshes
                (2, 2) and (1, 4), the card world against a host world;
-               (c) llama3.2-1b's whole f32 gradient, rank r giving (r + 1)
-               g, reduced in 64 chunks by flat, hierarchical, ring (on
+               (c) the whole f32 gradient of llama3.2-1b at full width and
+               depth 2, rank r giving (r + 1) g, reduced in 20 chunks of
+               about 77 MB by flat, hierarchical, ring (on
                (1, 4): it reduces one axis) and auto, each exactly 10 g,
                with its wall, rate and peak memory; (d) each strategy timed
                at 4 KiB to 64 MiB a rank and fitted to α and β,
@@ -92,22 +93,31 @@ Phases, each printing its own lines, any failure ending the run non-zero:
                (tokens, logits within 0.1 while the fed tokens agree,
                prefill's routes), with the walls, each layer's all-to-all
                spans, flash launches and peak memory of each rank;
-               (b) llama3.2-1b at full width trained 3 steps over a (2, 2)
-               world, its compute split over "model" (``sharding.tp``), its
-               first loss within 2e-2 of phase 8's, with each step's gather,
-               forward and backward, model collectives, gradient reduce and
-               update seconds and each kind of collective's calls and bytes
-               a step; then, in the same world, rwkv6-1.6b the same way
-               (B=4 S=128, 2 steps, its time-mix and channel-mix split) and
-               recurrentgemma-9b at full width and depth 5 (B=4 S=128, 2
-               steps, its RG-LRU block split on the rank's channels), each
-               first loss within 2e-2 of one device's on the same weights
-               and batch; (c) the
+               (b) llama3.2-1b at full width and depth 4 trained 3 steps
+               (B=8 S=128) over a (2, 2) world, its compute split over
+               "model" (``sharding.tp``), with each step's gather, forward
+               and backward, model collectives, gradient reduce and update
+               seconds and each kind of collective's calls and bytes a
+               step; then, in the same world, rwkv6-1.6b at full width and
+               depth 4 the same way (B=4 S=128, 2 steps, its time-mix and
+               channel-mix split) and recurrentgemma-9b at full width and
+               depth 5 (B=4 S=128, 2 steps, its RG-LRU block split on the
+               rank's channels), each first loss within 2e-2 of one
+               device's (``launch.train.run``) on the same weights and
+               batch; (c) the
                CPU tests' world programs (expert-parallel cases, sharded
                train steps, llama-vision's, rwkv's and griffin's among them)
                at smoke width, a card world against a host world (each
-               program pair in one world a device, the two worlds at once).
- 13. recovery — (a) llama3.2-1b at full width trained under
+               program pair in one world a device, the two worlds at once);
+               (d) in 12(b)'s world, after its legs, the dry-run's serving
+               decode at batch 1 (``dryrun.serving_steps``, the weights'
+               FSDP blocks and the KV caches' sequence chunks over "data")
+               for gemma2-9b at full width and depth 4 in f32, 3 steps
+               against caches of 65536 drawn from a seed (writes in both
+               data ranks' chunks, the LOCAL ring wrapping), its tokens one
+               device's and its logits within 1e-3, with each rank's step
+               walls, collectives a step, cache bytes and peak memory.
+ 13. recovery — (a) llama3.2-1b at full width and depth 2 trained under
                ``runtime.run_with_recovery`` through an injected fault and a
                host loss (``shrink_and_replan``, a seeded backoff), its final
                parameters and moments bitwise an uninterrupted run's (else
@@ -125,11 +135,13 @@ Phases, each printing its own lines, any failure ending the run non-zero:
                the unshed rows of the run without drills, the eager steps.
  14. dryrun  — the dry-run and the cost counter: ``python -m
                repro_torch.launch.dryrun`` on llama3.2-1b's, rwkv6-1.6b's
-               and recurrentgemma-9b's ``decode_32k`` ``single`` in a child
-               process (a
+               and recurrentgemma-9b's ``decode_32k`` ``single`` and
+               gemma2-9b's and recurrentgemma-9b's ``long_500k`` ``single``
+               in a child process, started beside phase 2's build (a
                fake world of 256 ranks on meta tensors; this machine has no
                JAX), each record's compute (the per-rank dot FLOPs of the
-               products split over "model", within 1% of the reference's),
+               products split over "model", and at ``long_500k``'s batch of
+               1 over "data" too, within 1% of the reference's),
                collectives, memory and ICI/DCN bytes; the counter over one
                full-width llama3.2-1b prefill on the card (B=4, prompt
                512, bf16, kernels off), its matmul FLOPs within 1% of
@@ -243,10 +255,13 @@ SHARED_METRICS = ("plan_cache.", "lowering_memo.", "engine.", "health.", "runtim
                   "serve.decode.tokens", "serve.batch.live", "serve.simulated_makespan_s")
 DRILL_LINE = re.compile(r"^\[serve\] (link|host|scenario|per-step plan)")
 # phase 11: the collectives' world on the card (gloo: NCCL takes one rank a
-# device); llama3.2-1b's f32 gradient reduced in chunks of equal size, all
-# of them; the strategies timed at 4 KiB to 64 MiB a rank, 4x apart, and
-# measured_autotune at two sizes; a world's limit in seconds
-COLL_WORLD, COLL_CHUNKS = 4, 64
+# device); the f32 gradient of llama3.2-1b at full width with COLL_LAYERS of
+# its 16 layers (1.537 GB; the whole model's 4.943 GB took 35-45 s of the
+# phase in its four reductions) reduced in chunks of equal size, all of
+# them, about 77 MB each as the whole model's 64 were; the strategies timed
+# at 4 KiB to 64 MiB a rank, 4x apart, and measured_autotune at two sizes; a
+# world's limit in seconds
+COLL_WORLD, COLL_CHUNKS, COLL_LAYERS = 4, 20, 2
 # phase 12: the model across gloo ranks on the one card
 EP_ARCH, EP_MESH, EP_RANKS = "mixtral-8x22b", "1,8", 8
 # capacity factor E / top_k: a slice's capacity is then its own size, so no
@@ -276,12 +291,31 @@ CARD_TRAIN_CASES = ["f32", "f32_microbatches", "f32_batch_3", "bf16", "vision_f3
 # its RG-LRU block on the rank's 2048 of 4096 channels
 RWKV_TRAIN_ARCH, GRIFFIN_TRAIN_ARCH = "rwkv6-1.6b", "recurrentgemma-9b"
 LEG_B, LEG_S, LEG_STEPS = 4, 128, 2
+# 12(b)'s llama3.2-1b and rwkv6-1.6b legs: full width, 4 of their 16 and 24
+# layers (0.506 G and 0.488 G parameters), for the script's wall
+LEG_LAYERS = 4
+# 12(d), in 12(b)'s world: the dry-run's serving decode at batch 1
+# (``dryrun.serving_steps``: the weights' FSDP blocks and the KV caches'
+# sequence chunks over "data", as the reference's GSPMD splits long_500k)
+# for gemma2-9b at full width with 2 of its 21 (LOCAL, ATTN) groups (1.71 G
+# parameters, 0.92 G of them the tied table), f32, 3 steps against caches of
+# 65536 drawn from a seed with positions 0 .. 32766 written: step 0 writes
+# the last slot of data rank 0's chunk of the global caches, step 1 the
+# first of rank 1's, and the LOCAL ring of 4096 wraps from slot 4095 (rank
+# 1) to slot 0 (rank 0).  One device's decode_step on the same weights and
+# caches is the reference: tokens equal, logits within DECODE_TOL of their
+# largest magnitude
+DECODE_ARCH, DECODE_GROUPS, DECODE_CAP, DECODE_WRITTEN, DECODE_STEPS = (
+    "gemma2-9b", 2, 65536, 32767, 3)
+DECODE_TOL = 1e-3
 RANKS_TIMEOUT = 900.0
 COLL_FIT_SIZES = tuple(4096 * 4 ** j for j in range(8))
 COLL_AUTOTUNE_SIZES = (1 << 20, 1 << 26)
 COLL_TIMEOUT = 900.0
-# phase 13: recovery and elastic re-scale.  (a) llama3.2-1b at full width
-# under run_with_recovery: B=8 S=128, 8 steps, a checkpoint every 3, an
+# phase 13: recovery and elastic re-scale, llama3.2-1b at full width with
+# REC_LAYERS of its 16 layers (0.384 G parameters, 0.263 G of them the tied
+# table; a checkpoint of 3.84 GB: at full depth its 12.4 GB took most of
+# the phase's wall in disk writes and reads).  (a) under run_with_recovery: B=8 S=128, 8 steps, a checkpoint every 3, an
 # InjectedFault at step 4 and a HostLost at step 7 (routed through
 # shrink_and_replan on a 12-rank machine derived from summit, with a seeded
 # backoff); (b) the 4 -> 2 -> 4 rank re-scale through three gloo worlds on
@@ -290,12 +324,13 @@ COLL_TIMEOUT = 900.0
 # (its sha256 over the sorted JSON, and its decision fields); (d) serve's
 # drills on mesh (2, 1) at full width
 REC_STEPS, REC_EVERY, REC_B, REC_S, REC_WARMUP = 8, 3, 8, 128, 10
+REC_LAYERS = 2
 REC_FAULTS = {4: "InjectedFault", 7: "HostLost"}
 REC_MACHINE, REC_LOST_HOST = "h100_recovery", 11
 RESCALE_MESHES = ((2, 2), (2, 1), (2, 2))
 RESCALE_LOSS, RESCALE_PARAMS = 2e-2, 0.15  # tests/_multidevice_checks.py:225, 236, 243
 RESCALE_TIMEOUT = 900.0
-CKPT_GB = 40.0  # the most checkpoint bytes on disk at once: three of 12.4 GB in (a)
+CKPT_GB = 12.0  # the most checkpoint bytes on disk at once: three of 3.84 GB in (a)
 DRILL_EVIDENCE_SHA = "dcd1fb67d493d9e84e0a153224d5eedf735b6045f1f26e5ccf31ef51d309f5f2"
 DRILL_EVIDENCE = {"stale_pick": "node_aware_alltoall", "fresh_pick": "bruck_alltoall",
                   "survivors": 8, "generations_bumped": 4, "des_overrides": 40,
@@ -1625,14 +1660,14 @@ def phase_train_full(gpu: str, label: str, B: int, S: int, n_micro: int, steps: 
     return losses
 
 
-def phase_train(gpu: str) -> dict:
+def phase_train(gpu: str) -> None:
     """Phase 8: the kernels refuse inputs that require grad; the ten archs'
-    train steps, card against CPU; llama3.2-1b at full width.  Returns each
-    full-width setting's losses by its label."""
+    train steps, card against CPU; llama3.2-1b at full width."""
     phase_train_refuses_grad()
     for arch in ARCHS:
         phase_train_parity(arch)
-    return {setting[0]: phase_train_full(gpu, *setting) for setting in TRAIN_SETTINGS}
+    for setting in TRAIN_SETTINGS:
+        phase_train_full(gpu, *setting)
 
 
 def copy_tiers(dev: torch.device) -> dict:
@@ -1896,7 +1931,6 @@ def phase_collectives(gpu: str) -> None:
     docstring)."""
     from repro_torch.comms import checks, routes
     from repro_torch.comms.autotune import select_allreduce_strategy
-    from repro_torch.configs import get_config
     from repro_torch.launch.mesh import run_world
     from repro_torch.models.convert import tree_leaves
     from repro_torch.models.transformer import init_params
@@ -1906,13 +1940,15 @@ def phase_collectives(gpu: str) -> None:
     # (a) the route table
     for (backend, dev, op), route in sorted(routes.ROUTES.items()):
         say("collectives", f"route backend={backend} device={dev} op={op}: {route}")
-    # the gradient's size: llama3.2-1b's parameters, drawn on the card and freed
-    params = init_params(get_config(TRAIN_ARCH), torch.Generator(device="cuda").manual_seed(0))
+    # the gradient's size: the parameters of llama3.2-1b at depth COLL_LAYERS,
+    # drawn on the card and freed
+    gcfg = cut_depth(TRAIN_ARCH, COLL_LAYERS)
+    params = init_params(gcfg, torch.Generator(device="cuda").manual_seed(0))
     n = sum(t.numel() for t in tree_leaves(params))
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    say("collectives", f"{COLL_WORLD} gloo ranks on the card, CUDA tensors; {TRAIN_ARCH}'s "
+    say("collectives", f"{COLL_WORLD} gloo ranks on the card, CUDA tensors; {gcfg.name}'s "
                        f"gradient {n} f32 elements = {4 * n / 1e9:.3f} GB a rank; card memory "
                        f"held by this process {torch.cuda.memory_reserved() / 1e9:.2f} GB")
     card = run_world(checks.card_run, COLL_WORLD, COLL_WORLD, n, COLL_CHUNKS, COLL_FIT_SIZES,
@@ -2108,22 +2144,46 @@ def _train_leg(cfg, B: int, S: int, steps: int) -> tuple:
                               log_every=1)
 
 
-def phase_ranks_train(gpu: str, single_loss0: float) -> None:
-    """12(b): llama3.2-1b, rwkv6-1.6b and recurrentgemma-9b (depth 5) at full
-    width trained over a (2, 2) world on the card (one world, in turn), each
-    first loss held to the single-device step's on the same weights and
-    batch: phase 8's for llama, ``launch.train.run``'s, taken here first,
-    for the others."""
-    from repro_torch.configs import get_config
+def cut_depth(arch: str, count: int):
+    """``arch`` at full width with ``count`` repeats of its one group's
+    pattern, named by its depth."""
+    from repro_torch.configs import LayerGroup, get_config
+
+    cfg = get_config(arch)
+    (group,) = cfg.groups
+    depth = len(group.pattern) * count
+    return dataclasses.replace(cfg, name=f"{arch}-depth{depth}",
+                               groups=(LayerGroup(group.pattern, count),))
+
+
+def decode_config():
+    """12(d)'s gemma2-9b: full width, f32, ``DECODE_GROUPS`` of its (LOCAL,
+    ATTN) groups."""
+    return dataclasses.replace(cut_depth(DECODE_ARCH, DECODE_GROUPS), dtype="float32")
+
+
+def phase_ranks_train(gpu: str) -> None:
+    """12(b): llama3.2-1b and rwkv6-1.6b (depth ``LEG_LAYERS``) and
+    recurrentgemma-9b (depth 5) at full width trained over a (2, 2) world on
+    the card (one world, in turn), each first loss held to the single-device
+    step's on the same weights and batch (``launch.train.run``'s, taken here
+    first); then, in the same world, 12(d): the dry-run's serving decode at
+    batch 1 on the FSDP blocks and the caches' sequence chunks, held to one
+    device's decode, taken here first."""
     from repro_torch.launch import train
     from repro_torch.launch.mesh import run_entry_world
     from repro_torch.sharding import checks as shard_checks
+    from repro_torch.sharding import tp_adapt
 
-    legs = [_train_leg(get_config(TRAIN_ARCH), *TRAIN_SETTINGS[0][1:3], SHARD_STEPS),
-            _train_leg(get_config(RWKV_TRAIN_ARCH), LEG_B, LEG_S, LEG_STEPS),
+    legs = [_train_leg(cut_depth(TRAIN_ARCH, LEG_LAYERS), *TRAIN_SETTINGS[0][1:3], SHARD_STEPS),
+            _train_leg(cut_depth(RWKV_TRAIN_ARCH, LEG_LAYERS), LEG_B, LEG_S, LEG_STEPS),
             _train_leg(griffin_train_config(), LEG_B, LEG_S, LEG_STEPS)]
-    singles = [(single_loss0, "phase 8")]
-    for cfg, run_cfg, _ in legs[1:]:
+    dcfg = decode_config()
+    if tp_adapt(dcfg, 2) != (dcfg, 1):  # else the world would draw other weights
+        raise AssertionError(f"tp_adapt changes {dcfg.name} at tp 2")
+    decode = (dcfg, SHARD_MESH, DECODE_CAP, DECODE_WRITTEN, DECODE_STEPS, 0)
+    singles = []
+    for cfg, run_cfg, _ in legs:
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -2133,16 +2193,66 @@ def phase_ranks_train(gpu: str, single_loss0: float) -> None:
                      f"{time.perf_counter() - t0:.1f} s | {gpu}")
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    one = shard_checks.long_decode_single(*decode[:1], *decode[2:], device="cuda")
+    one["seconds"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
     zero_counts()
     t0 = time.perf_counter()
-    outs = run_entry_world(shard_checks.train_world_reports, SHARD_RANKS,
+    outs = run_entry_world(shard_checks.ranks_world_reports, SHARD_RANKS,
                            [(cfg, run_cfg, SHARD_MESH, 1, kw) for cfg, run_cfg, kw in legs],
-                           device="cuda")
+                           decode, device="cuda")
     wall = time.perf_counter() - t0
     for i, ((cfg, run_cfg, kw), (loss0, single)) in enumerate(zip(legs, singles)):
         _say_train_leg(gpu, cfg.name, run_cfg.global_batch, run_cfg.seq_len, kw["steps"],
-                       loss0, single, [o[i] for o in outs])
-    say("ranks", f"12(b) world wall {wall:.1f} s for {len(legs)} legs | {gpu}")
+                       loss0, single, [o["train"][i] for o in outs])
+    _say_decode_leg(gpu, dcfg, one, [o["decode"] for o in outs])
+    say("ranks", f"12(b) and 12(d) world wall {wall:.1f} s for {len(legs)} train legs and "
+                 f"the decode leg | {gpu}")
+
+
+def _say_decode_leg(gpu: str, cfg, one: dict, out: list) -> None:
+    """Hold 12(d)'s ranks (``out``: every rank's ``long_decode_report``) to
+    one device's decode ``one`` and print their walls, collectives, cache
+    bytes and peak memory."""
+    from repro_torch.models import decode as dec
+
+    data, model = (int(x) for x in SHARD_MESH.split(","))
+    for o in out:
+        if o["tokens"] != one["tokens"]:
+            raise AssertionError(f"12(d) rank {o['coord']} tokens {o['tokens']} against one "
+                                 f"device's {one['tokens']}")
+    want = one["logits"]
+    scale = float(np.abs(want).max())
+    gaps = []
+    for d in range(data):
+        blocks = sorted((o["coord"][1], o["logits"]) for o in out if o["coord"][0] == d)
+        got = np.concatenate([b for _, b in blocks], -1)
+        gaps.append(float(np.abs(got - want).max()) / scale)
+    if not max(gaps) <= DECODE_TOL:
+        raise AssertionError(f"12(d) logits {gaps} of their largest magnitude {scale} from one "
+                             f"device's (tol {DECODE_TOL})")
+    whole = sum(t.numel() * t.element_size() for t in _leaves(
+        dec.init_caches(cfg, 1, DECODE_CAP, device="meta")))
+    calls, nbytes = out[0]["collective_calls"], out[0]["collective_bytes"]
+    kinds = sorted(calls)
+    per_step = ", ".join(f"{k} {calls[k] / DECODE_STEPS:g} calls "
+                         f"{nbytes.get(k, 0) / DECODE_STEPS / 1e9:.6f} GB" for k in kinds)
+    say("ranks", f"12(d) {cfg.name} f32 B=1 decode over {SHARD_RANKS} gloo ranks (mesh "
+                 f"{SHARD_MESH}), the dry-run's serving steps on the weights' FSDP blocks and "
+                 f"the caches' sequence chunks over 'data' (capacity {DECODE_CAP}, positions "
+                 f"{DECODE_WRITTEN} .. {DECODE_WRITTEN + DECODE_STEPS - 1}): tokens "
+                 f"{out[0]['tokens']} equal one device's on every rank; logits' largest distance "
+                 f"{_per_rank(gaps, '{:.3e}')} of their largest magnitude {scale:.4f} (tol "
+                 f"{DECODE_TOL}) | {gpu}")
+    say("ranks", f"12(d) step walls a rank (s) "
+                 f"{'; '.join(_per_rank(o['walls'], '{:.4f}') for o in out)}; one device's "
+                 f"steps (s) {_per_rank(one['walls'], '{:.4f}')} ({one['seconds']:.1f} s with "
+                 f"its draw); rank 0's collectives a step: {per_step}; cache bytes a rank (GB) "
+                 f"{_per_rank([o['cache_bytes'] / 1e9 for o in out], '{:.4f}')} of "
+                 f"{whole / 1e9:.4f} whole; peak memory a rank over the steps (GB) "
+                 f"{_per_rank([o['peak_bytes'] / 1e9 for o in out])} | {gpu}")
 
 
 def _say_train_leg(gpu: str, name: str, B: int, S: int, steps: int, single_loss0: float,
@@ -2227,13 +2337,12 @@ def phase_ranks_checks(gpu: str) -> None:
                      f"{ {k: float(f'{v:.3e}') for k, v in worst.items()} } ({bounds}) | {gpu}")
 
 
-def phase_ranks(gpu: str, single_loss0: float) -> None:
+def phase_ranks(gpu: str) -> None:
     """Phase 12: the model across ranks on the card (see the module
     docstring)."""
     t0 = time.perf_counter()
     walls = []
-    for part in (phase_ranks_serve, lambda g: phase_ranks_train(g, single_loss0),
-                 phase_ranks_checks):
+    for part in (phase_ranks_serve, phase_ranks_train, phase_ranks_checks):
         t1 = time.perf_counter()
         part(gpu)
         walls.append(time.perf_counter() - t1)
@@ -2308,12 +2417,17 @@ def _diff_leaves(got, want) -> list:
     return out
 
 
+def recovery_config():
+    """Phase 13's llama3.2-1b: full width, ``REC_LAYERS`` layers."""
+    return cut_depth(TRAIN_ARCH, REC_LAYERS)
+
+
 def recovery_case(workdir: str, device: str = "cuda") -> dict:
-    """13(a) in this process: llama3.2-1b at full width trained ``REC_STEPS``
+    """13(a) in this process: llama3.2-1b at full width and depth
+    ``REC_LAYERS`` trained ``REC_STEPS``
     steps straight through, then again under ``run_with_recovery`` with
     the faults of ``REC_FAULTS``; the leaves that differ between the two
     final states, and the run's numbers."""
-    from repro_torch.configs import get_config
     from repro_torch.configs.base import RunConfig
     from repro_torch.core.machine import get_machine, register_machine
     from repro_torch.data import SyntheticLM
@@ -2324,7 +2438,7 @@ def recovery_case(workdir: str, device: str = "cuda") -> dict:
     from repro_torch.runtime import (BackoffPolicy, HostLost, InjectedFault, run_with_recovery,
                                      shrink_and_replan)
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg = recovery_config()
     run = RunConfig(model=cfg, seq_len=REC_S, global_batch=REC_B, n_microbatches=1,
                     warmup_steps=REC_WARMUP, total_steps=REC_STEPS)
     data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=REC_S, global_batch=REC_B, seed=0)
@@ -2442,7 +2556,7 @@ def phase_recovery_full(gpu: str) -> None:
         if len(delays) != len(REC_FAULTS) or [tuple(d[:3]) for d in drops] != [
                 (7, REC_LOST_HOST, 11)]:
             raise AssertionError(f"recovery: delays {delays}, host drops {drops}")
-        say("recovery", f"{TRAIN_ARCH} bf16 B={REC_B} S={REC_S} {REC_STEPS} steps, a checkpoint "
+        say("recovery", f"{recovery_config().name} bf16 B={REC_B} S={REC_S} {REC_STEPS} steps, a checkpoint "
                         f"every {REC_EVERY}, faults {REC_FAULTS}: final parameters and moments "
                         f"bitwise the uninterrupted run's ({res['n_leaves']} leaves, {mode}); "
                         f"log {res['logs']} | {gpu}")
@@ -2462,17 +2576,16 @@ def phase_recovery_full(gpu: str) -> None:
 
 
 def phase_rescale(gpu: str) -> None:
-    """13(b): llama3.2-1b at full width over (2, 2), then (2, 1), then (2, 2)
-    again, gloo worlds on the card with a checkpoint as the hand-off
-    (``runtime.checks.leg_program``)."""
+    """13(b): llama3.2-1b at full width and depth ``REC_LAYERS`` over (2, 2),
+    then (2, 1), then (2, 2) again, gloo worlds on the card with a
+    checkpoint as the hand-off (``runtime.checks.leg_program``)."""
     import shutil
 
-    from repro_torch.configs import get_config
     from repro_torch.configs.base import RunConfig
     from repro_torch.launch.mesh import run_world
     from repro_torch.runtime import checks as rt_checks
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg = recovery_config()
     run = RunConfig(model=cfg, seq_len=REC_S, global_batch=REC_B, n_microbatches=1,
                     warmup_steps=REC_WARMUP, total_steps=REC_STEPS)
     workdir = _scratch(CKPT_GB)
@@ -2515,7 +2628,7 @@ def phase_rescale(gpu: str) -> None:
         raise AssertionError(f"re-scale: uninterrupted losses {straight}, re-scaled {resc} "
                              f"(gaps {gaps}, tol {RESCALE_LOSS}), final parameters "
                              f"{dist} apart (tol {RESCALE_PARAMS})")
-    say("rescale", f"{TRAIN_ARCH} bf16 B={REC_B} S={REC_S}: {big} 4 ranks steps 0-1, saved; "
+    say("rescale", f"{cfg.name} bf16 B={REC_B} S={REC_S}: {big} 4 ranks steps 0-1, saved; "
                    f"restored on {small} (2 ranks; every block of {checked[0]} leaves bit for "
                    f"bit the saved tree's, on each rank) step 2, saved; restored on {back} "
                    f"step 3.  Losses uninterrupted {[round(x, 6) for x in straight]}, re-scaled "
@@ -2602,11 +2715,13 @@ def phase_mesh_drills(gpu: str, one_card_lines: list) -> None:
 
 # the dry-run's cells in phase 14's child, each with the reference's own
 # per-rank dot FLOPs (its GSPMD splits the products over "model", RWKV's
-# time-mix and channel-mix and the RG-LRU block too;
-# tests/test_torch_dryrun.py holds the port to them)
+# time-mix and channel-mix and the RG-LRU block too, and long_500k's over
+# "data" as well; tests/test_torch_dryrun.py holds the port to them)
 DRYRUN_CELLS = {("llama3.2-1b", "decode_32k", "single"): 3.41678e9,
                 ("rwkv6-1.6b", "decode_32k", "single"): 1.45228e9,
-                ("recurrentgemma-9b", "decode_32k", "single"): 9.21117568e9}
+                ("recurrentgemma-9b", "decode_32k", "single"): 9.21117568e9,
+                ("gemma2-9b", "long_500k", "single"): 7.87161e8,
+                ("recurrentgemma-9b", "long_500k", "single"): 7.20118e7}
 DRYRUN_TIMEOUT = 300.0
 # the child: each cell through the dry-run's CLI, one process
 _DRYRUN_CHILD = """
@@ -2660,8 +2775,11 @@ def counted_prefill(cfg, params, tokens) -> tuple:
     return counted, sum(e.flops for e in prof.key_averages() if e.key in MATMUL_EVENTS)
 
 
-def phase_dryrun(gpu: str) -> None:
-    """Phase 14: the dry-run and the cost counter (see the module docstring)."""
+def phase_dryrun(gpu: str, cells: concurrent.futures.Future | None = None) -> None:
+    """Phase 14: the dry-run and the cost counter (see the module docstring).
+    ``cells``: :func:`dryrun_cells` already started (``main`` starts it
+    beside phase 2's build, whose time is not a result), else started
+    here."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import use_kernels
     from repro_torch.launch.hlo_analysis import trace_cost
@@ -2670,7 +2788,8 @@ def phase_dryrun(gpu: str) -> None:
 
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        cells = pool.submit(dryrun_cells)  # the child traces on the host while the card counts
+        if cells is None:  # the child traces on the host while the card counts
+            cells = pool.submit(dryrun_cells)
         cfg = get_config(COUNT_ARCH)
         params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
         rng = np.random.default_rng(0)
@@ -2709,9 +2828,10 @@ def phase_dryrun(gpu: str) -> None:
         if rec.get("ok") is not True or not abs(split - 1) <= COUNT_TOL:
             raise AssertionError(f"dryrun {cell}: dot_flops {split:.4f} x the reference's "
                                  f"{ref:.6g}; record {json.dumps(rec)[:2000]}")
+        axes = "'model' and 'data'" if cell[1] == "long_500k" else "'model'"
         say("dryrun", f"{'/'.join(cell)} over 256 fake ranks in a child process "
                       f"({t_cells:.1f} s for {len(DRYRUN_CELLS)} cells, trace_s "
-                      f"{rec['trace_s']}): per rank dot_flops, split over 'model', "
+                      f"{rec['trace_s']}): per rank dot_flops, split over {axes}, "
                       f"{hc['dot_flops']:.6g} ({split:.4f} x the reference's {ref:.6g}), "
                       f"collectives "
                       f"{ {k: v['count'] for k, v in hc['collectives'].items() if v.get('count')} }"
@@ -2748,6 +2868,9 @@ def main() -> int:
         return out
 
     gpu = timed("1 device", phase_device)
+    # phase 14's child traces its cells on the host beside the kernels' build
+    early = concurrent.futures.ThreadPoolExecutor(1)
+    cells = early.submit(dryrun_cells)
     timed("2 build", phase_build)
     fa_errs = timed("3 kernels (flash)", phase_kernel_cases)
     wkv_err, wkv_parts = timed("3 kernels (wkv6)", phase_wkv_cases)
@@ -2761,13 +2884,14 @@ def main() -> int:
     rows = timed("7 timing", lambda: [phase_timing(gpu, launches, in_encoder, fa_errs),
                                       phase_wkv_timing(gpu, launches, wkv_err, wkv_parts),
                                       phase_lru_timing(gpu, launches, lru_err)])
-    train_losses = timed("8 train", phase_train, gpu)
+    timed("8 train", phase_train, gpu)
     shed_lines = timed("10 drills", phase_drills, gpu)
     timed("9 fit", phase_fit, gpu)
     timed("11 collectives", phase_collectives, gpu)
-    timed("12 ranks", phase_ranks, gpu, train_losses[TRAIN_SETTINGS[0][0]][0])
+    timed("12 ranks", phase_ranks, gpu)
     timed("13 recovery", phase_recovery, gpu, shed_lines)
-    timed("14 dryrun", phase_dryrun, gpu)
+    timed("14 dryrun", phase_dryrun, gpu, cells)
+    early.shutdown()
     say("time", f"phase walls (s) {', '.join(f'{k} {v:.1f}' for k, v in walls.items())}; "
                 f"the script {time.perf_counter() - t_start:.1f} s | {gpu}")
     print(json.dumps({"kernels": rows}))

@@ -40,19 +40,24 @@ only, the self- and cross-attention caches over their sequence dim only
 RWKV's state and the RG-LRU's ``h`` and ``conv`` not at all (the rank's
 slot, its heads or channels), the MoE weights but for their expert dim
 (the rank's virtual experts), and every other leaf whole (RWKV's token
-shifts, the RG-LRU's gates where their 8 blocks do not divide the axis,
-and ``long_500k``'s sequence split of a cache); they hand back the next
-tokens, the rank's logits block and its blocks of the new caches.
+shifts, the RG-LRU's gates where their 8 blocks do not divide the axis).
+Where the batch does not split over the data axes (``long_500k``'s batch
+of 1, whose caches ``cache_shardings`` splits over "data" on the
+sequence), decode also computes over "data" as GSPMD does there: on the
+weights' FSDP blocks (a column-parallel product over the rank's block of
+channels, a row-parallel one writing its block of the output's) and on
+the rank's sequence chunk of each self-attention cache, its softmax
+combined over "data" (``DistContext.data_split``).  The steps hand back
+the next tokens, the rank's logits block and its blocks of the new caches.
 ``train_step`` gathers for compute itself.  The gathers are counted as the
-all-gathers they are, the gated MLP's exchange as collective-permutes.  On
-the dense decoders, llama-3.2-vision-11b, rwkv6-1.6b's ``decode_32k`` and
-recurrentgemma-9b's ``decode_32k``, ``prefill_32k`` and ``train_4k`` the
-per-rank ``dot_flops`` is then the reference's; where the reference also
-splits over "data" (``long_500k``), splits what the port computes whole
-(the weight gradients of leaves computed whole, as whisper's unsplit
-heads') or computes whole what the port splits (rwkv6's ``cm_r`` in
-training), it differs (PERF.md, section 6).  ``hbm_bytes`` is
-eager's (no fusion), larger than XLA's post-fusion count.
+all-gathers they are, the gated MLP's exchange as collective-permutes.  In
+every cell the per-rank ``dot_flops`` is then the reference's but where
+the reference splits what the port computes whole (the weight gradients
+of leaves computed whole, as whisper's unsplit heads'), computes whole
+what the port splits (rwkv6's ``cm_r`` in training), or computes more on
+one mesh than on another (rwkv6's ``long_500k`` on ``multi``; PERF.md,
+section 6).  ``hbm_bytes`` is eager's (no fusion), larger than XLA's
+post-fusion count.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch dbrx-132b --shape train_4k --mesh single
@@ -111,7 +116,7 @@ def _unsplit(sharding, dims):
     return Sharding(sharding.mesh, spec)
 
 
-def _compute_shardings(p_sh, c_sh, gated: bool):
+def _compute_shardings(p_sh, c_sh, gated: bool, data_axes=()):
     """(params' ``ComputeSharding``s, caches' gather shardings) of the
     serving steps: ``compute_shardings``, with the MoE weights' expert dim
     (dim 1, under the group's stack) kept as the rank's block; the caches
@@ -119,7 +124,9 @@ def _compute_shardings(p_sh, c_sh, gated: bool):
     KV-head dim (dim 3 of (count, B, capacity, G, dh)), RWKV's state its
     head dim (dim 2 of (count, B, H, K, V)) and the RG-LRU's ``h`` and
     ``conv`` their channels (dim 2 of (count, B, W), dim 3 of (count, B,
-    width - 1, W))."""
+    width - 1, W)).  With ``data_axes`` (a decode on the FSDP blocks) the
+    params of ``specs.DATA_SPLIT_COMPUTE`` also keep their blocks over those
+    axes, and the self-attention caches their sequence chunk (dim 2)."""
     from repro_torch.sharding.specs import compute_shardings, map_with_path
 
     def param(path, c):
@@ -128,50 +135,75 @@ def _compute_shardings(p_sh, c_sh, gated: bool):
         return c
 
     def cache(path, s):
+        if data_axes and re.search(r"(^|/)(k|v)$", path):
+            return _unsplit(s, {1, 2, 3})
         if re.search(r"(^|/)(k|v|ck|cv|conv)$", path):
             return _unsplit(s, {1, 3})
         if re.search(r"(^|/)(state|h)$", path):
             return _unsplit(s, {1, 2})
         return _unsplit(s, {1})
 
-    return (map_with_path(param, compute_shardings(p_sh, gated=gated)),
+    return (map_with_path(param, compute_shardings(p_sh, gated=gated, keep_axes=data_axes)),
             map_with_path(cache, c_sh))
 
 
-def serving_steps(cfg, dist, p_sh, c_sh, capacity: int):
+# the axis over which ``specs.cache_shardings`` splits a cache's sequence
+# where the batch does not split over the data axes, and which a decode
+# step then computes over (its ``DistContext.data_split``)
+SEQ_AXIS = "data"
+
+
+def serving_steps(cfg, dist, p_sh, c_sh, capacity: int, batch: int):
     """(prefill(params, tokens[, frontend]), decode(params, caches, token,
     pos)) on this rank's blocks by ``p_sh`` and ``c_sh`` and its slot of
-    the batch, without gradients, each returning (the next tokens of its
-    slot, its logits block over the vocabulary, its blocks of the new
-    caches)."""
+    the global ``batch``, without gradients, each returning (the next tokens
+    of its slot, its logits block over the vocabulary, its blocks of the new
+    caches).
+
+    Where ``batch`` does not split over the data axes (as the caches'
+    sequence then splits over ``SEQ_AXIS``), decode computes on the
+    weights' FSDP blocks over that axis and attends over the rank's
+    sequence chunk of the self-attention caches, as the reference's GSPMD
+    does: its plan keeps those blocks (``DATA_SPLIT_COMPUTE``), its caches'
+    chunks are neither gathered nor cut (decode writes them in place), and
+    its ``DistContext`` names the axis in ``data_split``.  Prefill keeps
+    gathering the weights over the data axes and hands back the caches'
+    sequence chunks."""
     import torch
 
     from repro_torch.models import steps
     from repro_torch.models.convert import tree_map2
     from repro_torch.sharding import tp
+    from repro_torch.sharding.specs import mesh_shape
 
     p_plan, c_whole = _compute_shardings(p_sh, c_sh, cfg.gated)
+    data_axes = ()
+    if dist.dp_size > 1 and batch % dist.dp_size and mesh_shape(dist.mesh).get(SEQ_AXIS, 1) > 1:
+        data_axes = (SEQ_AXIS,)
+    d_plan, c_dec = _compute_shardings(p_sh, c_sh, cfg.gated, data_axes)
+    d_dist = dataclasses.replace(dist, data_split=data_axes)
 
-    def compute(p):
-        return tree_map2(lambda c, t: c.to_compute(t), p_plan, p)
+    def compute(plan, p):
+        return tree_map2(lambda c, t: c.to_compute(t), plan, p)
 
-    def blocks(tree):
-        return tree_map2(lambda s, t: s.block(t), c_whole, tree)
+    def blocks(shardings, tree):
+        return tree_map2(lambda s, t: s.block(t), shardings, tree)
 
     def pick(logits):
         return tp.vocab_argmax(logits, cfg.vocab_padded, dist)
 
     def prefill(p, t, f=None):
         with torch.no_grad():
-            logits, caches = steps.prefill_step(cfg, compute(p), t, frontend=f,
+            logits, caches = steps.prefill_step(cfg, compute(p_plan, p), t, frontend=f,
                                                 capacity=capacity, dist=dist)
-            return pick(logits), logits, blocks(caches)
+            return pick(logits), logits, blocks(c_whole, caches)
 
     def decode(p, c, t, q):
         with torch.no_grad():
-            caches = tree_map2(lambda s, x: s.gather(x), c_whole, c)
-            logits, new = steps.decode_step(cfg, compute(p), caches, t, q, dist=dist)
-            return pick(logits), logits, blocks(new)
+            caches = tree_map2(lambda s, x: s.gather(x), c_dec, c)
+            logits, new = steps.decode_step(cfg, compute(d_plan, p), caches, t, q,
+                                            dist=d_dist)
+            return pick(logits), logits, blocks(c_dec, new)
 
     return prefill, decode
 
@@ -298,7 +330,7 @@ def build_cell(arch: str, shape_name: str, mesh_kind: str, variant: dict):
 
     caches_shape = dec.init_caches(cfg, B, S, device="meta")
     c_sh = specs.cache_shardings(caches_shape, mesh, dp_axes=dp_axes)
-    prefill, decode = serving_steps(cfg, dist, p_sh, c_sh, S)
+    prefill, decode = serving_steps(cfg, dist, p_sh, c_sh, S, B)
 
     if shape.kind == "prefill":
         fn = prefill

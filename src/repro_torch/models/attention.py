@@ -9,7 +9,13 @@ dispatch ``repro.models.attention.attend`` makes).
 Decode attention and cross-attention stay plain torch: the JAX package has
 no kernel for them.  Given the rank's heads over the model axis
 (``sharding.tp``), self- and cross-attention compute on them and end in one
-all-reduce (:func:`tp_heads`).
+all-reduce (:func:`tp_heads`).  Given also the rank's FSDP blocks over the
+data axes (a decode step's ``DistContext.data_split``), self-attention's
+projections contract over the rank's block of the input's channels and
+``wo`` writes its block of the output's (:func:`qkv_proj`,
+:func:`attn_out`), and decode attends over the rank's chunk of a cache
+split over its sequence, its softmax combined over the data axes
+(:func:`decode_attention`).
 """
 from __future__ import annotations
 
@@ -103,6 +109,22 @@ def _attend_dense(
     return torch.einsum("bgmst,btgd->bsgmd", probs.to(v.dtype), v)
 
 
+def _softmax_part(
+    cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Softmax attention's part over the keys of ``k``, one part of a key axis
+    split in parts (``tp.merge_softmax``): the row maximum m (B, G, M, Sq),
+    the sum l of exp(logit - m) and the unnormalised output o (B, G, M, Sq,
+    dh), f32; the logits as :func:`_attend_dense` makes them.  Where every
+    key is masked, m is near ``NEG_INF`` and the merge weighs the part 0."""
+    logits = torch.einsum("bsgmd,btgd->bgmst", q.float(), k.float()) * _scale(cfg)
+    logits = softcap(logits, cfg.attn_softcap) + bias
+    m = logits.amax(dim=-1)
+    p = torch.exp(logits - m[..., None])
+    o = torch.einsum("bgmst,btgd->bgmsd", p.to(v.dtype), v).float()
+    return m, p.sum(dim=-1), o
+
+
 def _attend_chunked(
     cfg: ModelConfig,
     q: torch.Tensor,
@@ -149,13 +171,38 @@ def _attend_chunked(
 # Public layer entry points.
 # --------------------------------------------------------------------------
 
+def _fsdp_split(cfg: ModelConfig, p: dict, dist, name: str = "attn") -> bool:
+    """Whether ``p``'s weights are this rank's FSDP blocks over the data axes
+    (``dist.data_split``): the rows of ``wq``/``wk``/``wv`` and the output
+    channels of ``wo`` (all four or none; anything else raises).
+    Cross-attention (``name`` ``xattn``) computes on weights whole over them
+    and raises on blocks."""
+    d = cfg.d_model
+    keys = ("wq", "wk", "wv") if name == "attn" else ("wq",)
+    got = {k: tp.is_data_block(f"{name}/{k} rows", p[k].shape[0], d, dist) for k in keys}
+    got["wo"] = tp.is_data_block(f"{name}/wo columns", p["wo"].shape[-1], d, dist)
+    if len(set(got.values())) > 1:
+        raise ValueError(f"{name}: FSDP blocks {sorted(k for k, v in got.items() if v)} "
+                         f"beside whole {sorted(k for k, v in got.items() if not v)}")
+    if got["wo"] and name != "attn":
+        raise ValueError(f"{name}: cross-attention computes on weights whole over the data "
+                         "axes, not on their FSDP blocks")
+    return got["wo"]
+
+
 def qkv_proj(
-    cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor
+    cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor, dist=None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Project + rope.  Returns q (B,S,H,dh), k, v (B,S,G,dh)."""
-    q = _project(x, p["wq"])
-    k = _project(x, p["wk"])
-    v = _project(x, p["wv"])
+    """Project + rope.  Returns q (B,S,H,dh), k, v (B,S,G,dh).  Where the
+    weights are the rank's FSDP blocks (:func:`_fsdp_split`), the rank's
+    block of x's channels through their rows, the three partial sums
+    all-reduced over the data axes together."""
+    names = ("wq", "wk", "wv")
+    if _fsdp_split(cfg, p, dist):
+        xb = tp.data_block(x, dist)
+        q, k, v = tp.reduce_from_data([_project(xb, p[w]) for w in names], dist)
+    else:
+        q, k, v = (_project(x, p[w]) for w in names)
     if cfg.pos == "rope":
         q = apply_rope(q, positions[None], cfg.rope_theta)
         k = apply_rope(k, positions[None], cfg.rope_theta)
@@ -250,11 +297,18 @@ def kv_heads(t: torch.Tensor, sel: Optional[torch.Tensor]) -> torch.Tensor:
     return t if sel is None else t.index_select(2, sel)
 
 
-def attn_out(p: dict, o: torch.Tensor, split: bool, dist=None) -> torch.Tensor:
+def attn_out(cfg: ModelConfig, p: dict, o: torch.Tensor, split: bool, dist=None
+             ) -> torch.Tensor:
     """The output projection; over the model axis where ``split`` (the
-    rank's heads' partial outputs summed)."""
+    rank's heads' partial outputs summed); where ``wo`` is the rank's FSDP
+    block over the data axes, its block of the output's channels, then
+    gathered over them."""
     out = out_proj(p, o)
-    return tp.reduce_from_model(out, dist) if split else out
+    if split:
+        out = tp.reduce_from_model(out, dist)
+    if tp.is_data_block("attn/wo columns", p["wo"].shape[-1], cfg.d_model, dist):
+        out = tp.gather_from_data(out, dist)
+    return out
 
 
 def self_attention(
@@ -270,10 +324,10 @@ def self_attention(
     """Full-sequence self-attention (prefill / training forward / encoder),
     on all heads or on this rank's (:func:`tp_heads`)."""
     p, x, split, sel = tp_heads(cfg, p, x, dist)
-    q, k, v = qkv_proj(cfg, p, x, positions)
+    q, k, v = qkv_proj(cfg, p, x, positions, dist)
     out = attend(cfg, q, kv_heads(k, sel), kv_heads(v, sel), positions, positions,
                  window=window, causal=causal)
-    return attn_out(p, out, split, dist)
+    return attn_out(cfg, p, out, split, dist)
 
 
 def cross_attention(
@@ -290,6 +344,7 @@ def cross_attention(
     weights: the rank's KV heads, or all G, from which each query head's is
     picked."""
     B, S, _ = x.shape
+    _fsdp_split(cfg, p, dist, "xattn")
     split, sel = _head_split(cfg, p, dist, "xattn")
     if split:
         x = tp.copy_to_model(x, dist)
@@ -302,7 +357,7 @@ def cross_attention(
         out = _attend_chunked(cfg, qg, k, v, zeros_q, zeros_k, 0, causal=False)
     else:
         out = _attend_dense(cfg, qg, k, v)
-    return attn_out(p, out.reshape(B, S, -1, cfg.head_dim_), split, dist)
+    return attn_out(cfg, p, out.reshape(B, S, -1, cfg.head_dim_), split, dist)
 
 
 def cross_kv(cfg: ModelConfig, p: dict, enc: torch.Tensor, dist=None
@@ -314,6 +369,7 @@ def cross_kv(cfg: ModelConfig, p: dict, enc: torch.Tensor, dist=None
     ``wk``/``wv``'s beside split query heads).  ``enc`` is cast to the
     weights' dtype first: the JAX package's einsum promotes a bf16 frontend
     to f32 weights the same way."""
+    _fsdp_split(cfg, p, dist, "xattn")
     split, sel = _head_split(cfg, p, dist, "xattn")
     enc = enc.to(p["wk"].dtype)
     if split:
@@ -399,26 +455,47 @@ def decode_attention(
     ``pos % capacity`` in a ring (LOCAL), else ``min(pos, capacity - 1)``;
     nothing reads ``pos`` on the host.  With ``dist`` and this rank's heads
     (:func:`tp_heads`) the cache holds the KV heads of ``wk``: the rank's
-    block of them, or all."""
+    block of them, or all.
+
+    With ``dist.data_split`` the projections run on the rank's FSDP blocks
+    (:func:`qkv_proj`, :func:`attn_out`), and the cache's K/V (B, cap/n,
+    G, dh) may be the rank's chunk of the sequence over the n data ranks
+    (``pos`` (cap,) stays whole on every rank): the slot lies in one
+    rank's chunk, so each rank writes the new K/V where its local slot,
+    clamped into the chunk, is the slot and rewrites its old K/V there
+    otherwise (picked on the device), attends over its chunk and combines
+    its softmax with the other chunks' (``tp.combine_over_data``)."""
     pos = as_pos(pos, x.device)
     p, x, split, sel = tp_heads(cfg, p, x, dist)
-    q = _project(x, p["wq"])
-    k_new = _project(x, p["wk"])
-    v_new = _project(x, p["wv"])
     pos_t = pos.view(1, 1)
-    if cfg.pos == "rope":
-        q = apply_rope(q, pos_t, cfg.rope_theta)
-        k_new = apply_rope(k_new, pos_t, cfg.rope_theta)
+    q, k_new, v_new = qkv_proj(cfg, p, x, pos_t[0], dist)
 
-    capacity = cache["k"].shape[1]
+    capacity = cache["pos"].shape[0]
+    chunked = tp.is_data_block("attn cache sequence", cache["k"].shape[1], capacity, dist)
     slot = pos % capacity if window > 0 else torch.clamp(pos, max=capacity - 1)
     slot = slot.view(1).long()
-    cache["k"].index_copy_(1, slot, k_new)
-    cache["v"].index_copy_(1, slot, v_new)
     cache["pos"].index_copy_(0, slot, pos.view(1))
+    k_pos = cache["pos"]
+    if chunked:
+        _, r, _ = tp.data_group(dist)
+        c = cache["k"].shape[1]
+        local = slot - r * c
+        mine = ((local >= 0) & (local < c)).view(1, 1, 1, 1)
+        local = local.clamp(0, c - 1)
+        k_pos = k_pos.narrow(0, r * c, c)
+        for key, new in (("k", k_new), ("v", v_new)):
+            old = cache[key].index_select(1, local)
+            cache[key].index_copy_(1, local, torch.where(mine, new, old))
+    else:
+        cache["k"].index_copy_(1, slot, k_new)
+        cache["v"].index_copy_(1, slot, v_new)
 
     k, v = kv_heads(cache["k"], sel), kv_heads(cache["v"], sel)
     qg = _split_groups(q, k.shape[2])  # (B, 1, G, M, dh)
-    bias = _mask_bias(pos_t[0], cache["pos"], window, causal=True)
-    out = _attend_dense(cfg, qg, k, v, bias)
-    return attn_out(p, out.reshape(q.shape), split, dist), cache
+    bias = _mask_bias(pos_t[0], k_pos, window, causal=True)
+    if chunked:
+        out = tp.combine_over_data(*_softmax_part(cfg, qg, k, v, bias), dist)
+        out = out.permute(0, 3, 1, 2, 4).to(v.dtype)  # (B, 1, G, M, dh)
+    else:
+        out = _attend_dense(cfg, qg, k, v, bias)
+    return attn_out(cfg, p, out.reshape(q.shape), split, dist), cache

@@ -157,22 +157,35 @@ def mlp_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, dist=None) -> torch.Te
     """The MLP on whole weights, or with ``dist`` on this rank's FF block:
     ``w_in``'s columns (a gated one in compute layout, the rank's gate
     columns beside the same up columns: ``ComputeSharding``) and the same
-    rows of ``w_out``, the partial outputs summed over the model axis."""
+    rows of ``w_out``, the partial outputs summed over the model axis.
+    Where the weights are also the rank's FSDP blocks over the data axes
+    (``dist.data_split``), ``w_in`` contracts over the rank's block of x's
+    channels (partial sums all-reduced over them) and ``w_out`` writes its
+    block of the output's (gathered over them)."""
     split = tp.is_block("mlp/w_out rows", p["w_out"].shape[0], cfg.d_ff, dist)
     cols = 2 * cfg.d_ff if cfg.gated else cfg.d_ff
     if tp.is_block("mlp/w_in columns", p["w_in"].shape[-1], cols, dist) != split:
         raise ValueError(f"mlp: w_in {tuple(p['w_in'].shape)} and w_out "
                          f"{tuple(p['w_out'].shape)} are not both whole or both blocks")
+    data = tp.is_data_block("mlp/w_in rows", p["w_in"].shape[0], cfg.d_model, dist)
+    if tp.is_data_block("mlp/w_out columns", p["w_out"].shape[-1], cfg.d_model, dist) != data:
+        raise ValueError(f"mlp: w_in {tuple(p['w_in'].shape)} and w_out "
+                         f"{tuple(p['w_out'].shape)} are not both whole or both FSDP blocks")
     if split:
         x = tp.copy_to_model(x, dist)
-    h = x @ p["w_in"]
+    if data:
+        (h,) = tp.reduce_from_data([tp.data_block(x, dist) @ p["w_in"]], dist)
+    else:
+        h = x @ p["w_in"]
     if cfg.gated:
         gate, up = h.chunk(2, dim=-1)
         h = activation(cfg, gate) * up
     else:
         h = activation(cfg, h)
     out = h @ p["w_out"]
-    return tp.reduce_from_model(out, dist) if split else out
+    if split:
+        out = tp.reduce_from_model(out, dist)
+    return tp.gather_from_data(out, dist) if data else out
 
 
 def embed_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
@@ -188,8 +201,14 @@ def embed_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
 def unembed(cfg: ModelConfig, embed: dict, x: torch.Tensor, dist=None) -> torch.Tensor:
     """Logits in f32 (tied head reads the embedding table): over the whole
     vocabulary, or with ``dist`` over this rank's block of it where the
-    table is the rank's block."""
+    table is the rank's block.  Where the table is also the rank's FSDP
+    block over the data axes (its rows of d), the rank's block of x's
+    channels through it, the partial logits summed over them before the
+    softcap."""
     table = embed["tok"].T if cfg.tie_embeddings else embed["head"]
     if tp.is_block("unembedding vocabulary", table.shape[-1], cfg.vocab_padded, dist):
         x = tp.copy_to_model(x, dist)
+    if tp.is_data_block("unembedding rows", table.shape[0], cfg.d_model, dist):
+        (z,) = tp.reduce_from_data([(tp.data_block(x, dist) @ table).float()], dist)
+        return softcap(z, cfg.logit_softcap)
     return softcap((x @ table).float(), cfg.logit_softcap)

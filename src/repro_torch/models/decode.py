@@ -106,11 +106,11 @@ def _prefill_attention(cfg: ModelConfig, p: dict, h: torch.Tensor, positions: to
     """Prefill's self-attention on all heads or this rank's
     (``attention.tp_heads``): (its output, the KV cache of ``wk``'s heads)."""
     p, h, split, sel = attn.tp_heads(cfg, p, h, dist)
-    q, k, v = attn.qkv_proj(cfg, p, h, positions)
+    q, k, v = attn.qkv_proj(cfg, p, h, positions, dist)
     cache = attn.cache_from_kv(k, v, positions, capacity)
     o = attn.attend(cfg, q, attn.kv_heads(k, sel), attn.kv_heads(v, sel), positions, positions,
                     window=window)
-    return attn.attn_out(p, o, split, dist), cache
+    return attn.attn_out(cfg, p, o, split, dist), cache
 
 
 def _prefill_layer(

@@ -32,7 +32,14 @@ rank's blocks where its channels are whole blocks (n divides the 8 blocks);
 where one block spans several ranks (n a multiple of 8) each rank gathers
 u's channels once, narrows them to its block's input and applies its
 columns of that block (:func:`block_columns`), 1/n of the whole product.
-Whole leaves compute whole.
+Whole leaves compute whole.  Given also the rank's FSDP blocks over the
+data axes (a decode step's ``DistContext.data_split``, :func:`fsdp_split`),
+``w_gate`` and ``w_in`` contract over the rank's block of x's channels (one
+all-reduce over the data axes of both) and ``w_out`` writes its block of the
+output's channels, gathered over them; the conv and Lambda have no FSDP
+dim and compute as above, and the gates, which have none either, contract
+over the rank's part of each block's input channels over the data axes, as
+the reference's GSPMD computes them there (one all-reduce of both).
 """
 from __future__ import annotations
 
@@ -76,59 +83,86 @@ def rglru_params(cfg: ModelConfig, gen: torch.Generator, lead: Tuple[int, ...] =
     }
 
 
-def _block_linear(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def _rows_part(bw: int, part: Tuple[int, int]) -> Tuple[int, int]:
+    """(first row, rows) of a block's ``bw`` input channels in part i of n."""
+    i, n = part
+    if bw % n:
+        raise ValueError(f"rec gate: a block's {bw} input channels over {n} data ranks")
+    return i * (bw // n), bw // n
+
+
+def _block_linear(w: torch.Tensor, x: torch.Tensor, part: Tuple[int, int] = (0, 1)
+                  ) -> torch.Tensor:
     """Block-diagonal linear: x (..., k·bw) @ blockdiag(w (k, bw, bw)), k the
-    N_BLOCKS blocks of the whole leaf or a rank's blocks of it."""
+    N_BLOCKS blocks of the whole leaf or a rank's blocks of it; ``part`` (i,
+    n) contracts over part i of n of each block's input channels only (a
+    partial sum)."""
     shape = x.shape
     k = w.shape[0]
     xb = x.reshape(shape[:-1] + (k, shape[-1] // k))
+    if part[1] > 1:
+        at, q = _rows_part(xb.shape[-1], part)
+        xb, w = xb.narrow(-1, at, q), w.narrow(1, at, q)
     yb = torch.einsum("...nw,nwk->...nk", xb, w)
     return yb.reshape(shape)
 
 
 def block_columns(w: torch.Tensor, u: torch.Tensor, r: int, n: int,
-                  n_blocks: int = N_BLOCKS) -> torch.Tensor:
+                  n_blocks: int = N_BLOCKS, part: Tuple[int, int] = (0, 1)) -> torch.Tensor:
     """Columns [r·W/n, (r+1)·W/n) of u (..., W) @ blockdiag(w (n_blocks, bw,
     bw)), from the input they need alone: where n divides n_blocks, rank
     r's n_blocks/n blocks on its own channels; where n is a multiple of
     n_blocks, its W/n columns of block r·n_blocks/n on that block's bw
-    channels.  Raises on any other n."""
+    channels.  Raises on any other n.  ``part`` as :func:`_block_linear`'s."""
     W = u.shape[-1]
     bw, c = W // n_blocks, W // n
     if n_blocks % n == 0:
         k = n_blocks // n
-        return _block_linear(w.narrow(0, r * k, k), u.narrow(-1, r * c, c))
+        return _block_linear(w.narrow(0, r * k, k), u.narrow(-1, r * c, c), part)
     if n % n_blocks == 0:
         blk, j = divmod(r, n // n_blocks)
-        return u.narrow(-1, blk * bw, bw) @ w[blk].narrow(-1, j * c, c)
+        at, q = _rows_part(bw, part)
+        return u.narrow(-1, blk * bw + at, q) @ w[blk].narrow(0, at, q).narrow(-1, j * c, c)
     raise ValueError(f"rec gate: {n_blocks} blocks over a model axis of {n}")
 
 
 def _gate_products(p: dict, uf: torch.Tensor, split: bool = False, dist=None,
-                   n_blocks: int = N_BLOCKS) -> Tuple[torch.Tensor, torch.Tensor]:
+                   n_blocks: int = N_BLOCKS, data: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """BlockDiag_a(u) and BlockDiag_x(u) of uf (..., W) f32; where ``split``,
     this rank's columns of each from its channels uf (..., W/n): on its
     blocks of ``gate_a``/``gate_x`` (stored split, or narrowed from whole
     leaves whose gradients then sum over the model axis), or, where a block
     spans ranks, on its columns of its block after one gather of u's
-    channels (whose backward sums the ranks' gradients, a reduce-scatter)."""
+    channels (whose backward sums the ranks' gradients, a reduce-scatter).
+    Where ``data`` (the block on FSDP blocks, :func:`fsdp_split`), each rank
+    contracts over its part of each block's input channels over the data
+    axes, as the reference's GSPMD does there, and both products' partial
+    sums are all-reduced over them at once."""
     ga, gx = p["gate_a"], p["gate_x"]
+    part = tp.data_group(dist)[1:] if data else (0, 1)
     if not split or ga.shape[0] != n_blocks:
-        return _block_linear(ga, uf), _block_linear(gx, uf)
-    _, r, n = tp.dist_group(dist)
-    if n_blocks % n == 0:
-        return tuple(_block_linear(tp.model_block(g, 0, dist), uf) for g in (ga, gx))
-    whole = tp.gather_to_model(uf, dist)
-    return tuple(block_columns(tp.copy_to_model(g, dist), whole, r, n, n_blocks)
-                 for g in (ga, gx))
+        za, zx = (_block_linear(g, uf, part) for g in (ga, gx))
+    else:
+        _, r, n = tp.dist_group(dist)
+        if n_blocks % n == 0:
+            za, zx = (_block_linear(tp.model_block(g, 0, dist), uf, part) for g in (ga, gx))
+        else:
+            whole = tp.gather_to_model(uf, dist)
+            za, zx = (block_columns(tp.copy_to_model(g, dist), whole, r, n, n_blocks, part)
+                      for g in (ga, gx))
+    if data:
+        za, zx = tp.reduce_from_data([za, zx], dist)
+    return za, zx
 
 
-def _gates(p: dict, u: torch.Tensor, split: bool = False, dist=None
+def _gates(p: dict, u: torch.Tensor, split: bool = False, dist=None, data: bool = False
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(a, gated input), both f32, for u (..., W), or where ``split`` this
-    rank's channels (..., W/n) with its blocks of Lambda."""
+    rank's channels (..., W/n) with its blocks of Lambda; ``data`` as
+    :func:`_gate_products`'."""
     uf = u.float()
-    za, zx = _gate_products(p, uf, split, dist)
+    za, zx = _gate_products(p, uf, split, dist, data=data)
     r = torch.sigmoid(za)
     i = torch.sigmoid(zx)
     log_a = -C_RGLRU * F.softplus(p["lam"]) * r  # (<= 0)
@@ -168,11 +202,11 @@ def rglru_scan(p: dict, u: torch.Tensor) -> torch.Tensor:
     return _scan_dispatch(a, gin).to(u.dtype)
 
 
-def rglru_step(p: dict, u: torch.Tensor, h: torch.Tensor, split: bool = False, dist=None
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+def rglru_step(p: dict, u: torch.Tensor, h: torch.Tensor, split: bool = False, dist=None,
+               data: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """One step.  u: (B, W); h: (B, W) f32 carried state (the rank's
-    channels of both where ``split``)."""
-    a, gin = _gates(p, u, split, dist)
+    channels of both where ``split``); ``data`` as :func:`_gate_products`'."""
+    a, gin = _gates(p, u, split, dist, data)
     h_new = a * h + gin
     return h_new.to(u.dtype), h_new
 
@@ -227,19 +261,48 @@ def tp_split(cfg: ModelConfig, p: dict, dist=None) -> bool:
     return split
 
 
+# the leaves a block holds as this rank's FSDP blocks over the data axes
+# (``specs.DATA_SPLIT_COMPUTE``): the dim of d each
+_FSDP_DIMS = {"w_gate": 0, "w_in": 0, "w_out": -1}
+
+
+def fsdp_split(cfg: ModelConfig, p: dict, dist=None) -> bool:
+    """Whether the block's ``w_gate``/``w_in`` rows and ``w_out`` columns are
+    this rank's FSDP blocks over the data axes of ``dist.data_split`` (all
+    three or none; anything else raises)."""
+    got = {k: tp.is_data_block(f"rec/{k} channels", p[k].shape[dim], cfg.d_model, dist)
+           for k, dim in _FSDP_DIMS.items()}
+    if len(set(got.values())) > 1:
+        raise ValueError(f"rec: FSDP blocks {sorted(k for k, v in got.items() if v)} beside "
+                         f"whole {sorted(k for k, v in got.items() if not v)}")
+    return got["w_in"]
+
+
 def _block_in(cfg: ModelConfig, p: dict, x: torch.Tensor, dist):
-    """(whether split, GeLU(x W_gate), x W_in) on all channels or this
-    rank's; ``x`` then sums its gradient over the model axis."""
-    split = tp_split(cfg, p, dist)
+    """(whether split, whether on FSDP blocks, GeLU(x W_gate), x W_in) on all
+    channels or this rank's; ``x`` then sums its gradient over the model
+    axis.  On FSDP blocks, x's rank's block of channels through the rows of
+    both, their partial sums all-reduced over the data axes at once."""
+    split, data = tp_split(cfg, p, dist), fsdp_split(cfg, p, dist)
     if split:
         x = tp.copy_to_model(x, dist)
-    return split, F.gelu(x @ p["w_gate"], approximate="tanh"), x @ p["w_in"]
+    if data:
+        xb = tp.data_block(x, dist)
+        gate, u = tp.reduce_from_data([xb @ p["w_gate"], xb @ p["w_in"]], dist)
+    else:
+        gate, u = x @ p["w_gate"], x @ p["w_in"]
+    return split, data, F.gelu(gate, approximate="tanh"), u
 
 
-def _block_out(p: dict, gate: torch.Tensor, h: torch.Tensor, split: bool, dist) -> torch.Tensor:
-    """(gate * h) W_out; row-parallel where ``split`` (the partial outputs summed)."""
+def _block_out(p: dict, gate: torch.Tensor, h: torch.Tensor, split: bool, dist,
+               data: bool = False) -> torch.Tensor:
+    """(gate * h) W_out; row-parallel where ``split`` (the partial outputs
+    summed); on FSDP blocks (``data``) the rank's block of the output's
+    channels, gathered over the data axes."""
     out = (gate * h) @ p["w_out"]
-    return tp.reduce_from_model(out, dist) if split else out
+    if split:
+        out = tp.reduce_from_model(out, dist)
+    return tp.gather_from_data(out, dist) if data else out
 
 
 def rglru_block(cfg: ModelConfig, p: dict, x: torch.Tensor, dist=None) -> torch.Tensor:
@@ -253,11 +316,11 @@ def rglru_block_prefill(cfg: ModelConfig, p: dict, x: torch.Tensor, dist=None
     in f32 and the last width-1 inputs of the conv (zeros in front when the
     sequence is shorter), of all channels or, with ``dist`` and this rank's
     blocks (:func:`tp_split`), of its channels."""
-    split, gate, u_raw = _block_in(cfg, p, x, dist)
+    split, data, gate, u_raw = _block_in(cfg, p, x, dist)
     u = causal_conv(p, u_raw)
-    a, gin = _gates(p, u, split, dist)
+    a, gin = _gates(p, u, split, dist, data)
     hh = _scan_dispatch(a, gin)
-    out = _block_out(p, gate, hh.to(u.dtype), split, dist)
+    out = _block_out(p, gate, hh.to(u.dtype), split, dist, data)
     width = cfg.conv_width
     conv_tail = u_raw[:, -(width - 1):]
     S = u_raw.shape[1]
@@ -282,10 +345,10 @@ def rglru_block_decode(
     and returns the same dict.  With ``dist`` and this rank's blocks
     (:func:`tp_split`) the cache's h (B, W/n) and conv (B, width-1, W/n) are
     its channels."""
-    split, gate, u_raw = _block_in(cfg, p, x[:, 0], dist)
+    split, data, gate, u_raw = _block_in(cfg, p, x[:, 0], dist)
     u, conv_state = causal_conv_step(p, u_raw, cache["conv"])
-    h_out, h_state = rglru_step(p, u, cache["h"], split, dist)
-    y = _block_out(p, gate, h_out, split, dist)[:, None]
+    h_out, h_state = rglru_step(p, u, cache["h"], split, dist, data)
+    y = _block_out(p, gate, h_out, split, dist, data)[:, None]
     cache["h"].copy_(h_state)
     cache["conv"].copy_(conv_state)
     return y, cache

@@ -20,7 +20,13 @@ rows of ``decay_A`` with one all-reduce, WKV and the group norm on the
 rank's heads, ``wo`` row-parallel with one all-reduce; the channel-mix's
 ``cm_k`` column- and ``cm_v`` row-parallel, its gate on the rank's columns
 of ``cm_r`` between a reduce-scatter and an all-gather.  Whole leaves
-compute whole.
+compute whole.  Given also the rank's FSDP blocks over the data axes (a
+decode step's ``DistContext.data_split``, :func:`fsdp_split`), the products
+that read the channels contract over the rank's block of them, their
+partial sums all-reduced over the data axes together (the decay's over the
+rank's rows of ``decay_A``, and the gate's over its rows of ``cm_r``
+narrowed to the rank's model columns), and ``wo``/``cm_v`` write the
+rank's block of the output's channels, gathered over the data axes.
 
 Stability: all decay algebra runs on log-decays; every exp() argument is a
 *difference* of cumulative log-decays bounded above by 0, so nothing
@@ -181,34 +187,62 @@ def tp_split(cfg: ModelConfig, p: dict, dist=None) -> bool:
     return got["wr"]
 
 
+# the leaves a layer holds as this rank's FSDP blocks over the data axes
+# (``specs.DATA_SPLIT_COMPUTE``): the dim of d each
+_FSDP_DIMS = {"wr": 0, "wk": 0, "wv": 0, "wg": 0, "wo": -1, "decay_A": 0, "cm_k": 0,
+              "cm_v": -1, "cm_r": 0}
+
+
+def fsdp_split(cfg: ModelConfig, p: dict, dist=None) -> bool:
+    """Whether the layer's leaves (one layer's, unstacked) are this rank's
+    FSDP blocks over the data axes of ``dist.data_split``: its rows of
+    ``wr``/``wk``/``wv``/``wg``/``decay_A``/``cm_k``/``cm_r`` and columns of
+    ``wo``/``cm_v`` (all of them or none; anything else raises)."""
+    got = {k: tp.is_data_block(f"tm_cm/{k} channels", p[k].shape[dim], cfg.d_model, dist)
+           for k, dim in _FSDP_DIMS.items()}
+    if len(set(got.values())) > 1:
+        raise ValueError(f"tm_cm: FSDP blocks {sorted(k for k, v in got.items() if v)} beside "
+                         f"whole {sorted(k for k, v in got.items() if not v)}")
+    return got["wr"]
+
+
 def _time_mix_inputs(cfg: ModelConfig, p: dict, x: torch.Tensor, shifted: torch.Tensor,
-                     split: bool = False, dist=None):
+                     split: bool = False, dist=None, data: bool = False):
     """r, k, v, g and log_w of the time-mix (B, S, d), or where ``split`` this
     rank's channels of each (its heads'): its columns of ``wr``/``wk``/``wv``/
     ``wg`` and ``decay_B``, its slice of ``w0``, and the decay's low-rank
     product over its rows of ``decay_A`` summed over the model axis.  ``x``
-    and ``shifted`` are then already summing their gradients over it."""
+    and ``shifted`` are then already summing their gradients over it.  Where
+    ``data`` (:func:`fsdp_split`), the mixes' rank's block of channels
+    through its rows of ``decay_A``/``wr``/``wk``/``wv``/``wg``, the five
+    partial sums all-reduced over the data axes at once."""
     mu = tp.copy_to_model(p["mu"], dist) if split else p["mu"]
     xf, sf = x.float(), shifted.float()
     mixed = xf[None] + (sf - xf)[None] * mu[:, None, None, :]  # (5, B, S, d)
     mw, mr, mk, mv, mg = mixed
-    if split:
+    dt = x.dtype
+    if data:
+        parts = [tp.data_block(mw, dist) @ p["decay_A"]]
+        parts += [tp.data_block(a.to(dt), dist) @ p[w]
+                  for a, w in ((mr, "wr"), (mk, "wk"), (mv, "wv"), (mg, "wg"))]
+        z, r, k, v, g = tp.reduce_from_data(parts, dist)
+    elif split:
         decay_a = tp.model_block(p["decay_A"], 0, dist)
-        _, r, _ = tp.dist_group(dist)
+        _, rank, _ = tp.dist_group(dist)
         rows = decay_a.shape[0]
-        z = tp.reduce_from_model(mw.narrow(-1, r * rows, rows) @ decay_a, dist)
+        z = tp.reduce_from_model(mw.narrow(-1, rank * rows, rows) @ decay_a, dist)
         z = tp.copy_to_model(z, dist)  # its consumer, decay_B's columns, is split
-        w0 = tp.model_block(p["w0"], 0, dist)
     else:
-        z, w0 = mw @ p["decay_A"], p["w0"]
+        z = mw @ p["decay_A"]
+    if not data:
+        r = mr.to(dt) @ p["wr"]
+        k = mk.to(dt) @ p["wk"]
+        v = mv.to(dt) @ p["wv"]
+        g = mg.to(dt) @ p["wg"]
+    w0 = tp.model_block(p["w0"], 0, dist) if split else p["w0"]
     log_w = -torch.exp(torch.clamp(w0 + torch.tanh(z) @ p["decay_B"], -8.0, 8.0))
     # (B, S, d) f32, < 0
-    dt = x.dtype
-    r = mr.to(dt) @ p["wr"]
-    k = mk.to(dt) @ p["wk"]
-    v = mv.to(dt) @ p["wv"]
-    g = F.silu(mg.to(dt) @ p["wg"])
-    return r, k, v, g, log_w
+    return r, k, v, F.silu(g), log_w
 
 
 def _heads(cfg: ModelConfig, a: torch.Tensor) -> torch.Tensor:
@@ -224,13 +258,17 @@ def _bonus(cfg: ModelConfig, p: dict, split: bool, dist) -> torch.Tensor:
     return u.reshape(-1, cfg.rwkv_head_dim)
 
 
-def _time_mix_out(p: dict, y: torch.Tensor, g: torch.Tensor, split: bool, dist
-                  ) -> torch.Tensor:
+def _time_mix_out(p: dict, y: torch.Tensor, g: torch.Tensor, split: bool, dist,
+                  data: bool = False) -> torch.Tensor:
     """The group-normed heads ``y`` (B, S, H, K) gated by ``g`` through
-    ``wo``; row-parallel where ``split`` (the partial outputs summed)."""
+    ``wo``; row-parallel where ``split`` (the partial outputs summed); where
+    ``data`` the rank's block of the output's channels, gathered over the
+    data axes."""
     y = _group_norm(y, p["ln_scale"])
     out = (y.reshape(g.shape) * g) @ p["wo"]
-    return tp.reduce_from_model(out, dist) if split else out
+    if split:
+        out = tp.reduce_from_model(out, dist)
+    return tp.gather_from_data(out, dist) if data else out
 
 
 def _wkv_dispatch(rh, kh, vh, lwh, u, chunked: bool, chunk: int = WKV_CHUNK):
@@ -250,14 +288,14 @@ def rwkv_time_mix_prefill(
     """Time-mix over the whole sequence; also returns the final WKV state
     (B, H, K, V) f32: of all heads, or with ``dist`` and this rank's blocks
     (:func:`tp_split`) of its heads."""
-    split = tp_split(cfg, p, dist)
+    split, data = tp_split(cfg, p, dist), fsdp_split(cfg, p, dist)
     if split:
         x = tp.copy_to_model(x, dist)
-    r, k, v, g, log_w = _time_mix_inputs(cfg, p, x, _shift(x), split, dist)
+    r, k, v, g, log_w = _time_mix_inputs(cfg, p, x, _shift(x), split, dist, data)
     rh, kh, vh, lwh = (_heads(cfg, a) for a in (r, k, v, log_w))
     y, state = _wkv_dispatch(rh, kh, vh, lwh, _bonus(cfg, p, split, dist), chunked,
                              cfg.wkv_chunk)
-    return _time_mix_out(p, y, g, split, dist), state
+    return _time_mix_out(p, y, g, split, dist, data), state
 
 
 def rwkv_time_mix(
@@ -267,27 +305,39 @@ def rwkv_time_mix(
 
 
 def _channel_mix(p: dict, x: torch.Tensor, shifted: torch.Tensor, split: bool = False,
-                 dist=None) -> torch.Tensor:
+                 dist=None, data: bool = False) -> torch.Tensor:
     """sigmoid(mr @ cm_r) * (relu(mk @ cm_k)² @ cm_v); where ``split`` on this
     rank's FF block of ``cm_k``/``cm_v``, the partial outputs reduce-scattered
     over channels, gated there by the rank's columns of ``cm_r``, and
-    gathered whole (``x`` and ``shifted`` already summing their gradients)."""
+    gathered whole (``x`` and ``shifted`` already summing their gradients).
+    Where ``data`` (:func:`fsdp_split`), ``cm_k`` and the gate's ``cm_r``
+    contract over the rank's block of channels (one all-reduce over the data
+    axes of both), and ``cm_v``'s block of output channels is gathered over
+    them before the gate."""
     cmu = tp.copy_to_model(p["cmu"], dist) if split else p["cmu"]
     xf, sf = x.float(), shifted.float()
     mk = (xf + (sf - xf) * cmu[0]).to(x.dtype)
     mr = (xf + (sf - xf) * cmu[1]).to(x.dtype)
-    kk = torch.square(F.relu(mk @ p["cm_k"]))
+    cm_r = tp.model_block(p["cm_r"], 1, dist) if split else p["cm_r"]
+    if data:
+        kk, zr = tp.reduce_from_data([tp.data_block(mk, dist) @ p["cm_k"],
+                                      tp.data_block(mr, dist) @ cm_r], dist)
+    else:
+        kk, zr = mk @ p["cm_k"], mr @ cm_r
+    gate, kk = torch.sigmoid(zr), torch.square(F.relu(kk))
+    value = kk @ p["cm_v"]
+    if data:
+        value = tp.gather_from_data(value, dist)
     if not split:
-        return torch.sigmoid(mr @ p["cm_r"]) * (kk @ p["cm_v"])
-    gate = torch.sigmoid(mr @ tp.model_block(p["cm_r"], 1, dist))
-    return tp.gather_from_model(gate * tp.scatter_to_model(kk @ p["cm_v"], dist), dist)
+        return gate * value
+    return tp.gather_from_model(gate * tp.scatter_to_model(value, dist), dist)
 
 
 def rwkv_channel_mix(cfg: ModelConfig, p: dict, x: torch.Tensor, dist=None) -> torch.Tensor:
     split = tp_split(cfg, p, dist)
     if split:
         x = tp.copy_to_model(x, dist)
-    return _channel_mix(p, x, _shift(x), split, dist)
+    return _channel_mix(p, x, _shift(x), split, dist, fsdp_split(cfg, p, dist))
 
 
 # --------------------------------------------------------------------------
@@ -315,11 +365,12 @@ def rwkv_time_mix_decode(
     """x (B, 1, d); updates cache['state'] and cache['tm_shift'] in place.
     With ``dist`` and this rank's blocks (:func:`tp_split`) the state is its
     heads' (B, H/n, K, V) and the shift whole."""
-    split = tp_split(cfg, p, dist)
-    r, k, v, g, log_w = _time_mix_inputs(cfg, p, x, cache["tm_shift"][:, None], split, dist)
+    split, data = tp_split(cfg, p, dist), fsdp_split(cfg, p, dist)
+    r, k, v, g, log_w = _time_mix_inputs(cfg, p, x, cache["tm_shift"][:, None], split, dist,
+                                         data)
     y, new_state = wkv_decode_step(*(_heads(cfg, a)[:, 0] for a in (r, k, v, log_w)),
                                    _bonus(cfg, p, split, dist), cache["state"])
-    out = _time_mix_out(p, y[:, None], g, split, dist)
+    out = _time_mix_out(p, y[:, None], g, split, dist, data)
     cache["state"].copy_(new_state)
     cache["tm_shift"].copy_(x[:, 0])
     return out, cache
@@ -329,6 +380,7 @@ def rwkv_channel_mix_decode(
     cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict, dist=None
 ) -> Tuple[torch.Tensor, dict]:
     """x (B, 1, d); updates cache['cm_shift'] (whole) in place."""
-    out = _channel_mix(p, x, cache["cm_shift"][:, None], tp_split(cfg, p, dist), dist)
+    out = _channel_mix(p, x, cache["cm_shift"][:, None], tp_split(cfg, p, dist), dist,
+                       fsdp_split(cfg, p, dist))
     cache["cm_shift"].copy_(x[:, 0])
     return out, cache

@@ -22,7 +22,11 @@ heads and its channel-mix on its FF block (``models.rwkv``), the RG-LRU
 block on its channels (``models.griffin``), the embedding and unembedding
 on its vocabulary block (the logits are then that block).  Whole
 parameters compute whole on every rank; each layer tells the two apart by
-its weights' shapes and raises on any other.  The MoE layer runs ``moe.moe_apply_sharded_inner`` over
+its weights' shapes and raises on any other.  Where a decode step's batch
+does not split over the data axes, ``DistContext.data_split`` names them
+and the layers also compute on the weights' FSDP blocks and the KV caches'
+sequence chunks over them (``sharding.tp``'s data-axis operators).  The
+MoE layer runs ``moe.moe_apply_sharded_inner`` over
 the expert axes with the rank's virtual expert (``_moe_call``); with
 ``dist=None`` it is the dense single-device path, the reference's branch.
 """
@@ -80,6 +84,11 @@ class DistContext:
     # mesh axes carrying virtual experts; ("data", "model") is the serving
     # layout whose dispatch is the paper's two-hop Alltoall case study
     ep_axes: Tuple[str, ...] = ("model",)
+    # the axes over which a step computes on the weights' FSDP blocks and the
+    # KV caches' sequence chunks (``sharding.tp``'s data-axis operators): set
+    # by the serving steps' decode where the batch does not split over the
+    # data axes (``launch.dryrun.serving_steps``), empty everywhere else
+    data_split: Tuple[str, ...] = ()
 
     @property
     def ep_size(self) -> int:
@@ -274,6 +283,8 @@ def _embed_scale(d_model: int, dtype: torch.dtype) -> float:
 def _embed_tokens(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                   dist: Optional[DistContext] = None) -> torch.Tensor:
     x = tp.vocab_embed(params["embed"]["tok"], tokens, cfg.vocab_padded, dist)
+    if tp.is_data_block("embed/tok columns", x.shape[-1], cfg.d_model, dist):
+        x = tp.gather_from_data(x, dist)  # the table is the rank's FSDP block
     if gemma_forms(cfg):
         x = x * _embed_scale(cfg.d_model, x.dtype)
     return x

@@ -15,7 +15,11 @@ blocks of the parameters and moments, the steps' metrics and the
 collectives the first step and a forward pass made.
 The tests hold them against the JAX package's outputs; on the card, a
 world on CUDA tensors is held against a world on the host
-(:func:`compare_moe`, :func:`compare_train`).
+(:func:`compare_moe`, :func:`compare_train`).  :func:`long_decode_report`
+runs the dry-run's serving decode at batch 1 (``launch.dryrun.serving_steps``:
+the weights' FSDP blocks and the KV caches' sequence chunks over "data")
+on weights and caches drawn from a seed (:func:`long_decode_inputs`), which
+:func:`long_decode_single` runs on one device for reference.
 """
 from __future__ import annotations
 
@@ -389,6 +393,144 @@ def train_world_report(device: torch.device, cfg, run_cfg, mesh_shape: str, ep_s
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
     return {"losses": losses, "walls": walls, "spans": spans, "peak_bytes": peak,
             "collective_calls": dict(calls), "collective_bytes": dict(nbytes)}
+
+
+def ranks_world_reports(device: torch.device, legs: list, decode: tuple) -> dict:
+    """:func:`train_world_reports` of ``legs``, then :func:`long_decode_report`
+    of ``decode`` (its arguments after the device), in one world."""
+    train = train_world_reports(device, legs)
+    return {"train": train, "decode": long_decode_report(device, *decode)}
+
+
+# -- the serving decode at batch 1 over a world --------------------------------
+
+def long_decode_inputs(cfg, capacity: int, written: int, seed: int, device) -> tuple:
+    """(weights, caches, first token (1, 1) int32) drawn on ``device`` from
+    ``seed``, alike in every process: the weights as ``init_params`` draws
+    them, the caches of batch 1 and ``capacity`` with random K/V and
+    positions 0 .. written-1 written (a ring, of the window's capacity, holds
+    the last of them at slot pos % capacity), -1 in every other slot."""
+    from repro_torch.models import decode as dec
+    from repro_torch.models.transformer import init_params
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = init_params(cfg, gen)
+    caches = dec.init_caches(cfg, 1, capacity, device=device)
+
+    def fill(tree):
+        if "pos" in tree:
+            cap = tree["pos"].shape[-1]
+            p = torch.arange(max(written - cap, 0), written, dtype=torch.int32, device=device)
+            tree["pos"][..., p % cap] = p
+            for key in ("k", "v"):
+                tree[key].normal_(generator=gen)
+        else:
+            for v in tree.values():
+                if isinstance(v, dict):
+                    fill(v)
+
+    for group in caches:
+        for kind in group:
+            fill(kind)
+    token = torch.randint(0, cfg.vocab_size, (1, 1), generator=gen, device=device,
+                          dtype=torch.int32)
+    return params, caches, token
+
+
+def long_decode_single(cfg, capacity: int, written: int, steps: int, seed: int,
+                       device) -> dict:
+    """``decode_step`` on one device from :func:`long_decode_inputs`: each
+    step's logits (1, V) and greedy token, on the host, and its wall (the
+    device synchronised)."""
+    import time
+
+    from repro_torch.models import decode as dec
+
+    params, caches, token = long_decode_inputs(cfg, capacity, written, seed, device)
+    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
+    logits_, tokens, walls = [], [], []
+    with torch.no_grad():
+        for i in range(steps):
+            pos = torch.tensor(written + i, dtype=torch.int32, device=device)
+            sync()
+            t0 = time.perf_counter()
+            logits, caches = dec.decode_step(cfg, params, caches, token, pos)
+            sync()
+            walls.append(time.perf_counter() - t0)
+            token = logits.argmax(-1, keepdim=True).to(torch.int32)
+            logits_.append(logits.cpu())
+            tokens.append(int(token))
+    return {"logits": torch.cat(logits_).numpy(), "tokens": tokens, "walls": walls}
+
+
+def long_decode_report(device: torch.device, cfg, mesh_shape: str, capacity: int,
+                       written: int, steps: int, seed: int) -> dict:
+    """This rank's run of the dry-run's serving decode at batch 1
+    (``launch.dryrun.serving_steps``, which computes on the weights' FSDP
+    blocks and the KV caches' sequence chunks over "data") from
+    :func:`long_decode_inputs`' weights and caches cut to its blocks: each
+    step's logits block (1, V/m) and greedy token, each step's wall (the
+    device synchronised), the calls and bytes of each kind of collective
+    over the steps (``data_<op>`` over the rank's data group, ``model_<op>``
+    over its model group; an all-gather's bytes those it writes, any
+    other's those it reads), the bytes of its cache blocks and its peak
+    device memory over the steps (0 on the CPU)."""
+    import time
+
+    from repro_torch.comms import routes
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh, mesh_dims
+    from repro_torch.models import decode as dec
+    from repro_torch.models.convert import tree_leaves, tree_map2
+    from repro_torch.models.transformer import DistContext, param_shapes
+    from repro_torch.sharding.specs import cache_shardings, param_shardings
+
+    world, rank = torch.distributed.get_world_size(), torch.distributed.get_rank()
+    dims, names = mesh_dims(mesh_shape, world)
+    mesh = make_mesh(dims, names, device.type)
+    dist = DistContext(mesh=mesh, dp_axes=("data",))
+    p_sh = param_shardings(param_shapes(cfg), mesh)
+    c_sh = cache_shardings(dec.init_caches(cfg, 1, capacity, device="meta"), mesh,
+                           dp_axes=("data",))
+    whole = long_decode_inputs(cfg, capacity, written, seed, device)
+    params = tree_map2(lambda s, t: s.shard(t), p_sh, whole[0])
+    caches = tree_map2(lambda s, t: s.shard(t), c_sh, whole[1])
+    token = whole[2]
+    del whole
+    _, decode = dryrun.serving_steps(cfg, dist, p_sh, c_sh, capacity, 1)
+    groups = {f"{a}_": tuple(torch.distributed.get_process_group_ranks(mesh.get_group(a)))
+              for a in ("data", "model")}
+    calls, nbytes = collections.Counter(), collections.Counter()
+
+    def seen(op, b_in, b_out, ranks):
+        kind = next((k for k, g in groups.items() if tuple(ranks) == g), "") + op
+        calls[kind] += 1
+        nbytes[kind] += b_out if op == "all_gather" else b_in
+
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    logits_, tokens, walls = [], [], []
+    routes.observer = seen
+    try:
+        for i in range(steps):
+            pos = torch.tensor(written + i, dtype=torch.int32, device=device)
+            sync()
+            t0 = time.perf_counter()
+            tok, logits, caches = decode(params, caches, token, pos)
+            sync()
+            walls.append(time.perf_counter() - t0)
+            token = tok[:, None].to(torch.int32)
+            logits_.append(logits.cpu())
+            tokens.append(int(tok))
+    finally:
+        routes.observer = None
+    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+    return {"logits": torch.cat(logits_).numpy(), "tokens": tokens, "walls": walls,
+            "collective_calls": dict(calls), "collective_bytes": dict(nbytes),
+            "cache_bytes": sum(t.numel() * t.element_size() for t in tree_leaves(caches)),
+            "peak_bytes": peak, "coord": (rank // dims[-1], rank % dims[-1])}
 
 
 # -- a world on the card against a world on the host --------------------------

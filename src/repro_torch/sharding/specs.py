@@ -346,6 +346,15 @@ def param_shardings(
 SPLIT_COMPUTE = re.compile(r"(^|/)(x?attn/w[qkvo]|mlp/w_(in|out)|embed/(tok|head)|"
                            r"tm_cm/(w[rkvgo]|decay_B|ln_scale|cm_[kv])|"
                            r"rec/(w_gate|w_in|conv_[wb]|lam|w_out|gate_[ax]))$")
+# the leaves whose products a decode step computes on the rank's FSDP block
+# over the data axes where its batch does not split over them
+# (``compute_shardings``' ``keep_axes``), as the reference's GSPMD does at
+# ``long_500k``: attention's projections, the dense MLP, RWKV's time-mix and
+# channel-mix matrices and decay_A, the RG-LRU block's three matrices and
+# the vocabulary.  The experts' weights, cross-attention's and the leaves
+# with no FSDP dim are gathered over the data axes as in every other step
+DATA_SPLIT_COMPUTE = re.compile(r"(^|/)(attn/w[qkvo]|mlp/w_(in|out)|embed/(tok|head)|"
+                                r"tm_cm/(w[rkvgo]|decay_A|cm_[kvr])|rec/(w_gate|w_in|w_out))$")
 # leaves whose blocks a layer computes with only together: where one of a
 # group is left whole over the model axis, every split-compute leaf of the
 # layer is gathered whole.  RWKV's ln_scale splits exactly where its heads
@@ -401,7 +410,15 @@ def _without(spec: PartitionSpec, axis: str) -> PartitionSpec:
     return P(*(entry(e) for e in spec))
 
 
-def compute_shardings(shardings: Any, *, gated: bool, model_axis: str = "model"):
+def _keeping(spec: PartitionSpec, axes: Tuple[str, ...]) -> PartitionSpec:
+    """``spec`` without its entries split over ``axes`` alone: gathering with
+    it leaves those dims as the rank's block."""
+    return P(*(None if _entry_axes(e) and set(_entry_axes(e)) <= set(axes) else e
+               for e in spec))
+
+
+def compute_shardings(shardings: Any, *, gated: bool, model_axis: str = "model",
+                      keep_axes: Tuple[str, ...] = ()):
     """A tree of :class:`ComputeSharding` over a tree of storage
     :class:`Sharding` (``param_shardings``'s).  A leaf of ``SPLIT_COMPUTE``
     split over ``model_axis`` keeps its model block; the leaves of a group
@@ -409,7 +426,11 @@ def compute_shardings(shardings: Any, *, gated: bool, model_axis: str = "model")
     split-compute leaves only with them (an FF width whose 2·ff divides the
     axis but ff does not computes whole; so does an RWKV layer whose heads
     do not divide it, and an RG-LRU block whose width does not).
-    ``gated``: the config's MLP is gated, its ``w_in`` [gate | up]."""
+    ``gated``: the config's MLP is gated, its ``w_in`` [gate | up].
+    ``keep_axes`` (the data axes of a decode step that computes on the FSDP
+    blocks, ``DistContext.data_split``): a leaf of ``DATA_SPLIT_COMPUTE``
+    also keeps its block over them, where its FSDP dim is split over them
+    alone; a leaf whose blocks are all kept is not gathered at all."""
     by_path: Dict[str, Sharding] = {}
     map_with_path(by_path.__setitem__, shardings)
 
@@ -423,10 +444,11 @@ def compute_shardings(shardings: Any, *, gated: bool, model_axis: str = "model")
         group = _TOGETHER.get(base.rpartition("/")[2], ())
         if keep and group:
             keep = all(split(f"{base}/{w}") for w in group)
-        if not keep:
-            return ComputeSharding(s, s, model_axis=model_axis)
-        return ComputeSharding(s, Sharding(s.mesh, _without(s.spec, model_axis)),
-                               exchange=gated and path.endswith("mlp/w_in"),
+        spec = _without(s.spec, model_axis) if keep else s.spec
+        if keep_axes and DATA_SPLIT_COMPUTE.search(path):
+            spec = _keeping(spec, keep_axes)
+        return ComputeSharding(s, s if spec == s.spec else Sharding(s.mesh, spec),
+                               exchange=keep and gated and path.endswith("mlp/w_in"),
                                model_axis=model_axis)
 
     return map_with_path(one, shardings)

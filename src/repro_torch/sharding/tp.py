@@ -39,10 +39,24 @@ all-gather a ``tp.gather`` (the card synchronised at both ends).
 A layer tells its weights' blocks from whole ones by their shapes against
 the config (:func:`is_block`): a whole weight computes whole on every rank,
 as serve's world passes them, and a shape that is neither raises.
+
+Where a decode step's batch does not split over the data axes (batch 1 at
+``long_500k``), the reference's GSPMD also computes on the weights' FSDP
+blocks and the KV caches' sequence chunks over "data"; the step's
+``DistContext.data_split`` names those axes and the operators at the end of
+this module write that split out, without gradients (decode only): a
+column-parallel product contracts over the rank's block of its input's
+channels (:func:`data_block`) and its partial sums are all-reduced
+(:func:`reduce_from_data`), a row-parallel one writes the rank's block of
+its output's channels, all-gathered after the model all-reduce
+(:func:`gather_from_data`), and attention over the rank's sequence chunk
+combines its softmax with the other chunks' (:func:`combine_over_data`).
+A layer tells data blocks from whole weights by :func:`is_data_block`.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import math
+from typing import Callable, List, Optional, Tuple
 
 import torch
 import torch.distributed as tdist
@@ -355,3 +369,115 @@ def gated_to_storage(g: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor
     """The inverse of :func:`gated_to_compute` (a gradient back to the
     storage block)."""
     return _gated_exchange(g, mesh, axis, to_compute=False)
+
+
+# --------------------------------------------------------------------------
+# The data axes: decode on the FSDP blocks and the caches' sequence chunks.
+# --------------------------------------------------------------------------
+
+def data_size(dist) -> int:
+    """The number of ranks over ``dist.data_split`` (1: no data split)."""
+    if dist is None or not dist.data_split:
+        return 1
+    sizes = mesh_shape(dist.mesh)
+    return math.prod(sizes.get(a, 1) for a in dist.data_split)
+
+
+def data_group(dist) -> Tuple[Optional[object], int, int]:
+    """(the process group of ``dist.data_split``, this rank's index on it, its
+    size); (None, 0, 1) where there is no data split."""
+    if data_size(dist) == 1:
+        return None, 0, 1
+    if len(dist.data_split) == 1:
+        return model_group(dist.mesh, dist.data_split[0])
+    from repro_torch.launch.mesh import axes_group
+
+    group = axes_group(dist.mesh, dist.data_split)
+    return group, tdist.get_rank(group), data_size(dist)
+
+
+def is_data_block(what: str, have: int, whole: int, dist) -> bool:
+    """Whether a dim of ``have`` is this rank's block of a dim of ``whole``
+    split over the data axes of ``dist.data_split`` (False: it is whole).
+    Raises on anything else, as :func:`is_block`."""
+    if have == whole:
+        return False
+    n = data_size(dist)
+    if n > 1 and whole % n == 0 and have == whole // n:
+        return True
+    raise ValueError(f"{what}: {have} of {whole} is neither whole nor this rank's block "
+                     f"over data axes {() if dist is None else dist.data_split} of {n}")
+
+
+def _forward_only(x: torch.Tensor, what: str) -> None:
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise RuntimeError(f"tp.{what}: the data-axis operators serve decode only and have "
+                           "no backward")
+
+
+def data_block(x: torch.Tensor, dist) -> torch.Tensor:
+    """This rank's block over the data axes of the last dim of ``x``, alike on
+    every rank of them (the input of a product whose weight rows are the
+    rank's FSDP block)."""
+    _forward_only(x, "data_block")
+    _, r, n = data_group(dist)
+    if x.shape[-1] % n:
+        raise ValueError(f"tp.data_block: {x.shape[-1]} channels over {n} data ranks")
+    c = x.shape[-1] // n
+    return x.narrow(-1, r * c, c)
+
+
+def reduce_from_data(xs: List[torch.Tensor], dist) -> List[torch.Tensor]:
+    """The sums over the data axes of the ranks' partial products ``xs``: one
+    all-reduce of their concatenation in f32, each sum back in its dtype."""
+    group = data_group(dist)[0]
+    if group is None:
+        return list(xs)
+    for x in xs:
+        _forward_only(x, "reduce_from_data")
+    flat = torch.cat([x.reshape(-1).float() for x in xs])
+    _all_reduce(flat, group)
+    out, at = [], 0
+    for x in xs:
+        out.append(flat[at:at + x.numel()].view(x.shape).to(x.dtype))
+        at += x.numel()
+    return out
+
+
+def gather_from_data(x: torch.Tensor, dist) -> torch.Tensor:
+    """The ranks' blocks ``x`` (..., c) joined along the last dim over the
+    data axes (a row-parallel product's output channels), alike on every
+    rank: one all-gather."""
+    group = data_group(dist)[0]
+    if group is None:
+        return x
+    _forward_only(x, "gather_from_data")
+    return _all_gather_last(x, group)
+
+
+def merge_softmax(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
+                  reduce: Callable[[torch.Tensor, object], None]) -> torch.Tensor:
+    """Softmax attention's output (..., dh) from its parts over a split key
+    axis, each part's row maximum ``m`` (...), sum of exp(logit - m) ``l``
+    (...) and unnormalised output ``o`` (..., dh), f32: M = max m, then
+    sum(o·e^(m-M)) / sum(l·e^(m-M)).  ``reduce(t, op)`` reduces ``t`` over the
+    parts in place (``ReduceOp.MAX``, then one ``SUM`` of l and o together).
+    A part whose every key is masked (m near ``NEG_INF``) weighs e^(m-M) = 0."""
+    top = m.clone()
+    reduce(top, tdist.ReduceOp.MAX)
+    w = torch.exp(m - top)
+    lo = torch.cat([(l * w)[..., None], o * w[..., None]], dim=-1)
+    reduce(lo, tdist.ReduceOp.SUM)
+    return lo[..., 1:] / lo[..., :1]
+
+
+def combine_over_data(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
+                      dist) -> torch.Tensor:
+    """:func:`merge_softmax` of this rank's part over its sequence chunk and
+    the other data ranks' parts: one all-reduce (max), then one (sum)."""
+    group = data_group(dist)[0]
+    if group is None:
+        return o / l[..., None]
+    for t in (m, l, o):
+        _forward_only(t, "combine_over_data")
+    return merge_softmax(m, l, o, lambda t, op: _all_reduce(t, group, op))

@@ -1,9 +1,10 @@
 """One rank's program for ``tests/test_torch_tp.py``: the operators of
 ``repro_torch.sharding.tp``, cross-attention, RWKV's time-mix and
 channel-mix and the RG-LRU block on the rank's blocks, the RG-LRU's gates
-across ranks, and the dry-run's serving steps on a world of 4 gloo ranks,
-meshes (1, 4) and (2, 2).  Imports no JAX (the ranks are spawned
-processes)."""
+across ranks, and the dry-run's serving steps (at batch 4, and at batch 1,
+whose decode computes on the FSDP blocks and the caches' sequence chunks)
+on a world of 4 gloo ranks, meshes (1, 4) and (2, 2).  Imports no JAX (the
+ranks are spawned processes)."""
 import numpy as np
 import torch
 
@@ -14,8 +15,20 @@ SERVE_CASES = {"llama_1x4": ("llama3.2-1b", (1, 4)), "llama_2x2": ("llama3.2-1b"
                "gemma2_2x2": ("gemma2-9b", (2, 2)),
                "vision_1x4": ("llama-3.2-vision-11b", (1, 4)),
                "rwkv_2x2": ("rwkv6-1.6b", (2, 2)),
-               "griffin_2x2": ("recurrentgemma-9b", (2, 2))}
+               "griffin_2x2": ("recurrentgemma-9b", (2, 2)),
+               "gemma2_b1_2x2": ("gemma2-9b", (2, 2)),
+               "griffin_b1_2x2": ("recurrentgemma-9b", (2, 2)),
+               "rwkv_b1_2x2": ("rwkv6-1.6b", (2, 2))}
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 8, 3
+# the batch-1 cases: the batch does not split over "data", so the caches'
+# sequence does (``cache_shardings``) and decode computes on the weights'
+# FSDP blocks and the K/V's sequence chunks (``dryrun.serving_steps``).  A
+# prompt of 30, 4 steps, capacity 64: gemma2's global cache splits at 32, so
+# decode writes land in both chunks, and the smoke LOCAL ring of 32 (two
+# chunks of 16) wraps at step 2; rwkv6 has no KV cache and holds the
+# products on FSDP blocks alone
+B1_CASES = ("gemma2_b1_2x2", "griffin_b1_2x2", "rwkv_b1_2x2")
+B1_PROMPT, B1_STEPS, B1_CAPACITY = 30, 4, 64
 # rwkv6 at 8 heads of 16, so that its heads split over a model axis of 4
 # (the sharded train step's rwkv_f32 case); its smoke config has 2 of 64
 RWKV_CHANGES = {"rwkv_head_dim": 16}
@@ -41,6 +54,18 @@ def _config(arch: str):
 
     changes = RWKV_CHANGES if arch == "rwkv6-1.6b" else {}
     return dataclasses.replace(smoke_config(arch), dtype="float32", **changes)
+
+
+def serve_shape(case: str):
+    """(batch, prompt length, decode steps, cache capacity) of a serving case."""
+    if case in B1_CASES:
+        return 1, B1_PROMPT, B1_STEPS, B1_CAPACITY
+    return SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS, SERVE_PROMPT + SERVE_STEPS
+
+
+def prompts(inputs: dict, case: str):
+    """The case's prompts (batch, prompt length) of the inputs."""
+    return inputs["prompts_b1"] if case in B1_CASES else inputs["prompts"]
 
 
 def serve_config(case: str):
@@ -165,9 +190,11 @@ def _cross_gates(device, inputs, mesh) -> dict:
 
 def _serve(device, inputs, case: str, mesh) -> dict:
     """The dry-run's serving steps (``launch.dryrun.serving_steps``) on this
-    rank's blocks: prefill, then SERVE_STEPS greedy decode steps, each
+    rank's blocks: prefill, then the case's greedy decode steps, each
     step's next tokens and logits block, and the caches' blocks after
-    prefill and at the end."""
+    prefill and at the end; and the collectives of the decode steps
+    (operation, bytes written: ``comms.routes.observer``)."""
+    from repro_torch.comms import routes
     from repro_torch.launch import dryrun
     from repro_torch.models import decode as dec
     from repro_torch.models.convert import tree_map, tree_map2
@@ -175,26 +202,30 @@ def _serve(device, inputs, case: str, mesh) -> dict:
     from repro_torch.sharding import specs
 
     cfg = serve_config(case)
+    batch, prompt, n_steps, cap = serve_shape(case)
     dist = DistContext(mesh=mesh, dp_axes=("data",))
-    cap = SERVE_PROMPT + SERVE_STEPS
     p_sh = specs.param_shardings(param_shapes(cfg), mesh)
-    c_sh = specs.cache_shardings(dec.init_caches(cfg, SERVE_BATCH, cap, device="meta"), mesh,
+    c_sh = specs.cache_shardings(dec.init_caches(cfg, batch, cap, device="meta"), mesh,
                                  dp_axes=("data",))
     params = tree_map2(lambda s, t: s.shard(t.to(device)), p_sh, inputs["serve_params"][case])
-    prefill, decode = dryrun.serving_steps(cfg, dist, p_sh, c_sh, cap)
-    tokens = batch_slot(dist, inputs["prompts"].to(device))
+    prefill, decode = dryrun.serving_steps(cfg, dist, p_sh, c_sh, cap, batch)
+    tokens = batch_slot(dist, prompts(inputs, case).to(device))
     front = inputs["frontends"].get(case)
     tok, logits, caches = prefill(params, tokens,
                                   None if front is None else batch_slot(dist, front.to(device)))
     # copies: decode writes the caches in place
     host = lambda t: t.detach().cpu().clone()  # noqa: E731
     out = {"tokens": [host(tok)], "logits": [host(logits)],
-           "prefill_caches": tree_map(host, caches)}
-    for i in range(SERVE_STEPS):
-        pos = torch.tensor(SERVE_PROMPT + i, dtype=torch.int32, device=device)
-        tok, logits, caches = decode(params, caches, tok[:, None].to(torch.int32), pos)
-        out["tokens"].append(host(tok))
-        out["logits"].append(host(logits))
+           "prefill_caches": tree_map(host, caches), "decode_collectives": []}
+    routes.observer = lambda op, b_in, b_out, ranks: out["decode_collectives"].append((op, b_out))
+    try:
+        for i in range(n_steps):
+            pos = torch.tensor(prompt + i, dtype=torch.int32, device=device)
+            tok, logits, caches = decode(params, caches, tok[:, None].to(torch.int32), pos)
+            out["tokens"].append(host(tok))
+            out["logits"].append(host(logits))
+    finally:
+        routes.observer = None
     out["caches"] = tree_map(host, caches)
     return out
 
@@ -220,7 +251,7 @@ def inputs(seed: int = 0) -> dict:
     and output weight (the RG-LRU's conv bias and Lambda drawn too), the
     RG-LRU's gates across ranks (u, two gates, the outputs' weights), the
     serving cases' weights (the XATTN gates drawn non-zero), prompts and
-    frontends."""
+    frontends, and last the batch-1 cases' prompt."""
     from repro_torch.models.attention import attn_params
     from repro_torch.models.convert import draw_xattn_gates
     from repro_torch.models.griffin import rglru_params
@@ -278,4 +309,5 @@ def inputs(seed: int = 0) -> dict:
                     "gate_a": f32(CROSS_BLOCKS, bw, bw) / bw ** 0.5,
                     "gate_x": f32(CROSS_BLOCKS, bw, bw) / bw ** 0.5,
                     "weight": f32(2, LAYER_BATCH, LAYER_SEQ, CROSS_WIDTH)}
+    out["prompts_b1"] = torch.from_numpy(rng.integers(0, 512, (1, B1_PROMPT)).astype(np.int32))
     return out

@@ -7,9 +7,12 @@ cell (and the serving layout of the MoE archs) against the reference's
 ``build_cell``; the cheapest cell end to end through the CLI, its record read
 by ``benchmarks/roofline.py::terms``; a cell whose ``dot_flops`` is computed
 by hand; the per-rank ``dot_flops`` of seven dense-decoder cells, of
-llama-3.2-vision-11b's and rwkv6-1.6b's ``decode_32k`` and of
-recurrentgemma-9b's ``decode_32k`` and ``train_4k`` against the
-reference's own dry-run (both split the products over "model"); the
+llama-3.2-vision-11b's and rwkv6-1.6b's ``decode_32k``, of
+recurrentgemma-9b's ``decode_32k`` and ``train_4k``, and of gemma2-9b's,
+recurrentgemma-9b's and rwkv6-1.6b's ``long_500k`` against the
+reference's own dry-run (both split the products over "model", and at
+``long_500k``'s batch of 1 over "data" too: the FSDP blocks and the caches'
+sequence chunks); the
 collective tiers of a training cell on one pod and on two; and the failure
 and ``--skip-existing`` handling.
 """
@@ -65,6 +68,10 @@ FLOP_CELLS = [("llama3.2-1b", "train_4k", "single"), ("llama3.2-1b", "prefill_32
 # started with the others: the reference's train_4k traces for about 30 s
 GRIFFIN_CELLS = [("recurrentgemma-9b", "decode_32k", "single"),
                  ("recurrentgemma-9b", "train_4k", "single")]
+# the decode at batch 1 against a 524288-deep cache, split over "data" as
+# the reference's GSPMD splits it, in a third pair of subprocesses
+LONG_CELLS = [("gemma2-9b", "long_500k", "single"), ("recurrentgemma-9b", "long_500k", "single"),
+              ("rwkv6-1.6b", "long_500k", "single")]
 
 # one package's dry-run of FLOP_CELLS, its CLI in one process; {pkg} is
 # repro or repro_torch (the reference's main reads sys.argv)
@@ -140,6 +147,10 @@ def runs(tmp_path_factory):
                                      json.dumps(GRIFFIN_CELLS)]),
         "port_flops_griffin": _start(["-c", _FLOP_CELLS.format(pkg="repro_torch"),
                                       str(tmp / "port"), json.dumps(GRIFFIN_CELLS)]),
+        "ref_flops_long": _start(["-c", _FLOP_CELLS.format(pkg="repro"), str(tmp / "ref"),
+                                  json.dumps(LONG_CELLS)]),
+        "port_flops_long": _start(["-c", _FLOP_CELLS.format(pkg="repro_torch"),
+                                   str(tmp / "port"), json.dumps(LONG_CELLS)]),
     }
     try:
         done = {name: _finish(p) for name, p in procs.items()}
@@ -221,14 +232,17 @@ def test_decode_cell_dot_flops_by_hand(runs):
     assert rec["hlo_cost"]["dot_flops"] == pytest.approx(want, rel=0.01)
 
 
-@pytest.mark.parametrize("cell", FLOP_CELLS + GRIFFIN_CELLS,
-                         ids=["/".join(c) for c in FLOP_CELLS + GRIFFIN_CELLS])
+@pytest.mark.parametrize("cell", FLOP_CELLS + GRIFFIN_CELLS + LONG_CELLS,
+                         ids=["/".join(c) for c in FLOP_CELLS + GRIFFIN_CELLS + LONG_CELLS])
 def test_dot_flops_equal_the_reference_s(runs, cell):
     """Each rank's dot FLOPs of a cell are the reference's (its GSPMD splits
     the products over "model", cross-attention's, RWKV's and the RG-LRU's
-    included; the port splits them alike): within 1%."""
+    included, and where the batch does not split over "data", a
+    ``long_500k`` decode's, over "data" too; the port splits them alike):
+    within 1%."""
     tmp, done = runs
-    which = "_griffin" if cell in GRIFFIN_CELLS else ""
+    which = ("_griffin" if cell in GRIFFIN_CELLS else "_long" if cell in LONG_CELLS
+             else "")
     _ok(done["ref_flops" + which])
     _ok(done["port_flops" + which])
     name = "__".join(cell) + "__baseline.json"
@@ -236,6 +250,22 @@ def test_dot_flops_equal_the_reference_s(runs, cell):
     assert ref["ok"] is True and port["ok"] is True
     assert port["hlo_cost"]["dot_flops"] == pytest.approx(ref["hlo_cost"]["dot_flops"],
                                                           rel=1e-2)
+
+
+def test_long_decode_moves_no_weights_or_caches(runs):
+    """gemma2-9b long_500k single, batch 1: decode computes on the weights'
+    FSDP blocks and the KV caches' sequence chunks over "data", so each
+    rank's collectives move activations and softmax parts only, under 0.2
+    GB (gathering the blocks and chunks whole moved 12.86 GB a step), and
+    its all-gathers under 1 MB each on average (an activation's channels)."""
+    tmp, done = runs
+    _ok(done["port_flops_long"])
+    rec = _record(tmp / "port" / "gemma2-9b__long_500k__single__baseline.json")
+    hc = rec["hlo_cost"]
+    assert rec["ok"] is True and rec["tokens_global"] == 1
+    assert 0 < hc["collective_ici_bytes"] < 2e8 and hc["collective_dcn_bytes"] == 0
+    gathers = hc["collectives"]["all-gather"]
+    assert gathers["ici_bytes"] / gathers["count"] < 1e6
 
 
 def test_train_collectives_cross_pods_only_on_two(runs):

@@ -208,6 +208,144 @@ def test_block_columns_joined_over_ranks_are_the_block_diagonal_product(n):
         griffin.block_columns(w, u, 0, 3)
 
 
+@pytest.mark.parametrize("parts", [2, 3])
+@pytest.mark.parametrize("n", [2, 4, 8, 16])
+def test_block_columns_parts_sum_to_the_columns(n, parts):
+    """Over the data axes each rank contracts over its part of each block's
+    input channels (``part``): the parts' partial products summed are the
+    rank's whole columns, on its own blocks (n divides the 8 blocks) and on
+    its columns of a block spanning ranks (n = 16); a block's channels that
+    the parts do not divide raise."""
+    from repro_torch.models import griffin
+
+    rng = np.random.default_rng(n + parts)
+    w = torch.from_numpy(rng.standard_normal((8, 6, 6)))
+    u = torch.from_numpy(rng.standard_normal((2, 3, 8 * 6)))
+    for r in range(n):
+        summed = sum(griffin.block_columns(w, u, r, n, part=(i, parts)) for i in range(parts))
+        torch.testing.assert_close(summed, griffin.block_columns(w, u, r, n),
+                                   rtol=1e-12, atol=1e-12)
+    with pytest.raises(ValueError, match="a block's 6 input channels over 4 data ranks"):
+        griffin.block_columns(w, u, 0, n, part=(0, 4))
+
+
+@pytest.mark.parametrize("chunks,softcap", [(2, 0.0), (4, 0.0), (2, 30.0), (4, 30.0)])
+def test_split_softmax_equals_attention_over_the_whole_cache(chunks, softcap):
+    """Decode attention over a cache split in ``chunks`` sequence chunks:
+    each chunk's part (``attention._softmax_part``: its row maximum, sum of
+    exponentials and unnormalised output), merged by ``tp.merge_softmax``
+    (the max and sum all-reduces done over the stacked parts), equals
+    ``_attend_dense`` over the whole cache at f32 1e-5, with gemma2's
+    attention softcap on or off.  The last chunk's every slot is unwritten
+    (pos -1): its maximum is NEG_INF's and it weighs 0, with no NaN."""
+    from repro_torch.models import attention
+
+    cfg = dataclasses.replace(smoke_config("gemma2-9b"), dtype="float32", attn_softcap=softcap)
+    rng = np.random.default_rng(chunks)
+    B, G, M, dh, cap = 2, 2, 2, cfg.head_dim_, 48
+    f32 = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))  # noqa: E731
+    q, k, v = f32(B, 1, G, M, dh) * 3, f32(B, cap, G, dh) * 3, f32(B, cap, G, dh)
+    c = cap // chunks
+    k_pos = torch.full((cap,), -1, dtype=torch.int32)
+    k_pos[: cap - c] = torch.from_numpy(rng.permutation(cap - c).astype(np.int32))
+    q_pos = torch.tensor([cap - c - 1], dtype=torch.int32)
+    whole = attention._attend_dense(cfg, q, k, v, attention._mask_bias(q_pos, k_pos, 0, True))
+    parts = [attention._softmax_part(cfg, q, k[:, i * c:(i + 1) * c], v[:, i * c:(i + 1) * c],
+                                     attention._mask_bias(q_pos, k_pos[i * c:(i + 1) * c], 0,
+                                                          True))
+             for i in range(chunks)]
+    m, l, o = (torch.stack(t) for t in zip(*parts))
+    assert float(m[-1].max()) < -1e38  # the unwritten chunk
+
+    def reduce(t, op):  # an all-reduce over the stacked chunks, in place
+        t.copy_((t.amax(0) if op == torch.distributed.ReduceOp.MAX else t.sum(0)).expand_as(t))
+
+    out = tp.merge_softmax(m, l, o, reduce)
+    for i in range(chunks):
+        got = out[i].permute(0, 3, 1, 2, 4)
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, whole, rtol=0, atol=1e-5 * float(whole.abs().max()))
+
+
+def test_compute_shardings_keep_the_fsdp_blocks():
+    """With ``keep_axes=("data",)`` on (2, 4) the leaves of
+    ``DATA_SPLIT_COMPUTE`` keep their FSDP block over "data" besides their
+    model block (gemma2's attention, MLP and tied table are not gathered at
+    all; RWKV's whole ``decay_A`` and ``cm_r`` keep their rows), while the
+    experts' weights, cross-attention's and the leaves with no FSDP dim are
+    gathered as without it."""
+    mesh = {"data": 2, "model": 4}
+
+    def plans(arch, **changes):
+        cfg = dataclasses.replace(smoke_config(arch), **changes)
+        sh = specs.param_shardings(param_shapes(cfg), mesh)
+        return (specs.compute_shardings(sh, gated=cfg.gated),
+                specs.compute_shardings(sh, gated=cfg.gated, keep_axes=("data",)))
+
+    def kept(plan):
+        out = set()
+        specs.map_with_path(lambda path, c: out.add(path) if "data" in tree_leaves(
+            c.storage.spec) and "data" not in tree_leaves(c.gather.spec) else None, plan)
+        return out
+
+    base, keep = plans("gemma2-9b")
+    assert not kept(base)
+    assert kept(keep) == {"embed/tok"} | {f"groups/0/{i}/{w}" for i in (0, 1) for w in (
+        "attn/wq", "attn/wk", "attn/wv", "attn/wo", "mlp/w_in", "mlp/w_out")}
+    layer = keep["groups"][0][0]
+    for w in ("wq", "wo"):
+        assert set(tree_leaves(layer["attn"][w].gather.spec)) <= {None}, w
+    assert layer["ln1"]["scale"].gather == base["groups"][0][0]["ln1"]["scale"].gather
+    _, keep = plans("rwkv6-1.6b", rwkv_head_dim=16)
+    assert {p.rsplit("/", 1)[1] for p in kept(keep)} == {
+        "tok", "head", "wr", "wk", "wv", "wg", "wo", "decay_A", "cm_k", "cm_v", "cm_r"}
+    _, keep = plans("recurrentgemma-9b")
+    assert {p.rsplit("/", 1)[1] for p in kept(keep)} == {
+        "tok", "w_gate", "w_in", "w_out", "wq", "wk", "wv", "wo"}
+    base, keep = plans("dbrx-132b")
+    assert not any("moe/" in p for p in kept(keep))
+    base, keep = plans("llama-3.2-vision-11b")
+    assert not any("xattn/" in p for p in kept(keep))
+
+
+def test_layers_raise_on_mixed_fsdp_blocks():
+    """With a data split in the context, a layer whose FSDP blocks are not
+    all blocks or all whole, a decode cache whose sequence is neither whole
+    nor the rank's chunk, and cross-attention on FSDP blocks raise; the
+    data-axis operators refuse a tensor that requires grad."""
+    from repro_torch.models import attention, griffin, rwkv
+
+    dist = DistContext(mesh={"data": 2, "model": 1}, data_split=("data",))
+    cfg = dataclasses.replace(smoke_config("gemma2-9b"), dtype="float32")
+    gen = torch.Generator().manual_seed(0)
+    d = cfg.d_model
+    p = attention.attn_params(cfg, gen)
+    half = dict(p, wq=p["wq"][: d // 2])
+    with pytest.raises(ValueError, match=r"attn: FSDP blocks \['wq'\] beside whole"):
+        attention.qkv_proj(cfg, half, torch.zeros((1, 1, d)), torch.zeros(1, dtype=torch.int32),
+                           dist)
+    with pytest.raises(ValueError, match="attn/wk rows: 48 of 128 is neither whole"):
+        attention.qkv_proj(cfg, dict(p, wk=p["wk"][:48]), torch.zeros((1, 1, d)),
+                           torch.zeros(1, dtype=torch.int32), dist)
+    cache = attention.init_kv_cache(cfg, 1, 64)
+    cache["k"] = cache["k"][:, :24]
+    with pytest.raises(ValueError, match="attn cache sequence: 24 of 64 is neither whole"):
+        attention.decode_attention(cfg, p, torch.zeros((1, 1, d)), 3, cache, dist=dist)
+    blocks = dict(p, wq=p["wq"][: d // 2], wo=p["wo"][..., : d // 2])
+    with pytest.raises(ValueError, match="cross-attention computes on weights whole"):
+        attention.cross_kv(cfg, blocks, torch.zeros((1, 2, d)), dist)
+    rc = dataclasses.replace(smoke_config("rwkv6-1.6b"), dtype="float32")
+    r = rwkv.rwkv_params(rc, gen)
+    with pytest.raises(ValueError, match=r"tm_cm: FSDP blocks \['cm_r'\] beside whole"):
+        rwkv.fsdp_split(rc, dict(r, cm_r=r["cm_r"][: d // 2]), dist)
+    gc = dataclasses.replace(smoke_config("recurrentgemma-9b"), dtype="float32")
+    g = griffin.rglru_params(gc, gen)
+    with pytest.raises(ValueError, match=r"rec: FSDP blocks \['w_out'\] beside whole"):
+        griffin.fsdp_split(gc, dict(g, w_out=g["w_out"][:, : d // 2]), dist)
+    with pytest.raises(RuntimeError, match="serve decode only"):
+        tp.data_block(torch.zeros((1, d), requires_grad=True), dist)
+
+
 @pytest.mark.parametrize("n", [2, 3, 4, 8, 16])
 def test_gated_sources_tile_the_columns_once(n):
     """Over n ranks (f = ff / n columns a half), rank r's compute halves are
@@ -333,15 +471,15 @@ def _single_device(case: str, inp: dict):
     after prefill and at the end."""
     cfg = tpw.serve_config(case)
     params = inp["serve_params"][case]
-    cap = tpw.SERVE_PROMPT + tpw.SERVE_STEPS
+    _, prompt, n_steps, cap = tpw.serve_shape(case)
     with torch.no_grad():
-        logits, caches = dec.prefill(cfg, params, inp["prompts"],
+        logits, caches = dec.prefill(cfg, params, tpw.prompts(inp, case),
                                      frontend=inp["frontends"].get(case), capacity=cap)
         first = tree_map(torch.clone, caches)
         toks, lg = [logits.argmax(-1)], [logits]
-        for i in range(tpw.SERVE_STEPS):
+        for i in range(n_steps):
             logits, caches = dec.decode_step(cfg, params, caches, toks[-1][:, None].int(),
-                                             tpw.SERVE_PROMPT + i)
+                                             prompt + i)
             toks.append(logits.argmax(-1))
             lg.append(logits)
     return cfg, toks, lg, first, caches
@@ -354,13 +492,18 @@ def test_dryrun_serving_steps_equal_the_single_device_steps(world, case):
     logits), and its caches are its blocks (batch slot; the self- and
     cross-attention K/V's KV heads, RWKV's state's heads and token shifts'
     channels, the RG-LRU's h and conv tail's channels) of the single-device
-    caches, after prefill and after three decode steps, at f32 1e-4."""
+    caches, after prefill and after the decode steps, at f32 1e-4.  At batch
+    1 (``B1_CASES``) the batch is whole on every rank and the self-attention
+    K/V are the rank's sequence chunk over "data" besides its KV heads; their
+    decode writes land in both chunks (and gemma2's and recurrentgemma's
+    LOCAL rings wrap), and no decode step gathers more than an activation:
+    every weight and cache is computed on as the rank's block."""
     inp, ranks = world
     cfg, toks, lg, first, last = _single_device(case, inp)
+    batch, prompt, n_steps, cap = tpw.serve_shape(case)
     dims = tpw.SERVE_CASES[case][1]
     mesh = dict(zip(("data", "model"), dims))
-    c_sh = specs.cache_shardings(dec.init_caches(cfg, tpw.SERVE_BATCH, tpw.SERVE_PROMPT
-                                                 + tpw.SERVE_STEPS, device="meta"), mesh)
+    c_sh = specs.cache_shardings(dec.init_caches(cfg, batch, cap, device="meta"), mesh)
     heads = {}  # the leaves split over heads: their head dim over "model"
     specs.map_with_path(lambda path, s: heads.setdefault(path.rsplit("/", 1)[-1], []).append(
         s.spec[2 if path.endswith("state") else 3]) if len(s.spec) == 5 else None, c_sh)
@@ -372,11 +515,32 @@ def test_dryrun_serving_steps_equal_the_single_device_steps(world, case):
         ("/h", "/conv")) else None, c_sh)
     assert len(channels) == (2 * 4 if "griffin" in case else 0)  # 4 stacks of RGLRU layers
     assert all(e == "model" for e in channels), channels
-    rows = tpw.SERVE_BATCH // dims[0]
+    seq = []  # the self-attention K/V: their batch and sequence dims
+    specs.map_with_path(lambda path, s: seq.append(s.spec[1:3]) if path.endswith(("/k", "/v"))
+                        else None, c_sh)
+    b1 = case in tpw.B1_CASES
+    assert ("rwkv" in case) == (not seq)
+    want = (None, "data") if b1 else (("data",) if dims[0] > 1 else None, None)
+    assert all(tuple(e) == want for e in seq), seq
+    if b1:
+        steps = np.arange(prompt, prompt + n_steps)
+        if "rwkv" not in case:  # the LOCAL ring's writes land in both chunks and wrap
+            assert {int(p % cfg.window >= cfg.window // 2) for p in steps} == {0, 1}
+            assert 0 in steps % cfg.window
+        if "gemma2" in case:  # and so do the global cache's
+            assert {int(p >= cap // 2) for p in steps} == {0, 1}
+        # the largest gather: RWKV's token shifts (count, B, d) f32, which
+        # cache_shardings splits over "model" and decode takes whole; any
+        # weight or K/V block is larger
+        most = 4 * batch * cfg.d_model * max(g.count for g in cfg.groups)
+        for rank, got in enumerate(ranks):
+            gathers = [b for op, b in got[case]["decode_collectives"] if op == "all_gather"]
+            assert gathers and max(gathers) <= most, (rank, max(gathers), most)
+    rows = batch // dims[0] if batch % dims[0] == 0 else batch
     for rank, got in enumerate(ranks):
         d, m = _rank_coord(dims, rank)
         out = got[case]
-        sl = slice(d * rows, (d + 1) * rows)
+        sl = slice(d * rows, (d + 1) * rows) if rows < batch else slice(0, batch)
         for step, (t, l) in enumerate(zip(toks, lg)):
             assert out["tokens"][step].tolist() == t[sl].tolist(), (rank, step)
             whole = np.concatenate([ranks[d * dims[1] + j][case]["logits"][step]
