@@ -106,7 +106,9 @@ Phases, each printing its own lines, any failure ending the run non-zero:
                device's (``launch.train.run``) on the same weights and
                batch; (c) the
                CPU tests' world programs (expert-parallel cases, sharded
-               train steps, llama-vision's, rwkv's and griffin's among them)
+               train steps, llama-vision's, rwkv's and griffin's among them,
+               and ZeRO-1's moments over "pod" x "data" on (2, 2, 2) and
+               ``--no-fsdp``'s over "data", with rank 0's moment bytes)
                at smoke width, a card world against a host world (each
                program pair in one world a device, the two worlds at once);
                (d) in 12(b)'s world, after its legs, the dry-run's serving
@@ -281,7 +283,10 @@ SHARD_LOSS_TOL = 2e-2  # the reference's (tests/_multidevice_checks.py:164)
 # 12(c)'s sharded train cases on the card (each splits its compute over
 # "model"; the CPU tests run every case of sharding.checks.TRAIN_CASES)
 CARD_TRAIN_CASES = ["f32", "f32_microbatches", "f32_batch_3", "bf16", "vision_f32",
-                    "rwkv_f32", "griffin_f32"]
+                    "rwkv_f32", "griffin_f32", "f32_zero1_pod", "f32_no_fsdp"]
+# the default layout and the moments on their own FSDP axes (ZeRO-1 over
+# "pod" on (2, 2, 2), and --no-fsdp), whose moment bytes a rank 12(c) prints
+MOMENT_CASES = ("f32", "f32_zero1_pod", "f32_no_fsdp")
 # 12(b)'s RWKV and griffin legs over the same (2, 2) world, B=4 S=128, 2
 # steps: rwkv6-1.6b at full width, its time-mix and channel-mix split over
 # "model" (32 heads, 2 a rank); recurrentgemma-9b at full width with one
@@ -2335,6 +2340,15 @@ def phase_ranks_checks(gpu: str) -> None:
         say("ranks", f"{name} checks, {W} ranks on the card against {W} on the host: "
                      f"largest gap of each case "
                      f"{ {k: float(f'{v:.3e}') for k, v in worst.items()} } ({bounds}) | {gpu}")
+    from repro_torch.models.convert import tree_leaves
+
+    def nbytes(out: dict, keys) -> int:
+        return sum(t.size * 4 for k in keys for t in tree_leaves(out[k]))
+
+    say("ranks", "sharded train, rank 0's bytes on the card (f32): " + "; ".join(
+        f"{case} moments {nbytes(card[0]['train'][case], ('mu', 'nu'))}, parameters "
+        f"{nbytes(card[0]['train'][case], ('params',))}" for case in MOMENT_CASES)
+        + f" | {gpu}")
 
 
 def phase_ranks(gpu: str) -> None:

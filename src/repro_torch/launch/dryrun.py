@@ -10,7 +10,11 @@ The counterpart of ``repro.launch.dryrun``.  For each cell this:
   2. adapts the architecture config for the TP width (KV expansion,
      ep_shards — ``sharding.specs.tp_adapt``);
   3. makes this rank's blocks of the params / AdamW moments / caches and its
-     slot of the batch on the meta device — nothing is allocated;
+     slot of the batch on the meta device — nothing is allocated; the
+     moments take the FSDP rules on ``--opt-fsdp-axes`` (by default
+     ``--fsdp-axes``), under ``--no-fsdp`` too, as the reference's do, and
+     ``train_step`` updates them on their own blocks (ZeRO-1 over "pod"
+     with ``--opt-fsdp-axes pod+data``);
   4. runs the step (``train_step``, ``prefill_step`` or ``decode_step`` by
      the shape's kind) once, eagerly, under the cost counter
      (``launch.hlo_analysis.trace_cost``), with the kernels off
@@ -221,7 +225,6 @@ def build_cell(arch: str, shape_name: str, mesh_kind: str, variant: dict):
     from repro_torch.models.common import dtype_of
     from repro_torch.models.convert import tree_map2
     from repro_torch.models.transformer import DistContext, param_shapes
-    from repro_torch.optim import adamw
     from repro_torch.sharding import specs
 
     shape = SHAPES[shape_name]
@@ -310,19 +313,19 @@ def build_cell(arch: str, shape_name: str, mesh_kind: str, variant: dict):
             remat_policy=variant.get("remat_policy", "block"),
             grad_accum_dtype=variant.get("grad_accum_dtype", "float32"),
         )
+        # the moments take the FSDP rules on their own axes, under --no-fsdp
+        # too, as the reference's (ZeRO-1 with --opt-fsdp-axes pod+data)
         opt_fsdp_axes = tuple(variant.get("opt_fsdp_axes", "+".join(fsdp_axes)).split("+"))
-        if opt_fsdp_axes != fsdp_axes:
-            raise NotImplementedError(
-                f"--opt-fsdp-axes {'+'.join(opt_fsdp_axes)} differs from --fsdp-axes "
-                f"{'+'.join(fsdp_axes)}: the port's sharded train step keeps the AdamW "
-                "moments in the parameters' layout (ZeRO-1 over other axes is not ported)")
-        opt = adamw.init_state(params)
+        o_sh = specs.opt_shardings(p_shape, mesh, fsdp=True, fsdp_axes=opt_fsdp_axes,
+                                   ep_axes=ep_axes)
+        opt = specs.init_opt_blocks(o_sh, p_shape, "meta")
         batch = {"tokens": tokens(S)}
         if frontend is not None:
             batch["frontend"] = frontend
 
         def fn(p, o, b):
-            return steps.train_step(cfg, run, p, o, b, dist=dist, shardings=p_sh)
+            return steps.train_step(cfg, run, p, o, b, dist=dist, shardings=p_sh,
+                                    opt_shardings=o_sh)
 
         meta["tokens_global"] = B * S
         meta["step_kind"] = "train"

@@ -37,6 +37,20 @@ applies AdamW to the blocks, so that each rank ends with its block of what
 the single-device step computes.  The global gradient norm counts each
 element once: a block held by several ranks adds its squares divided by
 their number.
+
+With ``opt_shardings`` apart from ``shardings`` the moments lie on their
+own FSDP axes: ZeRO-1 (the reference's ``--opt-fsdp-axes pod+data``, each
+moment split over the pods too) or the reference's ``--no-fsdp`` (whole
+parameters, moments split over "data").  The step then cuts each reduced
+gradient to the rank's moment block (``specs.moment_compute_shardings``),
+counts the norm by the moments' replicas, and applies AdamW to the
+parameter's values at that block, cut from the compute tensor it gathered
+(``moment_values``): a moment block need not lie inside the rank's
+parameter block, and where a dim divides the parameters' axes but not the
+moments', the moments are the less split.  ``train.param_gather`` then
+all-gathers the updated values over the moments' FSDP axes and writes the
+rank's parameter block in place (``gather_back``).  Where every moment
+lies in its parameter's layout the step is the one above, bit for bit.
 """
 from __future__ import annotations
 
@@ -104,6 +118,7 @@ def train_step(
     *,
     dist: Optional[DistContext] = None,
     shardings=None,
+    opt_shardings=None,
 ) -> Tuple[dict, adamw.AdamWState, Dict[str, torch.Tensor]]:
     """One optimizer step.  ``run.n_microbatches > 1`` accumulates gradients
     over microbatches in ``run.grad_accum_dtype`` (activation memory
@@ -113,12 +128,14 @@ def train_step(
     With ``dist``: ``params`` and ``opt_state``'s moments are this rank's
     blocks by ``shardings`` (default: ``param_shardings`` of the config's
     shapes over ``dist.mesh``), ``batch`` is its slot; the metrics are
-    global (averaged over the data axes)."""
+    global (averaged over the data axes).  ``opt_shardings`` (an
+    ``AdamWState`` of shardings, or the moments' tree; default: the
+    parameters') lays the moments out on their own FSDP axes (ZeRO-1)."""
     tokens = batch["tokens"]
     frontend = batch.get("frontend")
     check_frontend(cfg, frontend)
     remat_mode = run.remat_policy if run.remat else "none"
-    plan = None
+    plan = o_plan = at_moments = None
     if dist is None:
         leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
     else:
@@ -128,10 +145,13 @@ def train_step(
             shardings = param_shardings(param_shapes(cfg, dist.ep_shards), dist.mesh)
         plan = tree_leaves(compute_shardings(shardings, gated=cfg.gated,
                                              model_axis=dist.model_axis))
+        o_plan = _moment_plan(cfg, dist, shardings, opt_shardings, plan)
         _sync_if_traced(tokens)
         with trace.span("train.gather"):
             leaves = [c.to_compute(p.detach()).requires_grad_()
                       for c, p in zip(plan, tree_leaves(params))]
+            if o_plan is not plan:
+                at_moments = moment_values(o_plan, plan, leaves, tree_leaves(params))
     diff_params = tree_unflatten(params, leaves)
 
     with trace.span("train.grads", microbatches=run.n_microbatches):
@@ -142,7 +162,7 @@ def train_step(
     if dist is not None:
         _sync_if_traced(tokens)
         with trace.span("train.reduce"):
-            metrics, grads, gnorm = _reduce(dist, plan, metrics, grads)
+            metrics, grads, gnorm = _reduce(dist, o_plan, metrics, grads)
     with trace.span("train.update"):
         grads, gnorm = adamw.clip_by_global_norm(grads, run.grad_clip, gnorm)
         lr = warmup_cosine(
@@ -151,17 +171,21 @@ def train_step(
             warmup_steps=run.warmup_steps,
             total_steps=run.total_steps,
         )
-        params, opt_state = adamw.apply_updates(
+        _, opt_state = adamw.apply_updates(
             adamw.AdamWConfig(
                 lr=run.learning_rate,
                 weight_decay=run.weight_decay,
                 grad_clip=run.grad_clip,
             ),
-            params,
+            params if at_moments is None else at_moments,
             grads,
             opt_state,
             lr=lr,
         )
+    if at_moments is not None:
+        _sync_if_traced(tokens)
+        with trace.span("train.param_gather"):
+            gather_back(o_plan, plan, at_moments, tree_leaves(params))
     metrics = dict(metrics, grad_norm=gnorm, lr=lr)
     return params, opt_state, metrics
 
@@ -196,6 +220,44 @@ def _sync_if_traced(t: torch.Tensor) -> None:
     collectives and not the device work enqueued before it."""
     if trace.is_active() and t.is_cuda:
         torch.cuda.synchronize(t.device)
+
+
+def _moment_plan(cfg, dist, shardings, opt_shardings, plan: list) -> list:
+    """The moments' ``ComputeSharding`` of each leaf (``specs.
+    moment_compute_shardings``), or ``plan`` itself where every moment lies
+    in its parameter's layout."""
+    if opt_shardings is None:
+        return plan
+    from repro_torch.sharding.specs import moment_compute_shardings
+
+    o_plan = tree_leaves(moment_compute_shardings(opt_shardings, shardings, gated=cfg.gated,
+                                                  model_axis=dist.model_axis))
+    if all(o.storage.spec == c.storage.spec for o, c in zip(o_plan, plan)):
+        return plan
+    return o_plan
+
+
+def moment_values(o_plan: list, plan: list, compute: list, params: list) -> list:
+    """The parameters' values at this rank's block of each moment: the
+    parameter block itself where the moments lie in its layout, else a new
+    tensor cut from the compute tensor (which holds values of the leaf
+    beyond the rank's parameter block).  Collective where a gated ``w_in``
+    is exchanged."""
+    with torch.no_grad():
+        return [o.to_storage(t.detach()) if o.storage.spec != c.storage.spec else p
+                for o, c, t, p in zip(o_plan, plan, compute, params)]
+
+
+def gather_back(o_plan: list, plan: list, at_moments: list, params: list) -> None:
+    """Write the values at the moment blocks (``moment_values``, updated by
+    ``apply_updates``) into this rank's parameter blocks in place where
+    the two differ: an all-gather over the moments' FSDP axes, then the
+    parameter's block of it (a gated ``w_in``'s storage columns are the
+    same in both layouts, so neither is exchanged).  Collective."""
+    with torch.no_grad():
+        for o, c, v, p in zip(o_plan, plan, at_moments, params):
+            if o.storage.spec != c.storage.spec:
+                p.copy_(c.gather.block(o.gather.gather(v)))
 
 
 def _reduce(dist: DistContext, plan: list, metrics: dict, grads: list):

@@ -10,9 +10,11 @@ holding its virtual expert of each layer, and returns its slot of the
 logits and the aux loss.  :func:`train_program` runs the sharded
 ``train_step`` twice (the warm-up's step at lr 0, then one that moves the
 weights) for each case of :data:`TRAIN_CASES`, its compute split over
-"model", on a (2, 4) mesh (two cases on (1, 8)) and returns the rank's
-blocks of the parameters and moments, the steps' metrics and the
-collectives the first step and a forward pass made.
+"model", on a (2, 4) mesh (two cases on (1, 8), and two ZeRO-1 cases on
+(2, 2, 2) "pod", "data", "model", whose moments lie on their own FSDP
+axes, as a ``--no-fsdp`` case's do) and returns the rank's blocks of the
+parameters and moments, the steps' metrics and the collectives the first
+step and a forward pass made.
 The tests hold them against the JAX package's outputs; on the card, a
 world on CUDA tensors is held against a world on the host
 (:func:`compare_moe`, :func:`compare_train`).  :func:`long_decode_report`
@@ -25,7 +27,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,36 +58,63 @@ MOE_TRAIN_MESH, MOE_TRAIN_SEQ = (2, 4), 32
 
 TRAIN_ARCH = "llama3.2-1b"
 TRAIN_MESH = (2, 4)
-# name -> (arch, dtype, batch, microbatches, mesh, config changes).  The data
-# axes (2) divide 8, not 3.  gemma2: softcap, LOCAL layers, post-norms, the
-# gelu MLP; olmo: 4 KV heads that split, the non-parametric LN.  12 query
-# heads over 6 KV heads on a model axis of 4: neither divides the other, so
-# wk and wv stay whole beside the rank's 3 query heads, which read 2 of the
-# groups.  On (1, 8) the 4 heads do not split: attention computes whole
-# beside the split MLP and vocabulary.  llama-vision: its XATTN layers'
-# cross-attention on the rank's head beside whole KV heads (2 over 4);
-# whisper: the encoder, and the decoder's cross-attention on the rank's
-# head and KV head; rwkv: 8 heads of 16 over 4, the time-mix and
-# channel-mix split; its smoke config's 2 heads of 64 do not divide 4, so
-# that layer computes whole; griffin: recurrentgemma's RG-LRU block on the
-# rank's 32 of 128 channels, 2 of its 8 gate blocks (on (1, 8): 16
-# channels, 1 block, attention's 4 heads whole).
+
+
+class TrainCase(NamedTuple):
+    """A sharded train case: its mesh's dims and axis names, its parameters'
+    ``fsdp`` flag and its moments' FSDP axes (the parameters' layout by
+    default)."""
+
+    arch: str
+    dtype: str
+    batch: int
+    microbatches: int
+    mesh: Tuple[int, ...]
+    changes: tuple = ()
+    axes: Tuple[str, ...] = ("data", "model")
+    fsdp: bool = True
+    opt_fsdp_axes: Tuple[str, ...] = ("data",)
+
+
+# name -> TrainCase(arch, dtype, batch, microbatches, mesh, config changes,
+# ...).  The data axes (2) divide 8, not 3.  gemma2: softcap, LOCAL layers,
+# post-norms, the gelu MLP; olmo: 4 KV heads that split, the non-parametric
+# LN.  12 query heads over 6 KV heads on a model axis of 4: neither divides
+# the other, so wk and wv stay whole beside the rank's 3 query heads, which
+# read 2 of the groups.  On (1, 8) the 4 heads do not split: attention
+# computes whole beside the split MLP and vocabulary.  llama-vision: its XATTN
+# layers' cross-attention on the rank's head beside whole KV heads (2 over 4);
+# whisper: the encoder, and the decoder's cross-attention on the rank's head
+# and KV head; rwkv: 8 heads of 16 over 4, the time-mix and channel-mix split;
+# its smoke config's 2 heads of 64 do not divide 4, so that layer computes
+# whole; griffin: recurrentgemma's RG-LRU block on the rank's 32 of 128
+# channels, 2 of its 8 gate blocks (on (1, 8): 16 channels, 1 block,
+# attention's 4 heads whole).  ZeRO-1 on (2, 2, 2) "pod", "data", "model": the
+# parameters over "data", the moments over "pod" x "data" (the reference's
+# --opt-fsdp-axes pod+data); and its --no-fsdp layout, whole parameters beside
+# moments over "data".
+POD_MESH, POD_AXES = (2, 2, 2), ("pod", "data", "model")
 TRAIN_CASES = {
-    "f32": (TRAIN_ARCH, "float32", 8, 1, TRAIN_MESH, ()),
-    "f32_microbatches": (TRAIN_ARCH, "float32", 8, 2, TRAIN_MESH, ()),
-    "f32_batch_3": (TRAIN_ARCH, "float32", 3, 1, TRAIN_MESH, ()),
-    "bf16": (TRAIN_ARCH, "bfloat16", 8, 1, TRAIN_MESH, ()),
-    "f32_mesh_1x8": (TRAIN_ARCH, "float32", 8, 1, (1, 8), ()),
-    "f32_heads_12_over_6": (TRAIN_ARCH, "float32", 8, 1, TRAIN_MESH,
-                            (("n_heads", 12), ("n_kv_heads", 6))),
-    "gemma2_f32": ("gemma2-9b", "float32", 8, 1, TRAIN_MESH, ()),
-    "olmo_f32": ("olmo-1b", "float32", 8, 1, TRAIN_MESH, ()),
-    "vision_f32": ("llama-3.2-vision-11b", "float32", 8, 1, TRAIN_MESH, ()),
-    "whisper_f32": ("whisper-small", "float32", 8, 1, TRAIN_MESH, ()),
-    "rwkv_f32": ("rwkv6-1.6b", "float32", 8, 1, TRAIN_MESH, (("rwkv_head_dim", 16),)),
-    "rwkv_heads_whole": ("rwkv6-1.6b", "float32", 8, 1, TRAIN_MESH, ()),
-    "griffin_f32": ("recurrentgemma-9b", "float32", 8, 1, TRAIN_MESH, ()),
-    "griffin_f32_1x8": ("recurrentgemma-9b", "float32", 8, 1, (1, 8), ()),
+    "f32": TrainCase(TRAIN_ARCH, "float32", 8, 1, TRAIN_MESH),
+    "f32_microbatches": TrainCase(TRAIN_ARCH, "float32", 8, 2, TRAIN_MESH),
+    "f32_batch_3": TrainCase(TRAIN_ARCH, "float32", 3, 1, TRAIN_MESH),
+    "bf16": TrainCase(TRAIN_ARCH, "bfloat16", 8, 1, TRAIN_MESH),
+    "f32_mesh_1x8": TrainCase(TRAIN_ARCH, "float32", 8, 1, (1, 8)),
+    "f32_heads_12_over_6": TrainCase(TRAIN_ARCH, "float32", 8, 1, TRAIN_MESH,
+                                     (("n_heads", 12), ("n_kv_heads", 6))),
+    "gemma2_f32": TrainCase("gemma2-9b", "float32", 8, 1, TRAIN_MESH),
+    "olmo_f32": TrainCase("olmo-1b", "float32", 8, 1, TRAIN_MESH),
+    "vision_f32": TrainCase("llama-3.2-vision-11b", "float32", 8, 1, TRAIN_MESH),
+    "whisper_f32": TrainCase("whisper-small", "float32", 8, 1, TRAIN_MESH),
+    "rwkv_f32": TrainCase("rwkv6-1.6b", "float32", 8, 1, TRAIN_MESH, (("rwkv_head_dim", 16),)),
+    "rwkv_heads_whole": TrainCase("rwkv6-1.6b", "float32", 8, 1, TRAIN_MESH),
+    "griffin_f32": TrainCase("recurrentgemma-9b", "float32", 8, 1, TRAIN_MESH),
+    "griffin_f32_1x8": TrainCase("recurrentgemma-9b", "float32", 8, 1, (1, 8)),
+    "f32_zero1_pod": TrainCase(TRAIN_ARCH, "float32", 8, 1, POD_MESH, axes=POD_AXES,
+                               opt_fsdp_axes=("pod", "data")),
+    "f32_no_fsdp": TrainCase(TRAIN_ARCH, "float32", 8, 1, TRAIN_MESH, fsdp=False),
+    "bf16_zero1_pod": TrainCase(TRAIN_ARCH, "bfloat16", 8, 1, POD_MESH, axes=POD_AXES,
+                                opt_fsdp_axes=("pod", "data")),
 }
 TRAIN_SEQ = 32
 # f32 bound of the blocks after the two steps, of a leaf's largest magnitude.
@@ -104,7 +133,7 @@ RWKV_F32_TOL = 1e-3
 
 def block_tol(case: str) -> float:
     """The f32 bound of a train case's blocks (see ``RWKV_F32_TOL``)."""
-    return RWKV_F32_TOL if TRAIN_CASES[case][0] == "rwkv6-1.6b" else F32_TOL
+    return RWKV_F32_TOL if TRAIN_CASES[case].arch == "rwkv6-1.6b" else F32_TOL
 
 
 def moe_config(case: str):
@@ -126,17 +155,17 @@ def moe_train_run():
 def train_config(case: str):
     from repro_torch.configs import smoke_config
 
-    arch, dtype, *_, changes = TRAIN_CASES[case]
-    return dataclasses.replace(smoke_config(arch), dtype=dtype, **dict(changes))
+    c = TRAIN_CASES[case]
+    return dataclasses.replace(smoke_config(c.arch), dtype=c.dtype, **dict(c.changes))
 
 
 def train_run(case: str):
     from repro_torch.configs.base import RunConfig
 
-    _, _, batch, micro, _, _ = TRAIN_CASES[case]
-    return RunConfig(model=train_config(case), seq_len=TRAIN_SEQ, global_batch=batch,
-                     n_microbatches=micro, remat=False, warmup_steps=1, total_steps=10,
-                     learning_rate=1e-3)
+    c = TRAIN_CASES[case]
+    return RunConfig(model=train_config(case), seq_len=TRAIN_SEQ, global_batch=c.batch,
+                     n_microbatches=c.microbatches, remat=False, warmup_steps=1,
+                     total_steps=10, learning_rate=1e-3)
 
 
 def moe_inputs(seed: int = 0) -> dict:
@@ -288,25 +317,32 @@ def train_program(device: torch.device, inputs: dict,
     first step (``"step_collectives"``) and of a forward pass on the
     step's compute tensors (``"forward_collectives"``), and the ranks of
     this rank's model group."""
-    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.mesh import dp_axes_of, make_mesh
     from repro_torch.models.convert import tree_map, tree_map2
     from repro_torch.models.steps import train_step
     from repro_torch.models.transformer import DistContext, batch_slot, forward, param_shapes
-    from repro_torch.optim import init_state
-    from repro_torch.sharding.specs import compute_shardings, param_shardings
+    from repro_torch.sharding.specs import (
+        compute_shardings,
+        init_opt_blocks,
+        opt_shardings,
+        param_shardings,
+    )
 
     meshes = {}
     out = {}
     for case in cases or TRAIN_CASES:
-        _, _, batch, _, dims, _ = TRAIN_CASES[case]
-        if dims not in meshes:
-            meshes[dims] = make_mesh(dims, ("data", "model"), device.type)
-        mesh = meshes[dims]
-        dist = DistContext(mesh=mesh, dp_axes=("data",))
+        spec = TRAIN_CASES[case]
+        batch = spec.batch
+        if (spec.mesh, spec.axes) not in meshes:
+            meshes[spec.mesh, spec.axes] = make_mesh(spec.mesh, spec.axes, device.type)
+        mesh = meshes[spec.mesh, spec.axes]
+        dist = DistContext(mesh=mesh, dp_axes=dp_axes_of(mesh))
         cfg = train_config(case)
-        sh = param_shardings(param_shapes(cfg), mesh)
+        shapes = param_shapes(cfg)
+        sh = param_shardings(shapes, mesh, fsdp=spec.fsdp)
+        o_sh = opt_shardings(shapes, mesh, fsdp=True, fsdp_axes=spec.opt_fsdp_axes)
         blocks = tree_map2(lambda s, t: s.shard(t.to(device)), sh, inputs["params"][case])
-        opt = init_state(blocks)
+        opt = init_opt_blocks(o_sh, shapes, device)
         metrics, seen = [], None
         fronts = inputs.get("frontends", {}).get(case)
         for i, toks in enumerate(inputs["tokens"][:, :batch]):
@@ -314,7 +350,8 @@ def train_program(device: torch.device, inputs: dict,
             if fronts is not None:
                 batch_in["frontend"] = batch_slot(dist, fronts[i, :batch].to(device))
             (blocks, opt, m), got = observed(train_step, cfg, train_run(case), blocks, opt,
-                                             batch_in, dist=dist, shardings=sh)
+                                             batch_in, dist=dist, shardings=sh,
+                                             opt_shardings=o_sh)
             seen = got if seen is None else seen
             metrics.append({k: float(v) for k, v in m.items()})
         plan = compute_shardings(sh, gated=cfg.gated)
@@ -328,7 +365,63 @@ def train_program(device: torch.device, inputs: dict,
                      "step_collectives": seen, "forward_collectives": fwd,
                      "model_ranks": tuple(torch.distributed.get_process_group_ranks(
                          mesh.get_group("model")))}
+        if "pod" in spec.opt_fsdp_axes:
+            out[case]["odd_leaf"] = odd_leaf_program(device, mesh, spec.opt_fsdp_axes)
     return out
+
+
+# a leaf whose rows divide "data" (2) but not "pod" x "data" (4): under
+# ZeRO-1 its moments stay whole while the parameter is split.  RWKV's
+# decay_A has the one FSDP dim and is computed whole; two AdamW steps on
+# gradients drawn from a seed (the same on every rank, as if reduced)
+ODD_LEAF_PATH, ODD_LEAF_SHAPE, ODD_LEAF_STEPS = "tm_cm/decay_A", (6, 8), 2
+ODD_LEAF_ADAMW = dict(lr=1e-2, weight_decay=0.1)
+
+
+def odd_leaf_inputs(seed: int = 0) -> tuple:
+    """(the odd leaf's whole f32 value, its gradient of each step)."""
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal(ODD_LEAF_SHAPE, dtype=np.float32)
+    g = rng.standard_normal((ODD_LEAF_STEPS,) + ODD_LEAF_SHAPE, dtype=np.float32)
+    return torch.from_numpy(w), torch.from_numpy(g)
+
+
+def odd_leaf_program(device: torch.device, mesh, opt_fsdp_axes) -> dict:
+    """The odd leaf (:data:`ODD_LEAF_SHAPE`) stored by ``param_shardings``
+    over "data", its moments by ``opt_shardings`` over ``opt_fsdp_axes``,
+    through the sharded step's block path (``steps.moment_values``,
+    ``optim.adamw.apply_updates``, ``steps.gather_back``) for
+    :data:`ODD_LEAF_STEPS` steps: this rank's parameter block, its moment
+    blocks and the specs of both."""
+    from repro_torch.models.convert import tree_leaves
+    from repro_torch.models.steps import gather_back, moment_values
+    from repro_torch.optim import adamw
+    from repro_torch.sharding.specs import (
+        compute_shardings,
+        init_opt_blocks,
+        moment_compute_shardings,
+        opt_shardings,
+        param_shardings,
+    )
+
+    path, leaf = ODD_LEAF_PATH.split("/")
+    shapes = {path: {leaf: torch.empty(ODD_LEAF_SHAPE, device="meta")}}
+    sh = param_shardings(shapes, mesh)
+    o_sh = opt_shardings(shapes, mesh, fsdp=True, fsdp_axes=opt_fsdp_axes)
+    plan = tree_leaves(compute_shardings(sh, gated=False))
+    o_plan = tree_leaves(moment_compute_shardings(o_sh, sh, gated=False))
+    whole, grads = odd_leaf_inputs()
+    block = plan[0].storage.shard(whole.to(device))
+    opt = init_opt_blocks(o_sh, shapes, device)
+    for g in grads:
+        at = moment_values(o_plan, plan, [plan[0].to_compute(block)], [block])
+        adamw.apply_updates(adamw.AdamWConfig(**ODD_LEAF_ADAMW), at,
+                            [o_plan[0].to_storage(g.to(device))], opt)
+        gather_back(o_plan, plan, at, [block])
+    host = lambda t: t.detach().float().cpu()  # noqa: E731
+    return {"param": host(block), "mu": host(tree_leaves(opt.mu)[0]),
+            "nu": host(tree_leaves(opt.nu)[0]), "param_spec": tuple(plan[0].storage.spec),
+            "moment_spec": tuple(o_plan[0].storage.spec)}
 
 
 
@@ -600,7 +693,7 @@ def compare_train(card: list, host: list) -> tuple:
     worst, bad = {}, []
     for r, (c_rank, h_rank) in enumerate(zip(card, host)):
         for case in c_rank:
-            dtype = TRAIN_CASES[case][1]
+            dtype = TRAIN_CASES[case].dtype
             c, h = c_rank[case], h_rank[case]
             gap, loss = _blocks_gap(c, h), _loss_gap(c, h)
             worst[case] = max(worst.get(case, 0.0), gap)

@@ -35,6 +35,9 @@ whose products split over "model" (``SPLIT_COMPUTE``: self- and
 cross-attention, the dense MLP, RWKV's time-mix and channel-mix, the
 RG-LRU block, the vocabulary; ``sharding.tp``) keep their model block and are gathered over
 their other axes only; every other leaf is gathered whole.
+``moment_compute_shardings`` does the same for AdamW moments stored on
+other FSDP axes than their parameters (ZeRO-1), and refuses moments that
+would compute in another layout.
 """
 from __future__ import annotations
 
@@ -454,6 +457,40 @@ def compute_shardings(shardings: Any, *, gated: bool, model_axis: str = "model",
     return map_with_path(one, shardings)
 
 
+def _compute_layout(c: ComputeSharding) -> tuple:
+    """What the compute tensor of ``c`` keeps split: each dim's storage axes
+    that the gather leaves, and whether the gated exchange applies."""
+    return (tuple(tuple(a for a in _entry_axes(s) if a not in _entry_axes(g))
+                  for s, g in zip(c.storage.spec, c.gather.spec)), c.exchange)
+
+
+def moment_compute_shardings(opt_sh: Any, shardings: Any, *, gated: bool,
+                             model_axis: str = "model"):
+    """``compute_shardings`` of the AdamW moments (``opt_sh``: an
+    ``AdamWState`` of shardings, or the moments' tree) stored apart from the
+    parameters (``shardings``), as under ZeRO-1 (``--opt-fsdp-axes``) or
+    ``--no-fsdp``: its ``to_storage`` cuts a moment block out of a
+    compute-layout tensor and its ``to_compute`` gathers one back.  Only
+    the FSDP axes may differ: raises a ``ValueError`` naming the leaf whose
+    moments would compute in another layout than its parameter (another
+    model block or another exchange)."""
+    mu = getattr(opt_sh, "mu", opt_sh)
+    plan = compute_shardings(mu, gated=gated, model_axis=model_axis)
+    params: Dict[str, ComputeSharding] = {}
+    map_with_path(params.__setitem__,
+                  compute_shardings(shardings, gated=gated, model_axis=model_axis))
+
+    def check(path: str, c: ComputeSharding) -> None:
+        if _compute_layout(c) != _compute_layout(params[path]):
+            raise ValueError(
+                f"{path}: the moments ({c.storage.spec}) compute as "
+                f"{_compute_layout(c)}, the parameter ({params[path].storage.spec}) as "
+                f"{_compute_layout(params[path])}; only their FSDP axes may differ")
+
+    map_with_path(check, plan)
+    return plan
+
+
 # --------------------------------------------------------------------------
 # Optimizer state: moments shard like params; step is replicated.
 # --------------------------------------------------------------------------
@@ -463,6 +500,22 @@ def opt_shardings(params_shape, mesh, **kw):
 
     p_sh = param_shardings(params_shape, mesh, **kw)
     return AdamWState(step=Sharding(mesh, P()), mu=p_sh, nu=p_sh)
+
+
+def init_opt_blocks(opt_sh, params_shape, device):
+    """A fresh AdamW state of this rank's blocks by ``opt_sh``
+    (``opt_shardings``'s) on ``device``: f32 zero moments, step 0.  On the
+    meta device nothing is allocated."""
+    from repro_torch.models.convert import tree_map2
+    from repro_torch.optim.adamw import AdamWState
+
+    def zeros(s: Sharding, t) -> torch.Tensor:
+        shape = s.block(torch.empty(tuple(t.shape), device="meta")).shape
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+
+    return AdamWState(step=torch.zeros((), dtype=torch.int32, device=device),
+                      mu=tree_map2(zeros, opt_sh.mu, params_shape),
+                      nu=tree_map2(zeros, opt_sh.nu, params_shape))
 
 
 # --------------------------------------------------------------------------

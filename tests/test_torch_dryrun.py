@@ -13,8 +13,11 @@ recurrentgemma-9b's and rwkv6-1.6b's ``long_500k`` against the
 reference's own dry-run (both split the products over "model", and at
 ``long_500k``'s batch of 1 over "data" too: the FSDP blocks and the caches'
 sequence chunks); the
-collective tiers of a training cell on one pod and on two; and the failure
-and ``--skip-existing`` handling.
+collective tiers of a training cell on one pod and on two; the argument
+bytes and ``dot_flops`` of llama3.2-1b's ``train_4k`` with the AdamW
+moments on their own FSDP axes (``--opt-fsdp-axes pod+data`` on
+``multi``, ``--no-fsdp`` on ``single``) against the reference's; and the
+failure and ``--skip-existing`` handling.
 """
 import importlib.util
 import json
@@ -72,15 +75,23 @@ GRIFFIN_CELLS = [("recurrentgemma-9b", "decode_32k", "single"),
 # the reference's GSPMD splits it, in a third pair of subprocesses
 LONG_CELLS = [("gemma2-9b", "long_500k", "single"), ("recurrentgemma-9b", "long_500k", "single"),
               ("rwkv6-1.6b", "long_500k", "single")]
+# the AdamW moments on their own FSDP axes, in a fourth pair: ZeRO-1 over
+# "pod" (the moments over "pod" x "data") and --no-fsdp (whole parameters,
+# the moments over "data"); (arch, shape, mesh, tag, flags)
+ZERO1_CELLS = [("llama3.2-1b", "train_4k", "multi", "zero1", ["--opt-fsdp-axes", "pod+data"]),
+               ("llama3.2-1b", "train_4k", "single", "nofsdp", ["--no-fsdp"])]
 
-# one package's dry-run of FLOP_CELLS, its CLI in one process; {pkg} is
-# repro or repro_torch (the reference's main reads sys.argv)
+# one package's dry-run of FLOP_CELLS (or of ZERO1_CELLS, with their tags
+# and flags), its CLI in one process; {pkg} is repro or repro_torch (the
+# reference's main reads sys.argv)
 _FLOP_CELLS = """
 import json, sys
 from {pkg}.launch import dryrun
 out, cells = sys.argv[1], json.loads(sys.argv[2])
-for arch, shape, mesh in cells:
-    sys.argv = ["dryrun", "--arch", arch, "--shape", shape, "--mesh", mesh, "--out", out]
+for arch, shape, mesh, *variant in cells:
+    tag, flags = variant or ("baseline", [])
+    sys.argv = ["dryrun", "--arch", arch, "--shape", shape, "--mesh", mesh, "--out", out,
+                "--tag", tag, *flags]
     dryrun.main()
 """
 
@@ -151,6 +162,10 @@ def runs(tmp_path_factory):
                                   json.dumps(LONG_CELLS)]),
         "port_flops_long": _start(["-c", _FLOP_CELLS.format(pkg="repro_torch"),
                                    str(tmp / "port"), json.dumps(LONG_CELLS)]),
+        "ref_zero1": _start(["-c", _FLOP_CELLS.format(pkg="repro"), str(tmp / "ref"),
+                             json.dumps(ZERO1_CELLS)]),
+        "port_zero1": _start(["-c", _FLOP_CELLS.format(pkg="repro_torch"), str(tmp / "port"),
+                              json.dumps(ZERO1_CELLS)]),
     }
     try:
         done = {name: _finish(p) for name, p in procs.items()}
@@ -280,6 +295,39 @@ def test_train_collectives_cross_pods_only_on_two(runs):
     assert single["hlo_cost"]["collective_ici_bytes"] > 0
     assert multi["hlo_cost"]["collectives"]["all-reduce"]["dcn_bytes"] > 0
     assert multi["memory"]["alias_bytes"] > 0  # weights and moments updated in place
+
+
+@pytest.mark.parametrize("cell", ZERO1_CELLS, ids=[c[3] for c in ZERO1_CELLS])
+def test_moments_on_their_own_axes_hold_the_reference_s_bytes_and_flops(runs, cell):
+    """llama3.2-1b train_4k with the AdamW moments on their own FSDP axes
+    (ZeRO-1 over "pod" on ``multi``, ``--no-fsdp`` on ``single``): the
+    rank's arguments take the reference's bytes exactly (parameters by
+    their rules, moments by the FSDP rules on their axes) and its dot
+    FLOPs are the reference's."""
+    tmp, done = runs
+    _ok(done["ref_zero1"])
+    _ok(done["port_zero1"])
+    name = "__".join(cell[:4]) + ".json"
+    ref, port = _record(tmp / "ref" / name), _record(tmp / "port" / name)
+    assert ref["ok"] is True and port["ok"] is True
+    assert port["memory"]["argument_bytes"] == ref["memory"]["argument_bytes"]
+    assert port["hlo_cost"]["dot_flops"] == ref["hlo_cost"]["dot_flops"]
+
+
+def test_zero1_gathers_the_parameters_back_across_pods(runs):
+    """Under ZeRO-1 each rank holds and updates its block of the moments
+    split over "pod" x "data", then all-gathers the updated values over
+    that group, across the pods: its argument bytes fall below the default
+    cell's and its DCN bytes, the all-gathers' among them, exceed them."""
+    tmp, done = runs
+    _ok(done["port_flops"])
+    _ok(done["port_zero1"])
+    zero1 = _record(tmp / "port" / "llama3.2-1b__train_4k__multi__zero1.json")
+    base = _record(tmp / "port" / "llama3.2-1b__train_4k__multi__baseline.json")
+    assert zero1["memory"]["argument_bytes"] < base["memory"]["argument_bytes"]
+    assert (zero1["hlo_cost"]["collectives"]["all-gather"]["dcn_bytes"]
+            > base["hlo_cost"]["collectives"].get("all-gather", {}).get("dcn_bytes", 0))
+    assert zero1["hlo_cost"]["collective_dcn_bytes"] > base["hlo_cost"]["collective_dcn_bytes"]
 
 
 def test_failure_and_skip_existing(runs):

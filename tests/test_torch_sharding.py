@@ -10,8 +10,10 @@ at the mesh's model axis.  Meshes are axis sizes: a ``{axis: size}``
 mapping for the port, a ``jax.sharding.AbstractMesh`` for the reference's
 ``NamedSharding`` trees.  The same holds for ``opt_shardings``,
 ``cache_shardings`` (the caches of ``init_caches`` at B=4 and B=1),
-``batch_sharding`` and ``tp_adapt`` at tp 2, 4, 8 and 16.  ``Sharding``'s
-``shard`` cuts each rank's block; the expert-parallel layer's refusal of
+``batch_sharding`` and ``tp_adapt`` at tp 2, 4, 8 and 16, and for the
+moments on their own FSDP axes (ZeRO-1 over "pod", ``--no-fsdp``), whose
+compute layout must be their parameters' (``moment_compute_shardings``).
+``Sharding``'s ``shard`` cuts each rank's block; the expert-parallel layer's refusal of
 the layouts ``tp_adapt`` gives where the expert count is a multiple of the
 model axis is held for both packages (the reference's own failure is in
 ``test_torch_moe_ep.py``).
@@ -122,6 +124,61 @@ def test_param_and_opt_shardings_trees_match(arch, dims):
         assert sorted(jp) == sorted(tp)
         for path in jp:
             assert _norm(tp[path].spec) == _norm(jp[path].spec), path
+
+
+# the moments on their own FSDP axes, as the reference's dry-run lays them
+# out: (mesh, the parameters' fsdp flag, the moments' FSDP axes)
+OWN_AXES = {"zero1_pod": ((2, 16, 16), True, ("pod", "data")),
+            "no_fsdp": ((16, 16), False, ("data",)),
+            "no_fsdp_multi": ((2, 16, 16), False, ("data",))}
+
+
+@pytest.mark.parametrize("layout", list(OWN_AXES))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_opt_shardings_on_their_own_axes_match(arch, layout):
+    """``opt_shardings(fsdp=True, fsdp_axes=...)`` beside
+    ``param_shardings(fsdp=...)``, as the reference's dry-run builds them
+    for ``--opt-fsdp-axes pod+data`` and for ``--no-fsdp``: the same spec
+    at every path as the reference's, and moments whose compute layout is
+    their parameters' (``moment_compute_shardings`` accepts them)."""
+    dims, fsdp, axes = OWN_AXES[layout]
+    sizes = dict(zip(_names(dims), dims))
+    _, (tc, _), jshape, tshape = _shapes(arch, sizes["model"])
+    amesh = AbstractMesh(dims, _names(dims))
+    jopt = jspecs.opt_shardings(jshape, amesh, fsdp=True, fsdp_axes=axes)
+    topt = tspecs.opt_shardings(tshape, sizes, fsdp=True, fsdp_axes=axes)
+    tparams = tspecs.param_shardings(tshape, sizes, fsdp=fsdp)
+    for jtree, ttree in ((jspecs.param_shardings(jshape, amesh, fsdp=fsdp), tparams),
+                         (jopt.mu, topt.mu), (jopt.nu, topt.nu)):
+        jp, tp = _jax_paths(jtree), _port_paths(ttree)
+        assert sorted(jp) == sorted(tp)
+        for path in jp:
+            assert _norm(tp[path].spec) == _norm(jp[path].spec), path
+    plan = _port_paths(tspecs.moment_compute_shardings(topt, tparams, gated=tc.gated))
+    params = _port_paths(tparams)
+    assert any(plan[path].storage.spec != params[path].spec for path in plan)
+
+
+def test_moments_in_another_model_layout_are_refused():
+    """Moments whose compute layout is not their parameter's (here one
+    attention projection's moments left whole over "model") raise a
+    ValueError naming the leaf; moments on other FSDP axes do not."""
+    cfg = tcfgs.smoke_config("llama3.2-1b")
+    sizes = {"pod": 2, "data": 2, "model": 2}
+    shapes = ttf.param_shapes(cfg)
+    p_sh = tspecs.param_shardings(shapes, sizes)
+    o_sh = tspecs.opt_shardings(shapes, sizes, fsdp=True, fsdp_axes=("pod", "data"))
+    tspecs.moment_compute_shardings(o_sh, p_sh, gated=cfg.gated)
+
+    def whole_wq(path, s):
+        if path.endswith("attn/wq"):
+            return tspecs.Sharding(s.mesh, tspecs.P(*(None if e == "model" else e
+                                                      for e in s.spec)))
+        return s
+
+    bad = tspecs.map_with_path(whole_wq, o_sh.mu)
+    with pytest.raises(ValueError, match="groups/0/0/attn/wq: the moments"):
+        tspecs.moment_compute_shardings(bad, p_sh, gated=cfg.gated)
 
 
 def _cut(cfg):

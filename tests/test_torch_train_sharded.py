@@ -1,5 +1,6 @@
 """The sharded train step on an 8-process gloo world (mesh (2, 4), data x
-model, and two cases on (1, 8)), as the reference's
+model, two cases on (1, 8) and two on (2, 2, 2), pod x data x model), as
+the reference's
 ``sharded_train_step_matches`` check (``tests/_multidevice_checks.py``):
 smoke llama, gemma2, olmo, llama-vision, whisper, rwkv6 (8 heads of 16,
 and its own 2 heads of 64, which do not split 4 ways) and recurrentgemma
@@ -13,24 +14,31 @@ warmup 1, the second moving the weights).  The compute splits over
 "model" as the reference's GSPMD splits it (``sharding.tp``).
 
 Every rank ends with its block (by ``param_shardings``) of the parameters
-and AdamW moments the single-device ``train_step`` computes: the port's and
-the reference's at 1e-4 of each leaf's largest magnitude in f32 (RWKV's at
-``checks.RWKV_F32_TOL``, where Adam's second step magnifies its f32
-rounding; the layers on blocks hold 1e-4 in ``test_torch_tp.py``), with one
-microbatch, with two, with a batch of 3 that the data axes do not divide
-(every rank then trains on the whole batch), with whole KV heads beside
-split query heads, and on (1, 8); each step's loss and global gradient
-norm to 1e-4.  In bf16 every rank's blocks are held to the reference's own
+and AdamW moments the single-device ``train_step`` computes: the port's
+and the reference's at 1e-4 of each leaf's largest magnitude in f32
+(RWKV's at ``checks.RWKV_F32_TOL``, where Adam's second step magnifies its
+f32 rounding; the layers on blocks hold 1e-4 in ``test_torch_tp.py``),
+with one microbatch, with two, with a batch of 3 that the data axes do not
+divide (every rank then trains on the whole batch), with whole KV heads
+beside split query heads, and on (1, 8); each step's loss and global
+gradient norm to 1e-4.  The moments on their own FSDP axes, as the
+reference's dry-run lays them out: ZeRO-1 (``opt_fsdp_axes`` "pod" x
+"data" beside parameters over "data") and ``--no-fsdp`` (whole parameters,
+moments over "data"), each rank's moments cut by the case's
+``opt_shardings``; a (6, 8) leaf that splits over "data" but not over
+"pod" x "data" keeps whole moments, held to one device's AdamW.  In bf16
+(with ZeRO-1 too) every rank's blocks are held to the reference's own
 single-device step at the reference's tolerances (loss 2e-2, parameters
 0.15).  Through ``comms.routes.observer``: the only all-gathers over a
 model group are RWKV's channel-mix's (forward and backward), and a forward
 pass makes one all-reduce over "model" for each split self- or
-cross-attention block, each split MLP and each split RG-LRU block, two
-for each split RWKV
-time-mix, a reduce-scatter and an all-gather for each split channel-mix,
-and one all-reduce for the embedding.  ``launch.train.main`` with ``--mesh-shape 2,2`` prints the
-reference's lines once (rank 0), and resumes from its own checkpoint on
-the same mesh.
+cross-attention block, each split MLP and each split RG-LRU block, two for
+each split RWKV time-mix, a reduce-scatter and an all-gather for each
+split channel-mix, and one all-reduce for the embedding; a step's
+all-gathers over the other groups are its compute gathers and, where the
+moments lie apart, one a split dim of each moment block written back.
+``launch.train.main`` with ``--mesh-shape 2,2`` prints the reference's
+lines once (rank 0), and resumes from its own checkpoint on the same mesh.
 """
 import collections
 import dataclasses
@@ -62,27 +70,39 @@ from repro_torch.models.steps import train_step
 from repro_torch.models.transformer import param_shapes
 from repro_torch.optim import init_state
 from repro_torch.sharding import checks
-from repro_torch.sharding.specs import compute_shardings, param_shardings
+from repro_torch.optim import adamw
+from repro_torch.sharding.specs import compute_shardings, opt_shardings, param_shardings
 
 torch.set_num_threads(1)
 
 WORLD_TIMEOUT = 300.0
-F32 = [c for c, v in checks.TRAIN_CASES.items() if v[1] == "float32"]
+F32 = [c for c, v in checks.TRAIN_CASES.items() if v.dtype == "float32"]
 TOL = 1e-4
 
 
 def _mesh(case: str) -> dict:
-    return dict(zip(("data", "model"), checks.TRAIN_CASES[case][4]))
+    spec = checks.TRAIN_CASES[case]
+    return dict(zip(spec.axes, spec.mesh))
 
 
 def _coord(case: str, rank: int) -> dict:
-    m = _mesh(case)["model"]
-    return {"data": rank // m, "model": rank % m}
+    spec = checks.TRAIN_CASES[case]
+    return {a: int(i) for a, i in zip(spec.axes, np.unravel_index(rank, spec.mesh))}
+
+
+def _group(case: str, rank: int, axes) -> tuple:
+    """The global ranks of ``rank``'s group over ``axes``, ascending."""
+    spec = checks.TRAIN_CASES[case]
+    grid = np.arange(checks.WORLD).reshape(spec.mesh)
+    coord = np.unravel_index(rank, spec.mesh)
+    idx = tuple(slice(None) if a in axes else int(i) for a, i in zip(spec.axes, coord))
+    return tuple(int(x) for x in np.sort(grid[idx].reshape(-1)))
 
 
 def _jax_config(case: str):
-    arch, dtype, *_, changes = checks.TRAIN_CASES[case]
-    return dataclasses.replace(jcfgs.smoke_config(arch), dtype=dtype, **dict(changes))
+    spec = checks.TRAIN_CASES[case]
+    return dataclasses.replace(jcfgs.smoke_config(spec.arch), dtype=spec.dtype,
+                               **dict(spec.changes))
 
 
 @functools.lru_cache(maxsize=None)
@@ -96,7 +116,7 @@ def _jax_params(case: str):
 
 def _jax_batch(inputs: dict, case: str, step: int) -> dict:
     """Step ``step``'s batch of a case for the reference's step."""
-    batch = checks.TRAIN_CASES[case][2]
+    batch = checks.TRAIN_CASES[case].batch
     out = {"tokens": jnp.asarray(np.asarray(inputs["tokens"][step, :batch]))}
     if case in inputs["frontends"]:
         out["frontend"] = jnp.asarray(inputs["frontends"][case][step, :batch].numpy())
@@ -116,9 +136,20 @@ def world():
                              timeout=WORLD_TIMEOUT)
 
 
-def _blocks(case: str, tree, rank: int):
-    sh = param_shardings(param_shapes(checks.train_config(case)), _mesh(case))
-    return tree_map2(lambda s, t: s.shard(t, coord=_coord(case, rank)), sh, tree)
+def _shardings(case: str, moments: bool = False):
+    """A case's parameter shardings, or (``moments``) its moments'."""
+    spec = checks.TRAIN_CASES[case]
+    shapes = param_shapes(checks.train_config(case))
+    if moments:
+        return opt_shardings(shapes, _mesh(case), fsdp=True, fsdp_axes=spec.opt_fsdp_axes).mu
+    return param_shardings(shapes, _mesh(case), fsdp=spec.fsdp)
+
+
+def _blocks(case: str, tree, rank: int, moments: bool = False):
+    """Rank ``rank``'s blocks of a whole tree: by the case's parameter
+    shardings, or (``moments``) by its moments'."""
+    return tree_map2(lambda s, t: s.shard(t, coord=_coord(case, rank)),
+                     _shardings(case, moments), tree)
 
 
 def _rel(got, want) -> float:
@@ -130,7 +161,7 @@ def _rel(got, want) -> float:
 def _single_device(case: str, inputs: dict):
     """The port's single-device steps on the same weights and batches."""
     cfg, run = checks.train_config(case), checks.train_run(case)
-    batch = checks.TRAIN_CASES[case][2]
+    batch = checks.TRAIN_CASES[case].batch
     params = tree_map(torch.clone, inputs["params"][case])
     opt = init_state(params)
     metrics = []
@@ -155,7 +186,7 @@ def test_each_rank_holds_its_block_of_the_single_device_step(world, case):
                 want = metrics[step][k]
                 assert abs(got["metrics"][step][k] - want) <= TOL * max(abs(want), 1.0), (r, k)
         for name, tree in (("params", params), ("mu", opt.mu), ("nu", opt.nu)):
-            want = tree_leaves(_blocks(case, tree, r))
+            want = tree_leaves(_blocks(case, tree, r, moments=name != "params"))
             have = tree_leaves(got[name])
             assert len(want) == len(have)
             for w, h in zip(want, have):
@@ -178,8 +209,18 @@ def test_blocks_split_the_layers(world):
 def test_bf16_blocks_hold_the_references_single_device_step(world):
     """The reference's own check: loss within 2e-2 and every parameter
     within 0.15 of its single-device bf16 step, here each rank's blocks."""
+    _hold_the_references_bf16_step(world, "bf16")
+
+
+def test_bf16_zero1_blocks_hold_the_references_single_device_step(world):
+    """The same check under ZeRO-1 on (2, 2, 2): the moments over "pod" x
+    "data", the bf16 parameters over "data", each updated on the rank's
+    moment block and gathered back."""
+    _hold_the_references_bf16_step(world, "bf16_zero1_pod")
+
+
+def _hold_the_references_bf16_step(world, case: str) -> None:
     inputs, port = world
-    case = "bf16"
     jc = _jax_config(case)
     t_run = checks.train_run(case)
     jr = JRunConfig(model=jc, **{f.name: getattr(t_run, f.name)
@@ -224,7 +265,8 @@ def test_each_rank_holds_its_block_of_the_reference_s_step(world, case):
             for k, v in want.items():
                 assert abs(got["metrics"][s][k] - v) <= TOL * max(abs(v), 1.0), (r, s, k)
         for name, tree in (("params", jp), ("mu", jo.mu), ("nu", jo.nu)):
-            for w, h in zip(tree_leaves(_blocks(case, f32(tree), r)), tree_leaves(got[name])):
+            blocks = _blocks(case, f32(tree), r, moments=name != "params")
+            for w, h in zip(tree_leaves(blocks), tree_leaves(got[name])):
                 assert _rel(h, w.numpy()) <= checks.block_tol(case), (r, name, tuple(w.shape))
 
 
@@ -252,9 +294,21 @@ def _model_collectives(case: str) -> tuple:
     # the leaves stored split over "model" but computed whole (whisper's
     # learned positions; an RWKV layer whose heads do not divide the axis)
     # are gathered over it once a step
-    plan = compute_shardings(param_shardings(param_shapes(cfg), _mesh(case)), gated=cfg.gated)
+    plan = compute_shardings(_shardings(case), gated=cfg.gated)
     whole = sum("model" in tree_leaves(c.gather.spec) for c in tree_leaves(plan))
-    return +want, 2 * rwkv_layers + whole
+    return +want, 2 * rwkv_layers + whole + _moment_gathers(case)["model"]
+
+
+def _moment_gathers(case: str) -> collections.Counter:
+    """The all-gathers by axes with which a step writes the updated values at
+    the moment blocks back into the parameter blocks: one over each split
+    dim's axes of each leaf whose moments lie apart from its parameter."""
+    cfg = checks.train_config(case)
+    plan = tree_leaves(compute_shardings(_shardings(case), gated=cfg.gated))
+    o_plan = tree_leaves(compute_shardings(_shardings(case, moments=True), gated=cfg.gated))
+    return collections.Counter(
+        e if isinstance(e, str) else tuple(e) for o, c in zip(o_plan, plan)
+        if o.storage.spec != c.storage.spec for e in o.gather.spec if e)
 
 
 @pytest.mark.parametrize("case", list(checks.TRAIN_CASES))
@@ -277,6 +331,56 @@ def test_split_compute_collectives(world, case):
         assert (len(gathers) > step_gathers) == (_mesh(case)["data"] > 1)  # FSDP over "data"
         over_model = [op for op, _, ranks in got["forward_collectives"] if ranks == model]
         assert collections.Counter(over_model) == want, (r, over_model)
+
+
+@pytest.mark.parametrize("case", list(checks.TRAIN_CASES))
+def test_step_gathers_the_moment_blocks_back(world, case):
+    """A step's all-gathers over other groups than "model" are one a split
+    dim of each leaf for compute and, where the moments lie apart from the
+    parameters (ZeRO-1 and ``--no-fsdp``), one a split dim of each moment
+    block to write the updated values back.  Under ZeRO-1 those go over
+    the pod x data group; a case whose moments are the parameters' layout
+    makes none."""
+    _, port = world
+    spec = checks.TRAIN_CASES[case]
+    cfg = checks.train_config(case)
+    plan = tree_leaves(compute_shardings(_shardings(case), gated=cfg.gated))
+    back = _moment_gathers(case)
+    by_axes = collections.Counter(e if isinstance(e, str) else tuple(e)
+                                  for c in plan for e in c.gather.spec if e) + back
+    zero1 = "pod" in spec.opt_fsdp_axes
+    assert (back[("pod", "data")] > 0) == zero1
+    assert bool(back) == (zero1 or not spec.fsdp)
+    for r in range(checks.WORLD):
+        want = collections.Counter({_group(case, r, (a,) if isinstance(a, str) else a): n
+                                    for a, n in by_axes.items() if a != "model"})
+        model = tuple(sorted(port[r][case]["model_ranks"]))
+        got = collections.Counter(tuple(sorted(ranks))
+                                  for op, _, ranks in port[r][case]["step_collectives"]
+                                  if op == "all_gather" and tuple(sorted(ranks)) != model)
+        assert got == want, (r, got, want)
+
+
+def test_moments_stay_whole_where_their_axes_do_not_divide(world):
+    """Under ZeRO-1 a (6, 8) leaf splits over "data" (2) but its moments,
+    over "pod" x "data" (4), stay whole: two AdamW steps through the
+    sharded step's block path leave each rank with its parameter block and
+    the whole moments of the single-device update, at 1e-4."""
+    _, port = world
+    w, grads = checks.odd_leaf_inputs()
+    p = w.clone()
+    opt = adamw.init_state([p])
+    for g in grads:
+        adamw.apply_updates(adamw.AdamWConfig(**checks.ODD_LEAF_ADAMW), [p], [g], opt)
+    for case in ("f32_zero1_pod", "bf16_zero1_pod"):
+        for r in range(checks.WORLD):
+            got = port[r][case]["odd_leaf"]
+            assert got["param_spec"] == ("data", None) and got["moment_spec"] == (None, None)
+            rows = w.shape[0] // 2
+            block = p[_coord(case, r)["data"] * rows:][:rows]
+            assert _rel(got["param"], block.numpy()) <= TOL, (case, r)
+            assert _rel(got["mu"], opt.mu[0].numpy()) <= TOL, (case, r)
+            assert _rel(got["nu"], opt.nu[0].numpy()) <= TOL, (case, r)
 
 
 ARGS = ["--smoke", "--device", "cpu", "--steps", "2", "--batch", "4", "--seq", "16",
