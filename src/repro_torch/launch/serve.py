@@ -286,9 +286,10 @@ def run(cfg, *, batch: int, prompt_len: int, new_tokens: int, seed: int, device,
     print(f"[serve] per-step plan: {collective}")
     if steps.capture_seconds > 0.0:
         metrics.observe("serve.decode.first_step.seconds", steps.first_step_seconds)
+        metrics.observe("serve.decode.warmup.seconds", steps.warmup_seconds)
         metrics.observe("serve.decode.capture.seconds", steps.capture_seconds)
         print(f"[serve] decode step captured as one CUDA graph in {steps.capture_seconds:.3f}s; "
-              f"step 0 (its eager warm-up) and the capture took "
+              f"step 0 (its eager warm-up, {steps.warmup_seconds:.3f}s) and the capture took "
               f"{steps.first_step_seconds:.3f}s, steps 1..{N - 1} replay it")
         for sec in steps.recapture_seconds:
             metrics.observe("serve.decode.recapture.seconds", sec)

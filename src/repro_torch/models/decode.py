@@ -29,6 +29,16 @@ and the logits are its vocabulary block (``models.transformer``); given
 whole weights (serve's world) they compute whole.  A world's collectives
 run on the host (gloo) or outside any captured graph, so a step of a
 world is run eagerly; ``DecodeGraph`` is for ``dist=None``.
+
+The work carries ``obs.trace`` spans, profiler ranges only while a profiler
+records: ``model.prefill`` and ``model.decode_step`` around each call, and
+inside them a span a layer's block (``model.attention``,
+``model.cross_attention``, ``model.time_mix``, ``model.recurrence``,
+``model.ffn``) and ``model.head`` (the final norm and the head); norms,
+residual adds and embeddings are their parent's own.  ``DecodeGraph``
+names step 0 (``graph.warmup``), the wait for it (``graph.warmup.wait``)
+and the capture (``graph.capture``, the step recorded inside it
+``graph.capture.record``); a replay runs no Python and has no span.
 """
 from __future__ import annotations
 
@@ -53,6 +63,7 @@ from repro_torch.models.transformer import (
     layer_params,
     post_norm,
 )
+from repro_torch.obs import trace
 
 
 def _layer_cache(cfg: ModelConfig, kind: str, batch: int, capacity: int, device) -> dict:
@@ -121,42 +132,56 @@ def _prefill_layer(
         window = cfg.window if kind == LOCAL else 0
         h = apply_norm(cfg, x, p["ln1"])
         cap = capacity if kind == ATTN else attn.cache_capacity(cfg.window, capacity)
-        a, cache = _prefill_attention(cfg, p["attn"], h, positions, cap, window, dist)
+        with trace.span("model.attention"):
+            a, cache = _prefill_attention(cfg, p["attn"], h, positions, cap, window, dist)
         x = x + post_norm(cfg, p, "post_ln1", a)
         h = apply_norm(cfg, x, p["ln2"])
-        m = feed_forward(cfg, p, h, dist, with_aux=False)[0]
+        with trace.span("model.ffn"):
+            m = feed_forward(cfg, p, h, dist, with_aux=False)[0]
         return x + post_norm(cfg, p, "post_ln2", m), cache
     if kind == XATTN:
-        ck, cv = attn.cross_kv(cfg, p["xattn"], enc, dist)
         h = apply_norm(cfg, x, p["ln1"])
-        x = x + gate(p, "gate_attn", x) * attn.cross_attention(cfg, p["xattn"], h, (ck, cv),
-                                                               dist)
+        with trace.span("model.cross_attention"):
+            ck, cv = attn.cross_kv(cfg, p["xattn"], enc, dist)
+            a = attn.cross_attention(cfg, p["xattn"], h, (ck, cv), dist)
+        x = x + gate(p, "gate_attn", x) * a
         h = apply_norm(cfg, x, p["ln2"])
-        x = x + gate(p, "gate_mlp", x) * mlp_apply(cfg, p["mlp"], h, dist)
-        return x, {"ck": ck, "cv": cv}
+        with trace.span("model.ffn"):
+            m = mlp_apply(cfg, p["mlp"], h, dist)
+        return x + gate(p, "gate_mlp", x) * m, {"ck": ck, "cv": cv}
     if kind == ATTNX:
         h = apply_norm(cfg, x, p["ln1"])
-        a, kv = _prefill_attention(cfg, p["attn"], h, positions, capacity, 0, dist)
+        with trace.span("model.attention"):
+            a, kv = _prefill_attention(cfg, p["attn"], h, positions, capacity, 0, dist)
         x = x + a
-        ck, cv = attn.cross_kv(cfg, p["xattn"], enc, dist)
         h = apply_norm(cfg, x, p["ln_x"])
-        x = x + attn.cross_attention(cfg, p["xattn"], h, (ck, cv), dist)
+        with trace.span("model.cross_attention"):
+            ck, cv = attn.cross_kv(cfg, p["xattn"], enc, dist)
+            a = attn.cross_attention(cfg, p["xattn"], h, (ck, cv), dist)
+        x = x + a
         h = apply_norm(cfg, x, p["ln2"])
-        return x + mlp_apply(cfg, p["mlp"], h, dist), {"kv": kv, "ck": ck, "cv": cv}
+        with trace.span("model.ffn"):
+            m = mlp_apply(cfg, p["mlp"], h, dist)
+        return x + m, {"kv": kv, "ck": ck, "cv": cv}
     if kind == RWKV:
         h = apply_norm(cfg, x, p["ln1"])
-        y, state = rwkv.rwkv_time_mix_prefill(cfg, p["tm_cm"], h, dist=dist)
+        with trace.span("model.time_mix"):
+            y, state = rwkv.rwkv_time_mix_prefill(cfg, p["tm_cm"], h, dist=dist)
         x = x + y
         h2 = apply_norm(cfg, x, p["ln2"])
-        x = x + rwkv.rwkv_channel_mix(cfg, p["tm_cm"], h2, dist)
+        with trace.span("model.ffn"):
+            m = rwkv.rwkv_channel_mix(cfg, p["tm_cm"], h2, dist)
         # the shifts are the last position's normed inputs, not x
-        return x, {"state": state, "tm_shift": h[:, -1], "cm_shift": h2[:, -1]}
+        return x + m, {"state": state, "tm_shift": h[:, -1], "cm_shift": h2[:, -1]}
     if kind == RGLRU:
         h = apply_norm(cfg, x, p["ln1"])
-        y, cache = griffin.rglru_block_prefill(cfg, p["rec"], h, dist)
+        with trace.span("model.recurrence"):
+            y, cache = griffin.rglru_block_prefill(cfg, p["rec"], h, dist)
         x = x + y
         h = apply_norm(cfg, x, p["ln2"])
-        return x + mlp_apply(cfg, p["mlp"], h, dist), cache
+        with trace.span("model.ffn"):
+            m = mlp_apply(cfg, p["mlp"], h, dist)
+        return x + m, cache
     raise ValueError(kind)
 
 
@@ -173,26 +198,29 @@ def prefill(
     ``dist``, of this rank's slot of the batch (and of its vocabulary block
     and KV heads where the parameters are its blocks over the model axis)."""
     check_supported(cfg)
-    S = tokens.shape[1]
-    capacity = capacity or S
-    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
-    enc = frontend_states(cfg, params, frontend, dist)
-    x = _embed_tokens(cfg, params, tokens, dist)
-    x = _positions_embed(cfg, params, x, positions)
+    with trace.span("model.prefill"):
+        S = tokens.shape[1]
+        capacity = capacity or S
+        positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+        enc = frontend_states(cfg, params, frontend, dist)
+        x = _embed_tokens(cfg, params, tokens, dist)
+        x = _positions_embed(cfg, params, x, positions)
 
-    caches = []
-    for group, gp in zip(cfg.groups, params["groups"]):
-        per_rep = []
-        for i in range(group.count):
-            outs = []
-            for kind, p in zip(group.pattern, layer_params(gp, i)):
-                x, c = _prefill_layer(cfg, kind, p, x, positions, enc, capacity, dist)
-                outs.append(c)
-            per_rep.append(outs)
-        caches.append(_stack(per_rep))
+        caches = []
+        for group, gp in zip(cfg.groups, params["groups"]):
+            per_rep = []
+            for i in range(group.count):
+                outs = []
+                for kind, p in zip(group.pattern, layer_params(gp, i)):
+                    x, c = _prefill_layer(cfg, kind, p, x, positions, enc, capacity, dist)
+                    outs.append(c)
+                per_rep.append(outs)
+            caches.append(_stack(per_rep))
 
-    x = apply_norm(cfg, x, params["final_norm"])
-    return unembed(cfg, params["embed"], x[:, -1], dist), tuple(caches)
+        with trace.span("model.head"):
+            x = apply_norm(cfg, x, params["final_norm"])
+            logits = unembed(cfg, params["embed"], x[:, -1], dist)
+    return logits, tuple(caches)
 
 
 def _decode_layer(
@@ -201,39 +229,54 @@ def _decode_layer(
 ) -> torch.Tensor:
     if kind in (ATTN, LOCAL):
         h = apply_norm(cfg, x, p["ln1"])
-        a, _ = attn.decode_attention(cfg, p["attn"], h, pos, cache,
-                                     window=cfg.window if kind == LOCAL else 0, dist=dist)
+        with trace.span("model.attention"):
+            a, _ = attn.decode_attention(cfg, p["attn"], h, pos, cache,
+                                         window=cfg.window if kind == LOCAL else 0, dist=dist)
         x = x + post_norm(cfg, p, "post_ln1", a)
         h = apply_norm(cfg, x, p["ln2"])
-        m = feed_forward(cfg, p, h, dist, with_aux=False)[0]
+        with trace.span("model.ffn"):
+            m = feed_forward(cfg, p, h, dist, with_aux=False)[0]
         return x + post_norm(cfg, p, "post_ln2", m)
     if kind == XATTN:
         h = apply_norm(cfg, x, p["ln1"])
-        a = attn.cross_attention(cfg, p["xattn"], h, (cache["ck"], cache["cv"]), dist)
+        with trace.span("model.cross_attention"):
+            a = attn.cross_attention(cfg, p["xattn"], h, (cache["ck"], cache["cv"]), dist)
         x = x + gate(p, "gate_attn", x) * a
         h = apply_norm(cfg, x, p["ln2"])
-        return x + gate(p, "gate_mlp", x) * mlp_apply(cfg, p["mlp"], h, dist)
+        with trace.span("model.ffn"):
+            m = mlp_apply(cfg, p["mlp"], h, dist)
+        return x + gate(p, "gate_mlp", x) * m
     if kind == ATTNX:
         h = apply_norm(cfg, x, p["ln1"])
-        a, _ = attn.decode_attention(cfg, p["attn"], h, pos, cache["kv"], dist=dist)
+        with trace.span("model.attention"):
+            a, _ = attn.decode_attention(cfg, p["attn"], h, pos, cache["kv"], dist=dist)
         x = x + a
         h = apply_norm(cfg, x, p["ln_x"])
-        x = x + attn.cross_attention(cfg, p["xattn"], h, (cache["ck"], cache["cv"]), dist)
+        with trace.span("model.cross_attention"):
+            a = attn.cross_attention(cfg, p["xattn"], h, (cache["ck"], cache["cv"]), dist)
+        x = x + a
         h = apply_norm(cfg, x, p["ln2"])
-        return x + mlp_apply(cfg, p["mlp"], h, dist)
+        with trace.span("model.ffn"):
+            m = mlp_apply(cfg, p["mlp"], h, dist)
+        return x + m
     if kind == RWKV:
         h = apply_norm(cfg, x, p["ln1"])
-        y, _ = rwkv.rwkv_time_mix_decode(cfg, p["tm_cm"], h, cache, dist)
+        with trace.span("model.time_mix"):
+            y, _ = rwkv.rwkv_time_mix_decode(cfg, p["tm_cm"], h, cache, dist)
         x = x + y
         h2 = apply_norm(cfg, x, p["ln2"])
-        y2, _ = rwkv.rwkv_channel_mix_decode(cfg, p["tm_cm"], h2, cache, dist)
+        with trace.span("model.ffn"):
+            y2, _ = rwkv.rwkv_channel_mix_decode(cfg, p["tm_cm"], h2, cache, dist)
         return x + y2
     if kind == RGLRU:
         h = apply_norm(cfg, x, p["ln1"])
-        y, _ = griffin.rglru_block_decode(cfg, p["rec"], h, cache, dist)
+        with trace.span("model.recurrence"):
+            y, _ = griffin.rglru_block_decode(cfg, p["rec"], h, cache, dist)
         x = x + y
         h = apply_norm(cfg, x, p["ln2"])
-        return x + mlp_apply(cfg, p["mlp"], h, dist)
+        with trace.span("model.ffn"):
+            m = mlp_apply(cfg, p["mlp"], h, dist)
+        return x + m
     raise ValueError(kind)
 
 
@@ -252,15 +295,18 @@ def decode_step(
     traces it, or an int, which becomes such a tensor here.  Given a tensor,
     the step reads no device value on the host, so it can be captured in a
     CUDA graph and replayed (``DecodeGraph``)."""
-    pos = attn.as_pos(pos, token.device)
-    x = _embed_tokens(cfg, params, token, dist)
-    x = _positions_embed(cfg, params, x, pos.view(1))
-    for group, gp, gc in zip(cfg.groups, params["groups"], caches):
-        for i in range(group.count):
-            for kind, p, c in zip(group.pattern, layer_params(gp, i), layer_params(gc, i)):
-                x = _decode_layer(cfg, kind, p, x, pos, c, dist)
-    x = apply_norm(cfg, x, params["final_norm"])
-    return unembed(cfg, params["embed"], x[:, -1], dist), caches
+    with trace.span("model.decode_step"):
+        pos = attn.as_pos(pos, token.device)
+        x = _embed_tokens(cfg, params, token, dist)
+        x = _positions_embed(cfg, params, x, pos.view(1))
+        for group, gp, gc in zip(cfg.groups, params["groups"], caches):
+            for i in range(group.count):
+                for kind, p, c in zip(group.pattern, layer_params(gp, i), layer_params(gc, i)):
+                    x = _decode_layer(cfg, kind, p, x, pos, c, dist)
+        with trace.span("model.head"):
+            x = apply_norm(cfg, x, params["final_norm"])
+            logits = unembed(cfg, params["embed"], x[:, -1], dist)
+    return logits, caches
 
 
 def _cut(live, target):
@@ -302,7 +348,10 @@ class DecodeGraph:
     stream, as the capture's warm-up (a real step: it writes the caches and
     advances ``pos``), then captures it into one ``torch.cuda.CUDAGraph``;
     every later ``step()`` is one ``replay()``.  A capture that fails raises;
-    nothing runs eagerly instead.  On the CPU every step runs eagerly.
+    nothing runs eagerly instead.  On the CPU every step runs eagerly.  The
+    host clock splits the first ``step()`` (``first_step_seconds``) into
+    step 0 up to the end of the wait for it (``warmup_seconds``) and the
+    capture (``capture_seconds``).
 
     ``shed(caches)`` drops the last live sequence between two steps and goes
     on with the remaining steps at the smaller batch: on the card the old
@@ -324,7 +373,7 @@ class DecodeGraph:
                                   device=token.device)
         self.live = self.tokens  # the rows still decoding
         self.graph = self.static_logits = None
-        self.first_step_seconds = self.capture_seconds = 0.0
+        self.warmup_seconds = self.capture_seconds = self.first_step_seconds = 0.0
         self.recapture_seconds: list = []
 
     @property
@@ -378,22 +427,26 @@ class DecodeGraph:
     def _warm_up_and_capture(self) -> torch.Tensor:
         t0 = time.perf_counter()
         device = self.token.device
-        main = torch.cuda.current_stream(device)
-        side = torch.cuda.Stream(device)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            logits = self._step()  # step 0: the warm-up is a real step
-        main.wait_stream(side)
-        logits.record_stream(main)
+        with trace.span("graph.warmup"):
+            main = torch.cuda.current_stream(device)
+            side = torch.cuda.Stream(device)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                logits = self._step()  # step 0: the warm-up is a real step
+            main.wait_stream(side)
+            logits.record_stream(main)
         if self.steps < self.n_steps:
-            torch.cuda.synchronize(device)
+            with trace.span("graph.warmup.wait"):
+                torch.cuda.synchronize(device)
             t1 = time.perf_counter()
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):  # records the step; runs nothing
-                static_logits = self._step()
+            with trace.span("graph.capture"):
+                with torch.cuda.graph(graph):  # records the step; runs nothing
+                    with trace.span("graph.capture.record"):
+                        static_logits = self._step()
             seconds = time.perf_counter() - t1
             if self.steps == 1:
-                self.capture_seconds = seconds
+                self.warmup_seconds, self.capture_seconds = t1 - t0, seconds
             else:
                 self.recapture_seconds.append(seconds)
             self.graph, self.static_logits = graph, static_logits

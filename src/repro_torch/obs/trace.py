@@ -25,12 +25,14 @@ scope: ``repro_torch.core.events`` feeds results in through the sink
 :mod:`repro_torch.obs` installs, and everything here duck-types the SimResult /
 StepTrace fields, so there is no import cycle.
 
-A copy of ``repro.obs.trace``.  The port adds one thing: every
-:func:`span` is also a ``torch.profiler.record_function`` range of the same
-name, so a ``torch.profiler`` trace of a run shows the same phases; with no
-profiler running that costs a few microseconds a span.  A span times what
-the host enqueued before it closed; the serve loop synchronises the device
-where a span must cover device work.
+A copy of ``repro.obs.trace``.  The port adds one thing: while a
+profiler records or a tracer is active, every :func:`span` is also a
+``torch.profiler.record_function`` range of the same name, so a
+``torch.profiler`` trace of a run shows the same phases (a few microseconds
+a span); otherwise a span costs one check, so the model's layers can carry
+spans on the serving path.  A span times what the host enqueued before it
+closed; the serve loop synchronises the device where a span must cover
+device work.
 """
 from __future__ import annotations
 
@@ -191,9 +193,12 @@ def is_active() -> bool:
 
 @contextmanager
 def span(name: str, **args) -> Iterator[None]:
-    """Wall-clock span on the active tracer (none when tracing is off) and
-    a profiler range."""
+    """Wall-clock span on the active tracer (none when tracing is off) and,
+    while a profiler records or the tracer is on, a profiler range."""
     t = _ACTIVE
+    if t is None and not torch.autograd._profiler_enabled():
+        yield
+        return
     with torch.profiler.record_function(name):
         if t is None:
             yield

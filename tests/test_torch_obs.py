@@ -323,3 +323,38 @@ def test_reset_all_returns_to_cold_state():
         assert not obs.metrics.enabled() and not obs.trace.is_active()
         assert obs.drift.records() == [] and health.monitor().links == {}
         assert core.events._OBS_SINK is None
+
+
+# -- the port's profiler ranges ---------------------------------------------------
+
+def test_span_enters_a_profiler_range_only_while_one_records(monkeypatch):
+    """With no profiler and no tracer a span enters no ``record_function``
+    (one check on the serving path); under a CPU profiler, or with the
+    tracer on, it does, and the profile holds the range."""
+    import torch
+
+    entered = []
+    record = torch.profiler.record_function
+
+    def counting(name, *args):
+        entered.append(name)
+        return record(name, *args)
+
+    monkeypatch.setattr(torch.profiler, "record_function", counting)
+    assert not torch.autograd._profiler_enabled() and not t_trace.is_active()
+    with t_trace.span("model.quiet"):
+        pass
+    assert entered == []
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with t_trace.span("model.outer"):
+            with t_trace.span("model.inner"):
+                torch.ones(2).sum()
+    assert entered == ["model.outer", "model.inner"]
+    names = [e.name for e in prof.events()]
+    assert names.count("model.outer") == 1 and names.count("model.inner") == 1
+    tracer = t_trace.start("spans")
+    with t_trace.span("model.traced"):
+        pass
+    t_trace.stop()
+    assert entered[-1] == "model.traced"
+    assert [e["name"] for e in tracer.events if e.get("ph") == "X"] == ["model.traced"]
