@@ -15,7 +15,8 @@ XATTN layers attend to 1601 patch embeddings in plain torch), mixtral-8x22b
 and dbrx-132b (flash attention with 48 query heads over 8 KV heads of 128;
 the MoE layer's dense path in plain torch), served at full width with their
 depth cut to fit one card (``SERVE_DEPTH``).  Every path decodes through
-one captured CUDA graph a step (``DecodeGraph``).
+one captured CUDA graph a step (``DecodeGraph``), its self-attention over
+the KV cache through the decode-attention kernel.
 Phases, each printing its own lines, any failure ending the run non-zero:
   1. device  — fail without CUDA; print the card's name and power limit;
                TF32 off for f32 matmuls and convolutions.
@@ -23,7 +24,9 @@ Phases, each printing its own lines, any failure ending the run non-zero:
                nvcc processes at once; print ptxas's registers, shared
                memory, spills and performance notes for each kernel.
   3. kernels — each kernel against its plain PyTorch version on the card
-               (flash: bf16 on the wgmma kernel, f32 on the CUDA-core one).
+               (flash: bf16 on the wgmma kernel, f32 on the CUDA-core one;
+               decode attention at the serving paths' decode shapes, rings,
+               softcap and a cache split where most splits hold nothing).
   4. parity  — each smoke-width model in f32: CPU (plain) against CUDA (kernel),
                then the same decode steps captured and replayed against both
                (whisper and llama-vision with a seeded frontend and their
@@ -31,8 +34,9 @@ Phases, each printing its own lines, any failure ending the run non-zero:
                adds nothing); the MoE models' forward logits and aux loss too.
   5. serve   — each full-width model through ``repro_torch.launch.serve.run``,
                every launch count set to 0 just before and read just after:
-               each layer's kernel launched once, no other kernel, no plain
-               version on the card.  Then recurrentgemma-9b once more at a
+               each layer's prefill kernel launched once, its decode kernel
+               once in step 0 and once in the capture, no other kernel, no
+               plain version on the card.  Then recurrentgemma-9b once more at a
                prompt of 2560, so that its 2048 window binds and every LOCAL
                layer's cache is a ring, decoded by replays over the wrapped rings.
   6. breakdown — the same serve calls again: every run's prefill and decode
@@ -43,6 +47,7 @@ Phases, each printing its own lines, any failure ending the run non-zero:
   7. timing  — each kernel at its serving path's shape, beside its plain
                version, one PyTorch library call where there is one, and the
                card's bound; flash also on its f32 route at llama's shape;
+               decode attention at olmo-1b.chat's and mixtral's decode shapes;
                WKV6's two CUDA kernels each under torch.profiler (in phase 3).
   8. train   — each kernel wrapper refuses CUDA inputs that require grad;
                the ten archs' ``train_step`` at smoke width in f32, card
@@ -201,16 +206,22 @@ ARCHS = ("llama3.2-1b", "rwkv6-1.6b", "recurrentgemma-9b", "olmo-1b", "codeqwen1
 # width, the group's count cut (about 40 GB of bf16 weights each, of 281
 # and 263 GB)
 SERVE_DEPTH = {"mixtral-8x22b": 8, "dbrx-132b": 6}
-# each layer kind's prefill kernel (row name; XATTN layers launch none, and
-# each encoder layer launches flash); decode launches none
-KIND_KERNEL = {"attn": "flash_attention", "local": "flash_attention",
-               "attn_x": "flash_attention", "xattn": None,
-               "rwkv": "wkv6", "rglru": "rglru_scan"}
+# each layer kind's (prefill kernel, decode kernel) by row name, None for
+# none: a prefill launches its kernel once a layer (XATTN layers launch none,
+# each encoder layer launches flash); a decode step run eagerly or recorded
+# into a graph launches the decode kernel once a layer (serve: step 0 and
+# the capture; a replay runs no Python; XATTN's cross-attention stays plain)
+KIND_KERNEL = {"attn": ("flash_attention", "decode_attention"),
+               "local": ("flash_attention", "decode_attention"),
+               "attn_x": ("flash_attention", "decode_attention"), "xattn": (None, None),
+               "rwkv": ("wkv6", None), "rglru": ("rglru_scan", None)}
 # each kernel's names in the profiler: the CUDA kernels that each run once a
-# launch (WKV6's entry point launches two)
+# launch (WKV6's entry point launches two; decode attention's merge runs only
+# where the cache is split)
 PROFILER_NAME = {"flash_attention": ("flash_fwd",),
                  "wkv6": ("wkv6_intra_kernel", "wkv6_state_kernel"),
-                 "rglru_scan": ("rglru_scan_kernel",)}
+                 "rglru_scan": ("rglru_scan_kernel",),
+                 "decode_attention": ("decode_attention_kernel",)}
 # warm serve runs of the breakdown phase (cut from 5, 3 and 2 when phase 13
 # came, to keep the script's wall inside its limit)
 WARM_RUNS = {"llama3.2-1b": 3, "rwkv6-1.6b": 2, "recurrentgemma-9b": 1, "olmo-1b": 1,
@@ -613,6 +624,8 @@ def lru_inputs(rng, B, S, W, dtype, draw, strided=False, device="cuda"):
 
 def kernel_modules() -> dict:
     """Row name -> (kernel wrapper module, ops module) of every kernel."""
+    from repro_torch.kernels.decode_attention import kernel as da_kernel
+    from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.rglru import kernel as lru_kernel
@@ -621,7 +634,7 @@ def kernel_modules() -> dict:
     from repro_torch.kernels.rwkv6 import ops as wkv_ops
 
     return {"flash_attention": (fa_kernel, fa_ops), "wkv6": (wkv_kernel, wkv_ops),
-            "rglru_scan": (lru_kernel, lru_ops)}
+            "rglru_scan": (lru_kernel, lru_ops), "decode_attention": (da_kernel, da_ops)}
 
 
 def prefill_launches(cfg) -> dict:
@@ -631,9 +644,29 @@ def prefill_launches(cfg) -> dict:
     want["flash_attention"] += cfg.encoder_layers
     for g in cfg.groups:
         for kind in g.pattern:
-            if KIND_KERNEL[kind]:
-                want[KIND_KERNEL[kind]] += g.count
+            if KIND_KERNEL[kind][0]:
+                want[KIND_KERNEL[kind][0]] += g.count
     return want
+
+
+def decode_launches(cfg, steps: int) -> dict:
+    """Row name -> launches of that kernel in ``steps`` decode steps run
+    eagerly or recorded into a graph: one for each layer whose kind it
+    serves, each step."""
+    want = {name: 0 for name in kernel_modules()}
+    for g in cfg.groups:
+        for kind in g.pattern:
+            if KIND_KERNEL[kind][1]:
+                want[KIND_KERNEL[kind][1]] += g.count * steps
+    return want
+
+
+def serve_launches(cfg, captures: int = 1) -> dict:
+    """Row name -> launches in one serve run: the prefill's, then step 0 and
+    the capture of each of ``captures`` captured decode steps (a second one
+    after a shed)."""
+    decode = decode_launches(cfg, 2 * captures)
+    return {name: n + decode[name] for name, n in prefill_launches(cfg).items()}
 
 
 def zero_counts() -> None:
@@ -710,6 +743,41 @@ def phase_kernel_cases() -> dict:
             o2 = ops.attention(q, k, v, **kw)
             if not torch.equal(o2, out.transpose(1, 2)):
                 raise AssertionError("ops.attention differs from the kernel it wraps")
+    return errs
+
+
+def phase_decode_cases() -> dict:
+    """Decode-attention kernel against decode_attention_ref on the same CUDA
+    tensors at each of ``cases.CASES`` (the card tests' cases), in bf16 at
+    TOL's 1e-2 (the plain version rounds P to bf16, the kernel keeps it in
+    f32) and in f32 at 1e-4; returns the bf16 max abs error at each main
+    path's shape (by case label)."""
+    from repro_torch.kernels.decode_attention import kernel, ops
+    from repro_torch.kernels.decode_attention.cases import CASES, MAIN_PATHS, decode_inputs
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    errs = {}
+    sms = kernel.sm_count(torch.device("cuda", 0))
+    for label, B, H, G, cap, dh, pos, window, softcap in CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, k_pos, p = decode_inputs("cuda", B, H, G, cap, dh, pos, window, dtype)
+            kw = dict(window=window, softcap=softcap, scale=dh**-0.5)
+            out = kernel.decode_attention(q, k, v, k_pos, p, **kw)
+            ref = decode_attention_ref(q, k, v, k_pos, p, **kw)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            ok = agrees(out, ref, TOL[dtype])
+            say("kernels", f"decode_attention {label}: B={B} H={H} G={G} cap={cap} dh={dh} "
+                           f"pos={pos} window={window} softcap={softcap:g} {str(dtype)[6:]} "
+                           f"splits {kernel.splits(B, G, cap, dh, q.element_size(), sms)} "
+                           f"max_abs_err={err:.3e} tol={TOL[dtype]:g} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"decode_attention disagrees with decode_attention_ref in "
+                                     f"{label} {dtype}")
+            if label in MAIN_PATHS and dtype == torch.bfloat16:
+                errs[label] = err
+                if not torch.equal(ops.decode_attention(q, k, v, k_pos, p, **kw), out):
+                    raise AssertionError("ops.decode_attention differs from the kernel it wraps")
     return errs
 
 
@@ -930,8 +998,9 @@ def check_counts(what: str, counts: dict, want: dict) -> None:
 def phase_serve(gpu: str, arch: str) -> tuple:
     """Full-width serve of ``arch`` (at ``SERVE_DEPTH`` layers where it has
     one): every launch count is 0 just before and read just after; each
-    layer's kernel launched once, every other kernel never, and no call took
-    a plain version on the card.  The launches made inside the encoder
+    layer's prefill kernel launched once, its decode kernel once in step 0
+    and once in the capture, every other kernel never, and no call took a
+    plain version on the card.  The launches made inside the encoder
     (prefill's ``frontend_states``) are read apart in the same run: one flash
     launch for each encoder layer; so are the bytes of the weights serve
     draws, beside those of the model at its published depth.  Returns the
@@ -942,7 +1011,7 @@ def phase_serve(gpu: str, arch: str) -> tuple:
     from repro_torch.models import decode as dec
 
     cfg = serve_config(arch)
-    want = prefill_launches(cfg)
+    want = serve_launches(cfg)
     in_encoder = {name: 0 for name in want}
     states, init = dec.frontend_states, serve.init_params
     group_bytes, all_bytes = [], []
@@ -1002,9 +1071,11 @@ def phase_ring(gpu: str) -> None:
     """recurrentgemma-9b at full width, one sequence whose prompt of 2560
     overruns the 2048 window: prefill and greedy decode through the entry
     points serve calls (``models.decode``), with the caches in hand.  The
-    same launches as the serve run, finite logits, and after decode, which
-    replays the captured step over the wrapped rings, every LOCAL layer's
-    ring holds exactly the last 2048 positions."""
+    same prefill launches as the serve run, the decode kernel once a
+    LOCAL or ATTN layer in step 0 and in the capture, finite logits, and
+    after decode, which replays the captured step over the wrapped rings
+    (each LOCAL layer's decode attention through the kernel), every LOCAL
+    layer's ring holds exactly the last 2048 positions."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import use_kernels
     from repro_torch.models import decode as dec
@@ -1032,8 +1103,9 @@ def phase_ring(gpu: str) -> None:
     finally:
         use_kernels(False)
     check_counts("ring run prefill", counts, want)
-    if read_counts() != counts:
-        raise AssertionError(f"ring run decode launched a kernel: {read_counts()}")
+    decoded = {name: (c[0] - counts[name][0], c[1] - counts[name][1])
+               for name, c in read_counts().items()}
+    check_counts("ring run decode", decoded, decode_launches(cfg, 2))
     if not finite:
         raise AssertionError("ring run: non-finite logits")
     if steps.graph is None:
@@ -1054,8 +1126,9 @@ def phase_ring(gpu: str) -> None:
     say("serve", f"{cfg.name} bf16 B=1 prompt={P_RING} new={N_RING} (window {cfg.window} "
                  f"binds): prefill {t_pre * 1e3:.2f} ms, decode {t_dec / N_RING * 1e3:.3f} "
                  f"ms/step (step 0 eager, then {N_RING - 1} replays), launches "
-                 f"{({n: c[0] for n, c in counts.items()})}, plain calls on the card "
-                 f"{({n: c[1] for n, c in counts.items()})}, logits finite, each of "
+                 f"{({n: c[0] for n, c in counts.items()})} in prefill, "
+                 f"{({n: c[0] for n, c in decoded.items()})} in decode, plain calls on the "
+                 f"card {({n: c[1] for n, c in counts.items()})}, logits finite, each of "
                  f"the {n_local} LOCAL rings holds positions {last[0]} .. {last[-1]} | {gpu}")
 
 
@@ -1073,7 +1146,9 @@ def phase_breakdown(gpu: str, arch: str) -> None:
     phase starts inside its span.  The profile must show exactly the path's
     kernel launches.  torch.profiler has been seen to drop a session's last
     device events (a profile missing one flash launch of 16); such a session
-    is run again, up to PROFILE_TRIES sessions in all.
+    is run again, up to PROFILE_TRIES sessions in all.  Decode's profile
+    shows the decode kernel once a layer in each of its N steps (step 0 and
+    the replays; the capture runs nothing) and no prefill kernel.
 
     Decode's span holds step 0 (run eagerly as the capture's warm-up, then
     captured; the capture synchronises first, so step 0's operations all
@@ -1088,8 +1163,9 @@ def phase_breakdown(gpu: str, arch: str) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     N = N_SERVE
-    want = {pname: n for name, n in prefill_launches(serve_config(arch)).items()
-            for pname in PROFILER_NAME[name]}
+    want = {phase: {pname: n for name, n in counts.items() for pname in PROFILER_NAME[name]}
+            for phase, counts in (("prefill", prefill_launches(serve_config(arch))),
+                                  ("decode", decode_launches(serve_config(arch), N)))}
     torch.cuda.empty_cache()  # the last arch's weights, freed, leave the card
     walls = [serve_once(arch, quiet=True)[1:] for _ in range(WARM_RUNS[arch])]
     for r, (t_pre, t_dec, t_first) in enumerate(walls, 1):
@@ -1113,15 +1189,16 @@ def phase_breakdown(gpu: str, arch: str) -> None:
             span = spans.get(phase)  # a span dropped too leaves no operations
             ops = [e for e in device_ops
                    if span and span.start <= e.time_range.start < span.end]
-            phases[phase] = (ops, {kname: sum(kname in e.name for e in ops) for kname in want})
+            phases[phase] = (ops, {kname: sum(kname in e.name for e in ops)
+                                   for kname in want[phase]})
         bad = {phase: (len(ops), n_kernel) for phase, (ops, n_kernel) in phases.items()
-               if not ops or n_kernel != (want if phase == "prefill" else dict.fromkeys(want, 0))}
+               if not ops or n_kernel != want[phase]}
         if len(steps) != N:
             bad["decode.step spans"] = len(steps)
         if not bad:
             break
         say("breakdown", f"{arch} profile session {attempt}: device operations and kernels "
-                         f"recorded {bad}, expected kernels {want} in prefill")
+                         f"recorded {bad}, expected kernels {want}")
     else:
         raise AssertionError(f"{arch} profile: {PROFILE_TRIES} sessions, the last recorded {bad}")
     replay_ops = [e for e in phases["decode"][0]
@@ -1148,10 +1225,11 @@ def phase_breakdown(gpu: str, arch: str) -> None:
             ops, per, label = replay_ops, N - 1, "decode replay"
             busy_us = sum(e.time_range.elapsed_us() for e in ops)
         top_kernels(arch, label, ops, per, busy_us)
-        for kname, n in n_kernel.items():  # the path's own kernels, in the top eight or not
+        for kname in n_kernel:  # the path's own kernels, in the top eight or not
+            n = sum(kname in e.name for e in ops)
             if n:
                 t = sum(e.time_range.elapsed_us() for e in ops if kname in e.name)
-                say("breakdown", f"  {arch} {phase}: {kname} {t / per:.1f} us "
+                say("breakdown", f"  {arch} {label}: {kname} {t / per:.1f} us "
                                  f"({100 * t / busy_us:.1f}%), {n} launches, "
                                  f"{t / n:.1f} us each")
 
@@ -1242,7 +1320,9 @@ def flash_timing(gpu: str, B, H, G, S, dh, dtype, window=0, softcap=0.0,
     kw = dict(causal=causal, window=window, softcap=softcap)
     n_launch = kernel.launches
     ms = time_ms(lambda: kernel.flash_attention(qt, kt, vt, **kw))
-    plain_ms = time_ms(lambda: attention_ref(qt, kt, vt, **kw))
+    # the plain version is a record, not a gate: as few repetitions as the
+    # other kernels' plain versions take
+    plain_ms = time_ms(lambda: attention_ref(qt, kt, vt, **kw), reps=5, iters=2, warmup=1)
     if softcap:
         t0 = time.perf_counter()
         lib_call, lib_err = softcap_library_call(qt, kt, vt, softcap,
@@ -1304,6 +1384,71 @@ def phase_timing(gpu: str, launches: dict, in_encoder: dict, errs: dict) -> dict
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:101",
         "launches": launches_of(launches, "flash_attention"),
+        "max_abs_err": main["max_abs_err"],
+        **{key: main[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                      "library")},
+        "paths": paths,
+    }
+
+
+def decode_timing(gpu: str, label, B, H, G, cap, dh, pos, window, softcap, dtype) -> dict:
+    """The decode-attention kernel, its plain version and SDPA (the library
+    yardstick: a boolean mask over the slots, GQA) on one cache, and the
+    card's bound: the filled K/V slots read once, q read and the output
+    written once, at the card's memory rate."""
+    from repro_torch.kernels.decode_attention import kernel
+    from repro_torch.kernels.decode_attention.cases import decode_inputs
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    q, k, v, k_pos, p = decode_inputs("cuda", B, H, G, cap, dh, pos, window, dtype, seed=1)
+    kw = dict(window=window, softcap=softcap, scale=dh**-0.5)
+    n_launch = kernel.launches
+    ms = time_ms(lambda: kernel.decode_attention(q, k, v, k_pos, p, **kw))
+    plain_ms = time_ms(lambda: decode_attention_ref(q, k, v, k_pos, p, **kw), reps=5, iters=2,
+                       warmup=1)
+    kernel.launches = n_launch  # timing launches are not the main path's
+    ok = (k_pos >= 0) & (k_pos <= pos) & ((k_pos > pos - window) if window else True)
+    qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+
+    def lib_call():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=ok[None, None, None], enable_gqa=True)
+
+    lib_err = (lib_call()[:, :, 0].float() - decode_attention_ref(q, k, v, k_pos, p, **kw).float()
+               ).abs().max().item()
+    lib_ms = time_ms(lib_call, reps=5, iters=5, warmup=1)
+    el = q.element_size()
+    filled = int(ok.sum().item())
+    nbytes = (2 * B * filled * G * dh + 2 * B * H * dh) * el
+    bw = next((pk[0] for n, pk in PEAKS.items() if n in gpu), PEAKS["H100"][0])
+    bound = nbytes / bw * 1e3
+    say("timing", f"decode_attention {label} B={B} H={H} G={G} cap={cap} dh={dh} pos={pos} "
+                  f"({filled} slots filled) {str(dtype)[6:]} splits "
+                  f"{kernel.splits(B, G, cap, dh, el, kernel.sm_count(q.device))}: kernel "
+                  f"{ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} ms "
+                  f"({lib_err:.3e} from the plain version), bound {bound:.4f} ms (bytes: "
+                  f"{nbytes / 1e6:.2f} MB), kernel at {nbytes / (ms * 1e-3) / 1e12:.3f} TB/s, "
+                  f"{100 * bound / ms:.1f}% of the bound | {gpu}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": lib_ms, "library": "scaled_dot_product_attention"}
+
+
+def phase_decode_timing(gpu: str, launches: dict, errs: dict) -> dict:
+    """The decode-attention row at olmo-1b.chat's decode shape, mixtral's
+    beside it under ``paths``."""
+    from repro_torch.kernels.decode_attention.cases import CASES, MAIN_PATHS
+
+    paths = [dict(case=case[0], max_abs_err=errs[case[0]],
+                  **decode_timing(gpu, *case, torch.bfloat16))
+             for case in CASES if case[0] in MAIN_PATHS]
+    main = paths[0]
+    return {
+        "name": "decode_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
+        "replaces": None,
+        "launches": launches_of(launches, "decode_attention"),
         "max_abs_err": main["max_abs_err"],
         **{key: main[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                       "library")},
@@ -1457,6 +1602,8 @@ def phase_lru_timing(gpu: str, launches: dict, main_err: float) -> dict:
 def phase_train_refuses_grad() -> None:
     """Each kernel wrapper, given CUDA inputs that require grad with grad
     mode on, raises before launching: its output would carry no grad_fn."""
+    from repro_torch.kernels.decode_attention.cases import decode_inputs
+
     rng = np.random.default_rng(0)
     inputs = {
         "flash_attention": [t.transpose(1, 2) for t in model_layout(
@@ -1464,11 +1611,17 @@ def phase_train_refuses_grad() -> None:
         "wkv6": list(wkv_inputs(rng, 1, 32, 2, 64, torch.float32, "exp_normal")),
         "rglru_scan": list(lru_inputs(rng, 1, 64, 32, torch.float32, "uniform")),
     }
+    q, k, v, k_pos, _ = decode_inputs("cuda", 1, 2, 2, 16, 64, 15, 0, torch.float32)
+    inputs["decode_attention"] = [q, k, v]
     for name, (kern, _) in kernel_modules().items():
         args = [t.clone().requires_grad_() for t in inputs[name]]
+        fn = getattr(kern, name)
+        if name == "decode_attention":  # over 16 slots holding positions 0..15
+            fn = lambda q, k, v: kern.decode_attention(  # noqa: E731
+                q, k, v, k_pos, k_pos[-1], scale=0.125)
         before = kern.launches
         try:
-            getattr(kern, name)(*args)
+            fn(*args)
         except RuntimeError as e:
             if "no backward" not in str(e):
                 raise
@@ -1828,15 +1981,15 @@ def phase_drills(gpu: str) -> list:
     cfg = serve_config(DRILL_ARCH)
     B, P, N = B_SERVE, P_SERVE, N_SERVE
     full = dict(batch=B, prompt_len=P, new_tokens=N)
-    want = prefill_launches(cfg)
     torch.cuda.empty_cache()
+
 
     # (a) the consult on the main path
     drill_run(cfg, "cuda", **full)  # warm
     replays, consult = [], []
     for r in range(1, DRILL_RUNS + 1):
         run = drill_run(cfg, "cuda", **full)
-        check_counts(f"{DRILL_ARCH} serve with the consult", run["counts"], want)
+        check_counts(f"{DRILL_ARCH} serve with the consult", run["counts"], serve_launches(cfg))
         h = run["snap"]["histograms"]
         plan = h["plan.select_allreduce_strategy.seconds"]
         if plan["count"] != N or run["lines"] != ["[serve] per-step plan: flat"]:
@@ -1863,7 +2016,9 @@ def phase_drills(gpu: str) -> list:
     # shed twice, to read the second capture's time twice in one process
     for mode in ("shed", "shrink", "shed"):
         run = card_full[mode] = drill_run(cfg, "cuda", **full, **degrade, fail_mode=mode)
-        check_counts(f"{DRILL_ARCH} {mode} drill", run["counts"], want)
+        # a shed captures the step once more, at the smaller batch
+        check_counts(f"{DRILL_ARCH} {mode} drill", run["counts"],
+                     serve_launches(cfg, 2 if mode == "shed" else 1))
         gauges, h = run["snap"]["gauges"], run["snap"]["histograms"]
         if not any(ln.startswith(f"[serve] link tpu_v5e/dcn degraded at decode step")
                    for ln in run["lines"]) or gauges.get("health.links.degraded") != 1:
@@ -1919,7 +2074,7 @@ def phase_drills(gpu: str) -> list:
         card_full_sc = drill_run(cfg, "cuda", **full, scenario=path)
         card = drill_run(scfg, "cuda", **DRILL_SMOKE, scenario=path)
         cpu = drill_run(scfg, "cpu", **DRILL_SMOKE, scenario=path)
-    check_counts(f"{DRILL_ARCH} scenario", card_full_sc["counts"], want)
+    check_counts(f"{DRILL_ARCH} scenario", card_full_sc["counts"], serve_launches(cfg))
     same_drill("smoke scenario", card, cpu)
     if card_full_sc["lines"] != cpu["lines"]:
         raise AssertionError(f"scenario: full-width lines {card_full_sc['lines']} differ "
@@ -2058,9 +2213,11 @@ def phase_ranks_serve(gpu: str) -> None:
     for r, rep in enumerate(ranks):
         if not np.array_equal(rep["logits"], got):
             raise AssertionError(f"rank {r}'s logits differ from rank 0's")
-        if rep["launches"] != {"flash_attention": (L, 0), "wkv6": (0, 0), "rglru_scan": (0, 0)}:
+        if rep["launches"] != {"flash_attention": (L, 0), "wkv6": (0, 0), "rglru_scan": (0, 0),
+                               "decode_attention": (L * N, 0)}:
             raise AssertionError(f"rank {r} launched {rep['launches']}, expected flash {L} "
-                                 "times (each prefill layer) and no plain call")
+                                 f"times (each prefill layer), decode attention {L * N} (each "
+                                 "layer of each eager step) and no plain call")
     # the routes of prefill: the ranks' slices in rank order against the dense path's
     ep_routes = [np.concatenate([np.sort(rep["routes"][i], -1) for rep in ranks])
                  for i in range(L)]
@@ -2889,6 +3046,7 @@ def main() -> int:
     fa_errs = timed("3 kernels (flash)", phase_kernel_cases)
     wkv_err, wkv_parts = timed("3 kernels (wkv6)", phase_wkv_cases)
     lru_err = timed("3 kernels (rglru)", phase_lru_cases)
+    da_errs = timed("3 kernels (decode attention)", phase_decode_cases)
     timed("4 parity", lambda: [phase_parity(arch) for arch in ARCHS])
     served = timed("5 serve", lambda: {arch: phase_serve(gpu, arch) for arch in ARCHS})
     launches = {arch: counts for arch, (counts, _) in served.items()}
@@ -2897,7 +3055,8 @@ def main() -> int:
     timed("6 breakdown", lambda: [phase_breakdown(gpu, arch) for arch in ARCHS])
     rows = timed("7 timing", lambda: [phase_timing(gpu, launches, in_encoder, fa_errs),
                                       phase_wkv_timing(gpu, launches, wkv_err, wkv_parts),
-                                      phase_lru_timing(gpu, launches, lru_err)])
+                                      phase_lru_timing(gpu, launches, lru_err),
+                                      phase_decode_timing(gpu, launches, da_errs)])
     timed("8 train", phase_train, gpu)
     shed_lines = timed("10 drills", phase_drills, gpu)
     timed("9 fit", phase_fit, gpu)

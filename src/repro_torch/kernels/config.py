@@ -1,8 +1,9 @@
 """Kernel dispatch switch, default device and build directory.
 
 ``use_kernels(True)`` routes the model's hot spots through the hand-written
-CUDA kernels (today, in prefill: flash attention for ATTN and LOCAL layers,
-the WKV6 scan for RWKV layers and the RG-LRU scan for RGLRU layers); the
+CUDA kernels (in prefill: flash attention for ATTN and LOCAL layers, the
+WKV6 scan for RWKV layers and the RG-LRU scan for RGLRU layers; in decode,
+self-attention over the KV cache through the decode-attention kernel); the
 default False keeps the plain PyTorch path, as ``repro.kernels.use_pallas``
 does for the JAX package.
 With kernels on, a tensor on the CPU takes the kernel's plain PyTorch version

@@ -356,13 +356,15 @@ def _recording_routes(routes: Optional[list]):
 
 def launch_counts() -> dict:
     """Kernel name -> (launches, plain-version calls) in this process."""
+    from repro_torch.kernels.decode_attention import kernel as da_kernel, ops as da_ops
     from repro_torch.kernels.flash_attention import kernel as fa_kernel, ops as fa_ops
     from repro_torch.kernels.rglru import kernel as lru_kernel, ops as lru_ops
     from repro_torch.kernels.rwkv6 import kernel as wkv_kernel, ops as wkv_ops
 
     return {"flash_attention": (fa_kernel.launches, fa_ops.plain_calls),
             "wkv6": (wkv_kernel.launches, wkv_ops.plain_calls),
-            "rglru_scan": (lru_kernel.launches, lru_ops.plain_calls)}
+            "rglru_scan": (lru_kernel.launches, lru_ops.plain_calls),
+            "decode_attention": (da_kernel.launches, da_ops.plain_calls)}
 
 
 def _peak_bytes(device: torch.device) -> int:

@@ -6,8 +6,11 @@ Ported from ``repro.models.attention``.  Heads stay in an explicit
 attention switches to a KV-chunked online softmax above ``CHUNK_THRESHOLD``
 keys; with kernels on and Sq == Sk it goes to the flash kernel instead (the
 dispatch ``repro.models.attention.attend`` makes).
-Decode attention and cross-attention stay plain torch: the JAX package has
-no kernel for them.  Given the rank's heads over the model axis
+Decode attention, which the JAX package leaves to plain jnp, goes with
+kernels on to the decode-attention kernel where each query head reads its
+own KV heads and the cache's sequence is whole (:func:`decode_attention`);
+cross-attention stays plain torch, as does decode attention over picked KV
+heads or a sequence chunk.  Given the rank's heads over the model axis
 (``sharding.tp``), self- and cross-attention compute on them and end in one
 all-reduce (:func:`tp_heads`).  Given also the rank's FSDP blocks over the
 data axes (a decode step's ``DistContext.data_split``), self-attention's
@@ -25,14 +28,14 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.config import kernels_enabled
+from repro_torch.kernels.decode_attention import ops as da_ops
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.models.common import apply_rope, dense_init, dtype_of, softcap
+from repro_torch.models.common import NEG_INF, apply_rope, dense_init, dtype_of, softcap
 from repro_torch.sharding import tp
 
 CHUNK_THRESHOLD = 2048  # switch to chunked attention above this many keys
 KV_CHUNK = 512
-
-NEG_INF = -2.3819763e38  # large negative for masking (fits f32)
 
 
 # --------------------------------------------------------------------------
@@ -464,7 +467,13 @@ def decode_attention(
     rank's chunk, so each rank writes the new K/V where its local slot,
     clamped into the chunk, is the slot and rewrites its old K/V there
     otherwise (picked on the device), attends over its chunk and combines
-    its softmax with the other chunks' (``tp.combine_over_data``)."""
+    its softmax with the other chunks' (``tp.combine_over_data``).
+
+    Over a whole cache sequence the attention is the decode-attention
+    kernel's plain version (``kernels.decode_attention.ref``), or with
+    kernels on, where query heads read their own KV heads (no ``sel``),
+    ``kernels.decode_attention.ops``: the kernel on the card, on the CPU the
+    same plain version."""
     pos = as_pos(pos, x.device)
     p, x, split, sel = tp_heads(cfg, p, x, dist)
     pos_t = pos.view(1, 1)
@@ -491,11 +500,14 @@ def decode_attention(
         cache["v"].index_copy_(1, slot, v_new)
 
     k, v = kv_heads(cache["k"], sel), kv_heads(cache["v"], sel)
-    qg = _split_groups(q, k.shape[2])  # (B, 1, G, M, dh)
-    bias = _mask_bias(pos_t[0], k_pos, window, causal=True)
     if chunked:
+        qg = _split_groups(q, k.shape[2])  # (B, 1, G, M, dh)
+        bias = _mask_bias(pos_t[0], k_pos, window, causal=True)
         out = tp.combine_over_data(*_softmax_part(cfg, qg, k, v, bias), dist)
         out = out.permute(0, 3, 1, 2, 4).to(v.dtype)  # (B, 1, G, M, dh)
     else:
-        out = _attend_dense(cfg, qg, k, v, bias)
+        attend = da_ops.decode_attention if kernels_enabled() and sel is None \
+            else decode_attention_ref
+        out = attend(q[:, 0], k, v, k_pos, pos, window=window, softcap=cfg.attn_softcap,
+                     scale=_scale(cfg))
     return attn_out(cfg, p, out.reshape(q.shape), split, dist), cache

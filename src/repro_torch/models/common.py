@@ -13,6 +13,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.sharding import tp
 
+NEG_INF = -2.3819763e38  # large negative for attention masks (fits f32)
+
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32

@@ -13,6 +13,11 @@ import torch
 
 from repro_torch.configs import smoke_config
 from repro_torch.kernels import use_kernels
+from repro_torch.kernels.decode_attention import kernel as da_kernel
+from repro_torch.kernels.decode_attention.cases import CASES as DECODE_CASES
+from repro_torch.kernels.decode_attention.cases import decode_inputs
+from repro_torch.kernels.decode_attention import ops as da_ops
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import kernel, ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.rglru import kernel as lru_kernel
@@ -463,7 +468,87 @@ def test_consult_between_replays_keeps_the_cpu_tokens(cuda_device):
     assert torch.equal(gens[0], gens[1])
 
 
-@pytest.mark.parametrize("name", ["flash_attention", "wkv6", "rglru_scan"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("label,B,H,G,cap,dh,pos,window,softcap", DECODE_CASES,
+                         ids=[c[0] for c in DECODE_CASES])
+def test_decode_attention_kernel_matches_plain_version(cuda_device, label, B, H, G, cap, dh,
+                                                       pos, window, softcap, dtype):
+    """The kernel against ``decode_attention_ref`` on the same CUDA tensors,
+    at the cases ``chip_smoke.py`` phase 3 checks too: f32 at 1e-4 (another
+    order of sums); bf16 at the flash cases' 1e-2, above the plain version's
+    rounding of P to bf16, which the kernel keeps in f32.  One launch, no
+    plain call."""
+    q, k, v, k_pos, p = decode_inputs(cuda_device, B, H, G, cap, dh, pos, window, dtype)
+    kw = dict(window=window, softcap=softcap, scale=dh**-0.5)
+    before = (da_kernel.launches, da_ops.plain_calls)
+    out = da_ops.decode_attention(q, k, v, k_pos, p, **kw)
+    assert (da_kernel.launches, da_ops.plain_calls) == (before[0] + 1, before[1])
+    want = decode_attention_ref(q, k, v, k_pos, p, **kw)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    assert out.shape == want.shape and out.dtype == dtype
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+    if label == "empty_splits":
+        n, per = da_kernel.splits(B, G, cap, dh, q.element_size(), da_kernel.sm_count(q.device))
+        assert n > pos // per + 1  # the splits past pos weigh 0
+
+
+def test_decode_attention_kernel_rejects_off_16_byte_strides(cuda_device):
+    q, k, v, k_pos, p = decode_inputs(cuda_device, 1, 4, 2, 64, 64, 10, 0, torch.bfloat16)
+    wide = torch.zeros((1, 64, 2, 68), dtype=torch.bfloat16, device=cuda_device)
+    before = da_kernel.launches
+    with pytest.raises(ValueError, match="16 bytes"):
+        da_kernel.decode_attention(q, wide[..., 2:66], v, k_pos, p, scale=0.125)
+    assert da_kernel.launches == before
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "llama3.2-1b", "gemma2-9b", "recurrentgemma-9b",
+                                  "whisper-small", "mixtral-8x22b"])
+def test_decode_graph_with_the_decode_kernel_matches_eager(cuda_device, arch):
+    """Kernels on, smoke width in f32: the captured step, replayed with
+    ``pos`` advancing on the device, against the same steps run eagerly from
+    a copy of the caches (each through the kernel): logits at each step at
+    1e-4 (the products around the kernel may take other algorithms under a
+    capture), greedy tokens, caches.  Step 0 and the capture launch the
+    kernel once an attention layer each; a replay runs no Python.  A prompt
+    of 40 wraps the smoke window of 32."""
+    cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+    params = init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0))
+    P, N = 40, 6
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(2, cfg.vocab_size, size=(2, P))).to(cuda_device)
+    frontend = None
+    if cfg.frontend_tokens:
+        frontend = torch.from_numpy(rng.standard_normal(
+            (2, cfg.frontend_tokens, cfg.frontend_dim or cfg.d_model),
+            dtype=np.float32)).to(cuda_device)
+    n_attn = sum(g.count * sum(k in ("attn", "local", "attn_x") for k in g.pattern)
+                 for g in cfg.groups)
+    use_kernels(True)
+    try:
+        logits, caches = dec.prefill(cfg, params, tokens, frontend=frontend, capacity=P + N)
+        tok = logits.argmax(-1)[:, None]
+        before = da_kernel.launches
+        steps = dec.DecodeGraph(cfg, params, _clone(caches), tok, P, N)
+        want_toks = []
+        for i in range(N):
+            want_toks.append(tok[:, 0])
+            want, caches = dec.decode_step(cfg, params, caches, tok, P + i)
+            got = steps.step().clone()
+            if i == 0:
+                assert steps.graph is not None
+                assert da_kernel.launches == before + 3 * n_attn  # eager, step 0, capture
+            torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+            tok = want.argmax(-1)[:, None]
+    finally:
+        use_kernels(False)
+    assert da_kernel.launches == before + (N + 2) * n_attn
+    assert torch.equal(steps.tokens, torch.stack(want_toks, dim=1))
+    assert int(steps.pos) == P + N
+    for g, w in zip(_leaves(steps.caches), _leaves(caches)):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "wkv6", "rglru_scan", "decode_attention"])
 def test_kernel_refuses_inputs_that_require_grad(cuda_device, name):
     """With grad mode on, a CUDA input that requires grad is refused before
     any launch (the kernel has no backward: its output would carry no
@@ -480,6 +565,8 @@ def test_kernel_refuses_inputs_that_require_grad(cuda_device, name):
         "wkv6": (wkv_kernel.wkv6, wkv_kernel,
                  list(_wkv_inputs(cuda_device, 1, 32, 2, 64, torch.float32))),
         "rglru_scan": (lru_kernel.rglru_scan, lru_kernel, [draw(1, 64, 32) for _ in range(2)]),
+        "decode_attention": (_decode_fn(cuda_device), da_kernel,
+                             [draw(1, 4, 64), draw(1, 16, 2, 64), draw(1, 16, 2, 64)]),
     }[name]
     inputs = [t.clone().requires_grad_() for t in inputs]
     before = module.launches
@@ -490,6 +577,13 @@ def test_kernel_refuses_inputs_that_require_grad(cuda_device, name):
         fn(*inputs)
     torch.cuda.synchronize()
     assert module.launches == before + 1
+
+
+def _decode_fn(device):
+    """The decode kernel on q, k, v over 16 slots holding positions 0..15."""
+    k_pos = torch.arange(16, dtype=torch.int32, device=device)
+    pos = torch.tensor(15, dtype=torch.int32, device=device)
+    return lambda q, k, v: da_kernel.decode_attention(q, k, v, k_pos, pos, scale=0.125)
 
 
 def test_host_device_copy_fit_on_card(cuda_device):

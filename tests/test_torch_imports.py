@@ -57,3 +57,18 @@ def test_distribution_modules_are_in_the_port():
     for name in DISTRIBUTION:
         assert (SRC / (name.replace(".", "/") + ".py")).is_file(), name
     assert "def bench_allreduce(" in (PORT / "core" / "benchmark.py").read_text()
+
+
+KERNELS = ["repro_torch.kernels.decode_attention.cases",
+           "repro_torch.kernels.decode_attention.kernel",
+           "repro_torch.kernels.decode_attention.ops",
+           "repro_torch.kernels.decode_attention.ref"]
+
+
+def test_kernel_modules_are_in_the_port():
+    """The decode-attention kernel's wrapper, dispatch, plain version and cases are
+    port modules, so the two tests above walk them; its CUDA source sits
+    beside them."""
+    for name in KERNELS:
+        assert (SRC / (name.replace(".", "/") + ".py")).is_file(), name
+    assert (PORT / "kernels" / "decode_attention" / "csrc" / "decode_attention.cu").is_file()

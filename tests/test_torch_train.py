@@ -270,20 +270,26 @@ def test_frontend_dtype_refused_as_the_reference_fails(arch):
     assert abs(tms[0]["loss"] - jms[0]["loss"]) <= 5e-2
 
 
-@pytest.mark.parametrize("kernel", ["flash_attention", "wkv6", "rglru_scan"])
+@pytest.mark.parametrize("kernel", ["flash_attention", "wkv6", "rglru_scan", "decode_attention"])
 def test_kernel_wrappers_refuse_inputs_that_require_grad(kernel):
     """Before any device check: with grad mode on, an input that requires
     grad is refused (the kernel has no backward); without one, or under
     no_grad, the wrapper goes on to its own checks (a CPU tensor is refused
     there, as the kernel needs the card)."""
+    from repro_torch.kernels.decode_attention.kernel import decode_attention
     from repro_torch.kernels.flash_attention.kernel import flash_attention
     from repro_torch.kernels.rglru.kernel import rglru_scan
     from repro_torch.kernels.rwkv6.kernel import wkv6
+
+    def decode(q, k, v):  # over 8 slots holding positions 0..7
+        k_pos = torch.arange(8, dtype=torch.int32)
+        return decode_attention(q, k, v, k_pos, k_pos[-1], scale=0.125)
 
     fn, shapes = {
         "flash_attention": (flash_attention, [(1, 2, 8, 32)] * 3),
         "wkv6": (wkv6, [(1, 8, 2, 32)] * 4 + [(2, 32)]),
         "rglru_scan": (rglru_scan, [(1, 8, 16)] * 2),
+        "decode_attention": (decode, [(1, 2, 32), (1, 8, 2, 32), (1, 8, 2, 32)]),
     }[kernel]
     inputs = [torch.zeros(s) for s in shapes]
     inputs[-1].requires_grad_()
