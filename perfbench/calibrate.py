@@ -6,8 +6,11 @@ For each seed: the cell's weights, then as many batches of its traffic as
 its sample needs, served as the timed path serves them; the sample's
 served tokens against the float32 reference (the program's reading).  For
 each control seed also the control: the reference with every weight product
-in float8 e4m3 (``reference.decoder.fp8_linear``), read as the gap of the
-token it ranks first at each position of the same sequences.  Prints one
+in float8 e4m3 (``reference.precision.fp8_linear``), read as the gap of the
+token it ranks first at each position of the same sequences.  The weights'
+layout and the reference are the configuration's own module's
+(``Spec.reference``: ``perfbench/reference/<name>.py``), as in a run; a new
+configuration needs nothing here.  Prints one
 line a seed with the widest and the mean gap and the share of tokens off
 the reference's argmax (``check.numbers``), and writes them as JSON.  The
 benchmark's own runs never run this.
@@ -40,12 +43,13 @@ def readings(cell_name: str, seeds, control_seeds, device="cuda", root: Path = R
     spec = Spec(root, root / "perfbench")
     cell = spec.cell(cell_name)
     model, traffic = cell.config["model"], cell.traffic
+    reference = spec.reference(model)
     cfg = port_config(model)
     n_batches = -(-traffic["check_requests"] // traffic["batch"])
     out = {"cell": cell_name, "program": {}, "control": {}}
     for seed in sorted(set(seeds) | set(control_seeds)):
         t0 = time.perf_counter()
-        params = weights.draw(model, seed, device)
+        params = weights.draw(reference, model, seed, device)
         server = serving.Server(cfg, params, traffic, model, seed, device)
         batches = [server.batch(i) for i in range(n_batches)]
         del server
@@ -53,10 +57,11 @@ def readings(cell_name: str, seeds, control_seeds, device="cuda", root: Path = R
         seqs, served = check.sequences(batches, chosen, traffic, model, seed, device)
         if seed in seeds:
             out["program"][seed] = stats(
-                check.served_gaps(model, params, seqs, served, traffic["prompt_len"]))
+                check.served_gaps(reference, model, params, seqs, served,
+                                  traffic["prompt_len"]))
         if seed in control_seeds:
             out["control"][seed] = stats(
-                check.control_gaps(model, params, seqs, traffic["prompt_len"]))
+                check.control_gaps(reference, model, params, seqs, traffic["prompt_len"]))
         line = {k: out[k].get(seed) for k in ("program", "control")}
         print(f"seed {seed} ({time.perf_counter() - t0:.1f} s): {json.dumps(line)}", flush=True)
         del params, seqs, served, batches

@@ -19,6 +19,12 @@ only.
 The control (``control_gaps``) puts the reference in the program's place
 with every weight product rounded to float8 e4m3: at each position of the
 same sequences it reads the gap of the token the control ranks first.
+
+The reference is the configuration's own module (``reference``, found by
+``Spec.reference``: ``perfbench/reference/<name>.py``), its ``logits``;
+the precision of both readings is one for every model
+(``reference/precision.py``).  Nothing here depends on the model: a new
+configuration brings its reference as a new module.
 """
 from __future__ import annotations
 
@@ -27,7 +33,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from perfbench.reference import decoder
+from perfbench.reference import precision
 from perfbench.serving import Batch, prompts
 from perfbench.weights import sub_seed
 
@@ -56,32 +62,37 @@ def sequences(batches: List[Batch], chosen, traffic: dict, model: dict, seed: in
     return torch.cat(seqs), torch.cat(served)
 
 
-def _ref_logits(model, params, seqs, first, linear):
+def _ref_logits(reference, model, params, seqs, first, linear):
     for s in range(0, seqs.shape[0], REF_BLOCK):
-        yield decoder.logits(model, params, seqs[s:s + REF_BLOCK], first, linear)
+        yield reference.logits(model, params, seqs[s:s + REF_BLOCK], first, linear)
 
 
-def served_gaps(model: dict, params: dict, seqs: torch.Tensor, served: torch.Tensor,
-                prompt_len: int) -> np.ndarray:
-    """(R, N) gap of each served token under the float32 reference."""
-    decoder.set_precision()
+def served_gaps(reference, model: dict, params: dict, seqs: torch.Tensor,
+                served: torch.Tensor, prompt_len: int) -> np.ndarray:
+    """(R, N) gap of each served token under the float32 reference of the
+    model's module ``reference``."""
+    precision.set_precision()
     out = []
+    first = prompt_len - 1
     with torch.no_grad():
-        for s, ref in zip(range(0, seqs.shape[0], REF_BLOCK),
-                          _ref_logits(model, params, seqs, prompt_len - 1, decoder.f32_linear)):
+        for s, ref in zip(range(0, seqs.shape[0], REF_BLOCK), _ref_logits(
+                reference, model, params, seqs, first, precision.f32_linear)):
             picked = ref.gather(-1, served[s:s + REF_BLOCK, :, None])[..., 0]
             out.append((ref.max(-1).values - picked).cpu().numpy())
     return np.concatenate(out)
 
 
-def control_gaps(model: dict, params: dict, seqs: torch.Tensor, prompt_len: int) -> np.ndarray:
+def control_gaps(reference, model: dict, params: dict, seqs: torch.Tensor,
+                 prompt_len: int) -> np.ndarray:
     """(R, N) gap, under the float32 reference, of the token the float8
     control ranks first at each position of ``seqs``."""
-    decoder.set_precision()
+    precision.set_precision()
     out = []
+    first = prompt_len - 1
     with torch.no_grad():
-        for ref, low in zip(_ref_logits(model, params, seqs, prompt_len - 1, decoder.f32_linear),
-                            _ref_logits(model, params, seqs, prompt_len - 1, decoder.fp8_linear)):
+        for ref, low in zip(
+                _ref_logits(reference, model, params, seqs, first, precision.f32_linear),
+                _ref_logits(reference, model, params, seqs, first, precision.fp8_linear)):
             picked = ref.gather(-1, low.argmax(-1, keepdim=True))[..., 0]
             out.append((ref.max(-1).values - picked).cpu().numpy())
     return np.concatenate(out)

@@ -71,30 +71,59 @@ def _idle_by_phase(gaps: List[Tuple[int, int]], host: List[Tuple[int, int, str]]
     return idle
 
 
-def read(prof, phases) -> DeviceTrace:
-    """The device trace of ``prof`` inside its ``WINDOW`` host range;
-    ``phases`` are the host phase names the harness recorded."""
+@dataclasses.dataclass
+class Events:
+    """A profile's events as the readers take them, read in one pass."""
+
+    window: Tuple[int, int]  # the WINDOW host range, ns
+    phases: List[Tuple[int, int, str]]  # the harness's host phases: start, end, name
+    device: List[Tuple[int, int, int, str]]  # device operations: start, end, correlation id, name
+    host: List[Tuple[int, int, str, int, bool]]  # other host events kept: start, end,
+    # name, correlation id, whether a user annotation
+
+
+def events(prof, phases, host_prefixes: Tuple[str, ...] = ()) -> Events:
+    """The events of ``prof``: its ``WINDOW`` range, the host phases named
+    ``phases``, every device operation, and the other host events whose
+    names start with one of ``host_prefixes``.  The profile is walked once,
+    so that a traced run that reads both the device trace and the
+    program's spans pays for one walk over its millions of events."""
     from torch.autograd import DeviceType
 
-    events = prof.profiler.kineto_results.events()
     names = set(phases) | {WINDOW}
     window = None
-    host: List[Tuple[int, int, str]] = []
-    device: List[Tuple[int, int, str]] = []
-    for e in events:
+    host_phases: List[Tuple[int, int, str]] = []
+    device: List[Tuple[int, int, int, str]] = []
+    host: List[Tuple[int, int, str, int, bool]] = []
+    for e in prof.profiler.kineto_results.events():
         name = e.name()
-        if e.device_type() == DeviceType.CPU:
+        kind = e.device_type()
+        if kind == DeviceType.CPU:
             if name == WINDOW:
                 window = (e.start_ns(), e.end_ns())
             elif name in names:
-                host.append((e.start_ns(), e.end_ns(), name))
-        elif e.device_type() == DeviceType.CUDA and name not in names \
-                and not e.is_user_annotation():
-            device.append((e.start_ns(), e.start_ns() + e.duration_ns(), name))
+                host_phases.append((e.start_ns(), e.end_ns(), name))
+            elif host_prefixes and name.startswith(host_prefixes):
+                host.append((e.start_ns(), e.end_ns(), name, e.correlation_id(),
+                             e.is_user_annotation()))
+        elif kind == DeviceType.CUDA and name not in names and not e.is_user_annotation():
+            start = e.start_ns()
+            device.append((start, start + e.duration_ns(), e.correlation_id(), name))
     if window is None:
         raise RuntimeError(f"the profile holds no {WINDOW!r} range")
-    ws, we = window
-    device = [(max(s, ws), min(e, we), n) for s, e, n in device if e > ws and s < we]
+    return Events(window, host_phases, device, host)
+
+
+def read(prof, phases) -> DeviceTrace:
+    """The device trace of ``prof`` inside its ``WINDOW`` host range;
+    ``phases`` are the host phase names the harness recorded."""
+    return trace(events(prof, phases))
+
+
+def trace(ev: Events) -> DeviceTrace:
+    """The device trace of a profile's events (``events``)."""
+    ws, we = ev.window
+    device = [(max(s, ws), min(e, we), n) for s, e, _, n in ev.device if e > ws and s < we]
     op_seconds: Dict[str, float] = {}
     op_counts: Dict[str, int] = {}
     for s, e, n in device:
@@ -103,7 +132,7 @@ def read(prof, phases) -> DeviceTrace:
     busy = _union([(s, e) for s, e, _ in device])
     edges = [ws] + [t for iv in busy for t in iv] + [we]
     gaps = [(gs, ge) for gs, ge in zip(edges[::2], edges[1::2]) if ge > gs]
-    idle = _idle_by_phase(gaps, host)
+    idle = _idle_by_phase(gaps, ev.phases)
     return DeviceTrace(window_s=(we - ws) / 1e9,
                        busy_s=sum(e - s for s, e in busy) / 1e9,
                        op_seconds=op_seconds, op_counts=op_counts,

@@ -12,8 +12,15 @@ Then the window: batches back to back for ``--seconds`` (``serving``).  With
 ``--trace 1`` the window runs under ``torch.profiler`` with the harness's
 phases named and every replay timed by CUDA events, and the line carries
 the per-layer metrics; with ``--trace 0`` the end-to-end ones.  After the
-window the peak memory is read, the program's state is freed and a sample
-of the window's requests is judged against the plain reference (``check``).
+window the peak memory is read, a traced run's profile is walked once and
+read two ways (the device trace, ``devtrace``, and the program's spans,
+``spans``, which the readers find as ``Run.trace`` and ``Run.spans``), the
+program's state is freed and a sample of the window's requests is judged
+against the plain reference (``check``).
+
+The model's own code (the weights' layout, the reference and the counts the
+readers use) is the configuration's module (``Spec.reference``), which the
+``Run`` carries; nothing here names a model.
 
 The last line of standard output is one JSON object: ``correct``,
 ``attempted`` (requests served in the window), ``failed`` (sampled requests
@@ -31,11 +38,12 @@ import json
 import sys
 import time
 from pathlib import Path
-from typing import List, Optional
+from types import ModuleType
+from typing import List, Optional, Tuple
 
 import torch
 
-from perfbench import check, devtrace, serving, weights
+from perfbench import check, devtrace, serving, spans, weights
 from perfbench.spec import Cell, Spec
 from perfbench.work import peaks as peak_table
 
@@ -55,7 +63,14 @@ class Run:
     window_s: float  # first batch's start to the last batch's last token, host clock
     batches: List[serving.Batch]
     device_name: str
+    reference: ModuleType  # the model's module (``Spec.reference``)
     trace: Optional[devtrace.DeviceTrace] = None
+    spans: Optional[spans.SpanTrace] = None  # the program's spans, traced runs only
+
+    @property
+    def work(self) -> ModuleType:
+        """The model's counts (``perfbench/work/<WORK>.py``)."""
+        return self.reference.work
 
     @property
     def peaks(self) -> Optional[dict]:
@@ -94,15 +109,16 @@ def forbidden_modules() -> List[str]:
 
 
 def run_cell(spec: Spec, cell: Cell, seed: int, seconds: float, trace: bool, device,
-             t_start: float) -> dict:
-    """One run; returns the result line's object."""
+             t_start: float) -> Tuple[Run, dict]:
+    """One run; returns what its readers read and the result line's object."""
     device = torch.device(device)
     cuda = device.type == "cuda"
     model, traffic = cell.config["model"], cell.traffic
     readers = spec.readers(cell.per_layer if trace else cell.end_to_end)
+    reference = spec.reference(model)
     cfg = port_config(model)
     t_draw = time.perf_counter()
-    params = weights.draw(model, seed, device)
+    params = weights.draw(reference, model, seed, device)
     _sync(device)
     t_warm = time.perf_counter()
     server = serving.Server(cfg, params, traffic, model, seed, device)
@@ -123,13 +139,21 @@ def run_cell(spec: Spec, cell: Cell, seed: int, seconds: float, trace: bool, dev
     window_s = batches[-1].end - batches[0].start
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     name = torch.cuda.get_device_name(device) if cuda else "cpu"
-    dtrace = devtrace.read(prof, serving.PHASES) if prof is not None else None
-    del prof, server
+    t_read = time.perf_counter()
+    events = devtrace.events(prof, serving.PHASES, spans.HOST_PREFIXES) \
+        if prof is not None else None
+    del prof
+    t_trace = time.perf_counter()
+    dtrace = devtrace.trace(events) if events is not None else None
+    t_spans = time.perf_counter()
+    strace = spans.split(events) if events is not None else None
+    t_read_end = time.perf_counter()
+    del events, server
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
 
-    run = Run(cell, model, traffic, setup_s, window_s, batches, name, dtrace)
+    run = Run(cell, model, traffic, setup_s, window_s, batches, name, reference, dtrace, strace)
     metrics = {}
     for metric in (cell.per_layer if trace else cell.end_to_end):
         value = readers[metric["name"]].read(run)
@@ -138,7 +162,7 @@ def run_cell(spec: Spec, cell: Cell, seed: int, seconds: float, trace: bool, dev
 
     chosen = check.sample(batches, traffic["batch"], traffic["check_requests"], seed)
     seqs, served = check.sequences(batches, chosen, traffic, model, seed, device)
-    gaps = check.served_gaps(model, params, seqs, served, traffic["prompt_len"])
+    gaps = check.served_gaps(reference, model, params, seqs, served, traffic["prompt_len"])
     read = check.numbers(gaps)
     checked, failed = check.judge(read, cell.checks, len(chosen))
 
@@ -158,12 +182,14 @@ def run_cell(spec: Spec, cell: Cell, seed: int, seconds: float, trace: bool, dev
           f"in {window_s:.3f} s, a batch {walls[0]:.4f}/{walls[len(walls) // 2]:.4f}/"
           f"{walls[-1]:.4f} s, step 0 and capture {firsts[0] * 1e3:.1f}/"
           f"{firsts[len(firsts) // 2] * 1e3:.1f}/{firsts[-1] * 1e3:.1f} ms (min/median/max), "
-          f"peak {peak / 1e9:.3f} GB; in order, batch s "
+          f"peak {peak / 1e9:.3f} GB; the profile's events read {t_trace - t_read:.3f} s, "
+          f"the device trace {t_spans - t_trace:.3f} s, the spans {t_read_end - t_spans:.3f} s; "
+          f"in order, batch s "
           f"{[round(float(b.end - b.start), 3) for b in batches]}, step 0 and capture ms "
           f"{[round(b.first_step_s * 1e3, 1) for b in batches]}", file=sys.stderr)
     out["observed"] = {k: v for k, v in read.items() if k not in checked}
     out["checked"] = checked
-    return out
+    return run, out
 
 
 def main(argv=None, t_start: Optional[float] = None) -> int:
@@ -176,7 +202,7 @@ def main(argv=None, t_start: Optional[float] = None) -> int:
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0} visible",
               file=sys.stderr)
         return 3
-    out = run_cell(spec, cell, args.seed, args.seconds, bool(args.trace), "cuda", t_start)
+    _, out = run_cell(spec, cell, args.seed, args.seconds, bool(args.trace), "cuda", t_start)
     found = forbidden_modules()
     if found:
         print(f"perfbench: the process loaded {found}; the benchmark measures the port alone",

@@ -1,9 +1,7 @@
 """The replayed decode steps' share of the HBM roofline: their least bytes
-(``work.serve.decode_step_least_bytes``: the weights once, the filled K
-and V once, the new K and V written once) over their time from CUDA
+(``run.work.decode_step_least_bytes``: the weights once, the filled K and
+V once, the new K and V written once) over their time from CUDA
 events, against 3.35 TB/s."""
-from perfbench.work import serve as work
-
 UNIT, RUN, SOURCE = "%", "traced", "device_trace"
 
 
@@ -15,7 +13,7 @@ def read(run):
     nbytes = seconds = 0.0
     for b in run.batches:
         for i, ms in enumerate(b.replay_ms, start=1):  # replay i is decode step i
-            nbytes += work.decode_step_least_bytes(run.model, B, P + i)
+            nbytes += run.work.decode_step_least_bytes(run.model, B, P + i)
             seconds += ms / 1e3
     if not seconds:
         return None

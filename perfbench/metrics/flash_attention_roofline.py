@@ -1,10 +1,8 @@
 """The flash kernel's share of its roofline in prefill: each recorded
 launch (kernels named ``flash_fwd...`` in the profiler's trace; one a layer
 a prefill, all of the cell's shape) against the larger of its FLOPs at
-989 TFLOP/s and its bytes at 3.35 TB/s (``work.serve.flash_launch_*``),
+989 TFLOP/s and its bytes at 3.35 TB/s (``run.work.flash_launch_*``),
 summed over the launches the trace recorded, over their device time."""
-from perfbench.work import serve as work
-
 UNIT, RUN, SOURCE = "%", "traced", "device_trace"
 KERNEL = "flash_fwd"
 
@@ -20,7 +18,7 @@ def read(run):
                for g in m["groups"] for k in g["pattern"]}
     if len(windows) != 1:
         return None  # launches of different windows are not told apart here
-    least = work.least_seconds(
-        work.flash_launch_flops(m, t["batch"], t["prompt_len"], windows.pop()),
-        work.flash_launch_bytes(m, t["batch"], t["prompt_len"]), run.peaks)
+    least = run.work.least_seconds(
+        run.work.flash_launch_flops(m, t["batch"], t["prompt_len"], windows.pop()),
+        run.work.flash_launch_bytes(m, t["batch"], t["prompt_len"]), run.peaks)
     return 100.0 * least * launches / seconds

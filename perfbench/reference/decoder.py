@@ -1,24 +1,32 @@
-"""Plain float32 reference of a decoder-only model: the full forward pass over
-whole sequences, no cache, no kernels, no batching tricks.
+"""The code of a decoder-only model, for every configuration that names no
+other module (``"reference"`` in a configuration file's ``model`` section;
+``decoder`` where absent): the layout the benchmark draws its weights in
+(``layout``, ``absent``), the plain float32 reference that decides
+``correct`` (``logits``) and the counts module its readers use (``WORK``:
+``perfbench/work/serve.py``).  A configuration that this module does not
+cover brings ``perfbench/reference/<name>.py`` with the same four names,
+and ``perfbench/work/<name>.py`` where ``serve.py`` does not count it.
 
-It follows a configuration file's ``model`` section: token embedding;
-layers of pre-norm (RMSNorm with its scale, or LayerNorm without one)
-causal self-attention with grouped KV heads, split-half RoPE and an optional
-sliding window, then a SwiGLU MLP or a top-k mixture of experts (softmax
-router in float32, the top-k gates renormalised, each expert a SwiGLU MLP);
-a final norm and the head (the embedding table, transposed, when tied).
+The reference is the full forward pass over whole sequences, no cache, no
+kernels, no batching tricks.  It follows the configuration's ``model``
+section: token embedding; layers of pre-norm (RMSNorm with its scale, or
+LayerNorm without one) causal self-attention with grouped KV heads,
+split-half RoPE and an optional sliding window, then a SwiGLU MLP or a
+top-k mixture of experts (softmax router in float32, the top-k gates
+renormalised, each expert a SwiGLU MLP); a final norm and the head (the
+embedding table, transposed, when tied).
 
 The weights are the benchmark's own tensors, in the layout it draws them
-(``perfbench.weights``): one tree with ``embed``, ``groups`` (leaves stacked
-over each group's count) and ``final_norm``.  Each leaf is read in its
-stored dtype and cast to float32 where it is used, one layer or one expert
-at a time, so that the reference fits beside a model that fills most of
-the card.  Matrix products run in float32 with TF32 off.
+(``layout``, ``perfbench.weights``): one tree with ``embed``, ``groups``
+(leaves stacked over each group's count) and ``final_norm``.  Each leaf is
+read in its stored dtype and cast to float32 where it is used, one layer or
+one expert at a time, so that the reference fits beside a model that fills
+most of the card.  Matrix products run in float32 with TF32 off.
 
 ``linear`` computes every product of activations with a weight matrix; the
 control passes one that rounds both to a lower precision first
-(``fp8_linear``).  The router's product, the attention scores and the
-softmaxes stay in float32 in every case.
+(``precision.fp8_linear``).  The router's product, the attention scores and
+the softmaxes stay in float32 in every case.
 
 Departures from the published models, both of which the program shares:
 the RMSNorm's eps is 1e-6 for every model, the LayerNorm's 1e-5; the
@@ -26,45 +34,82 @@ vocabulary is padded to a multiple of 256 rows.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
+from .precision import f32_linear
+
+WORK = "serve"  # perfbench/work/serve.py counts this module's models
 RMS_EPS = 1e-6
 LN_EPS = 1e-5
 QUERY_CHUNK = 1024  # queries a block in attention: bounds the score matrix
-
-
-def f32_linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (..., k) f32 @ w (k, n), w cast to f32."""
-    return x @ w.float()
-
-
-FP8_MAX = 448.0  # the largest float8 e4m3 value
-
-
-def _fp8_round(t: torch.Tensor, dim: int) -> torch.Tensor:
-    """``t`` rounded to float8 e4m3 with one scale per slice along ``dim``
-    (its largest magnitude maps to 448), back in float32."""
-    scale = t.abs().amax(dim=dim, keepdim=True).clamp_min(1e-12) / FP8_MAX
-    return (t / scale).to(torch.float8_e4m3fn).float() * scale
-
-
-def fp8_linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The control's product: the activations rounded to float8 e4m3 a row
-    at a time, the weight a column at a time, then multiplied in f32."""
-    return _fp8_round(x.float(), -1) @ _fp8_round(w.float(), 0)
-
-
-def set_precision() -> None:
-    """float32 products in float32: TF32 off for matmuls and cuDNN."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+KINDS = ("attn", "local")
+NORMS = ("rmsnorm", "nonparam_ln")
 
 
 def head_dim(model: dict) -> int:
     return model.get("head_dim") or model["d_model"] // model["n_heads"]
+
+
+def vocab_rows(model: dict) -> int:
+    """The vocabulary padded to a multiple of 256 rows, the port's padding."""
+    return -(-model["vocab_size"] // 256) * 256
+
+
+def _kinds(model: dict):
+    """(group index, kind index, count, kind) of every layer kind."""
+    if model["norm"] not in NORMS:
+        raise NotImplementedError(f"norm {model['norm']}")
+    for gi, g in enumerate(model["groups"]):
+        for ki, kind in enumerate(g["pattern"]):
+            if kind not in KINDS:
+                raise NotImplementedError(f"layer kind {kind}")
+            yield gi, ki, g["count"], kind
+
+
+def layout(model: dict) -> List[Tuple]:
+    """Every leaf of the port's parameter tree for this model: (path,
+    shape, dtype, std), std None for a norm's ones.  Matrices are normal
+    with std 1/sqrt(fan-in), the port's own init; the router is float32."""
+    dt = DTYPES[model.get("dtype", "bfloat16")]
+    d, H, G, dh = model["d_model"], model["n_heads"], model["n_kv_heads"], head_dim(model)
+    ff, V = model["d_ff"], vocab_rows(model)
+    gated = model.get("gated", True)
+    leaves = [(("embed", "tok"), (V, d), dt, d ** -0.5)]
+    if not model.get("tie_embeddings"):
+        leaves.append((("embed", "head"), (d, V), dt, d ** -0.5))
+    norm = model["norm"] != "nonparam_ln"
+    for gi, ki, n, _ in _kinds(model):
+        at = ("groups", gi, ki)
+        if norm:
+            leaves += [(at + ("ln1", "scale"), (n, d), dt, None),
+                       (at + ("ln2", "scale"), (n, d), dt, None)]
+        leaves += [(at + ("attn", "wq"), (n, d, H, dh), dt, d ** -0.5),
+                   (at + ("attn", "wk"), (n, d, G, dh), dt, d ** -0.5),
+                   (at + ("attn", "wv"), (n, d, G, dh), dt, d ** -0.5),
+                   (at + ("attn", "wo"), (n, H, dh, d), dt, (H * dh) ** -0.5)]
+        E = model.get("n_experts", 0)
+        cols = 2 * ff if gated else ff
+        if E:
+            leaves += [(at + ("moe", "router"), (n, d, E), torch.float32, d ** -0.5),
+                       (at + ("moe", "w_in"), (n, E, d, 2 * ff), dt, d ** -0.5),
+                       (at + ("moe", "w_out"), (n, E, ff, d), dt, ff ** -0.5)]
+        else:
+            leaves += [(at + ("mlp", "w_in"), (n, d, cols), dt, d ** -0.5),
+                       (at + ("mlp", "w_out"), (n, ff, d), dt, ff ** -0.5)]
+    if norm:
+        leaves.append((("final_norm", "scale"), (d,), dt, None))
+    return leaves
+
+
+def absent(model: dict) -> List[Tuple]:
+    """The paths the port holds as None: a LayerNorm without parameters."""
+    if model["norm"] != "nonparam_ln":
+        return []
+    return [("groups", gi, ki, ln) for gi, ki, _, _ in _kinds(model)
+            for ln in ("ln1", "ln2")] + [("final_norm",)]
 
 
 def _norm(model: dict, x: torch.Tensor, p: Optional[dict]) -> torch.Tensor:

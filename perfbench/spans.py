@@ -18,8 +18,11 @@ what was launched between its ends.  An idle gap of 20 us or more goes to
 the innermost program span that holds its midpoint, else to the harness's
 phase by ``devtrace``'s rule.
 
-The harness's traced run does not read these spans yet.  One traced
-window of a cell, read by them, from the root of a checkout:
+The harness's traced run reads them once the window has closed and hands
+them to the metrics' readers as ``Run.spans`` (``layer_ms`` gives the
+per-layer device times), so a reader can read any span the port adds.
+One traced window of a cell with the whole split, from the root of a
+checkout:
 
     python3 perfbench/spans.py --workload <cell> --seed <n> --seconds <s>
 
@@ -45,6 +48,7 @@ from perfbench import devtrace  # noqa: E402
 PREFIXES = ("model.", "graph.")  # the program's span names
 NONE = "(none)"
 LAUNCH = ("cuda", "cu")  # host calls that launch: cudaLaunchKernel, cuLaunchKernel, ...
+HOST_PREFIXES = PREFIXES + LAUNCH  # the host events ``split`` reads
 PREFILL = "model.prefill"
 STEP0 = "graph.warmup/model.decode_step"  # step 0, the eager run of the captured step
 LAYERS = ("model.attention", "model.ffn")
@@ -112,32 +116,17 @@ def _innermost(spans: List[Tuple[int, int, str]], times: List[int]) -> List[Opti
 def read(prof, phases) -> SpanTrace:
     """The program's spans of ``prof`` inside ``devtrace.WINDOW``;
     ``phases`` are the harness's host phase names."""
-    from torch.autograd import DeviceType
+    return split(devtrace.events(prof, phases, HOST_PREFIXES))
 
-    names = set(phases) | {devtrace.WINDOW}
-    window = None
-    host: List[Tuple[int, int, str]] = []
-    spans: List[Tuple[int, int, str]] = []
-    launches: Dict[int, int] = {}  # correlation id -> host time of the launch
-    device: List[Tuple[int, int, int, str]] = []  # start, end, correlation id, name
-    for e in prof.profiler.kineto_results.events():
-        name = e.name()
-        if e.device_type() == DeviceType.CPU:
-            if name == devtrace.WINDOW:
-                window = (e.start_ns(), e.end_ns())
-            elif name in names:
-                host.append((e.start_ns(), e.end_ns(), name))
-            elif name.startswith(PREFIXES):
-                spans.append((e.start_ns(), e.end_ns(), name))
-            elif name.startswith(LAUNCH) and not e.is_user_annotation():
-                launches[e.correlation_id()] = e.start_ns()
-        elif e.device_type() == DeviceType.CUDA and name not in names \
-                and not e.is_user_annotation():
-            device.append((e.start_ns(), e.start_ns() + e.duration_ns(), e.correlation_id(),
-                           name))
-    if window is None:
-        raise RuntimeError(f"the profile holds no {devtrace.WINDOW!r} range")
-    ws, we = window
+
+def split(ev: devtrace.Events) -> SpanTrace:
+    """The program's spans of a profile's events (``devtrace.events`` with
+    ``HOST_PREFIXES`` kept)."""
+    spans = [(s, e, n) for s, e, n, _, _ in ev.host if n.startswith(PREFIXES)]
+    launches = {c: s for s, _, n, c, annotation in ev.host
+                if n.startswith(LAUNCH) and not annotation}
+    host, device = ev.phases, ev.device
+    ws, we = ev.window
     spans = _with_paths(sorted((s, e, n) for s, e, n in spans if e > ws and s < we))
     calls: Dict[str, int] = {}
     host_seconds: Dict[str, float] = {}
@@ -229,21 +218,8 @@ def main(argv=None) -> int:
     # the replays' CUDA events in every cell, to set step 0 against
     cell.per_layer += [m for m in spec.bench["per_layer"]
                        if m["name"] == "decode.step_ms" and m not in cell.per_layer]
-    held = {}
-    read_trace = devtrace.read
-
-    def read_both(prof, phases):
-        held["trace"] = read_trace(prof, phases)
-        held["spans"] = read(prof, phases)
-        return held["trace"]
-
-    devtrace.read = read_both
-    try:
-        out = harness.run_cell(spec, cell, args.seed, args.seconds, True, "cuda", t_start)
-    finally:
-        devtrace.read = read_trace
-    print(json.dumps({"run": out, "layers": summary(held["spans"], held["trace"])}),
-          flush=True)
+    run, out = harness.run_cell(spec, cell, args.seed, args.seconds, True, "cuda", t_start)
+    print(json.dumps({"run": out, "layers": summary(run.spans, run.trace)}), flush=True)
     return 0
 
 

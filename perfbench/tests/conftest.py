@@ -83,4 +83,4 @@ def smoke_run(root: Path, cell: str, seed: int = 2**31 + 11, trace: bool = False
 
     spec = Spec(root, root / "perfbench")
     return harness.run_cell(spec, spec.cell(cell), seed, seconds, trace, "cpu",
-                            time.perf_counter())
+                            time.perf_counter())[1]

@@ -1,5 +1,5 @@
 """The control: the reference in the program's place with every weight
-product in float8 e4m3 (``reference.decoder.fp8_linear``), the precision
+product in float8 e4m3 (``reference.precision.fp8_linear``), the precision
 below the configurations' bf16.  It must fail the limit that the program
 passes: at smoke width on the CPU, and at each cell's own size on the card
 (``calibrate.readings``, the readings the limits were set from)."""

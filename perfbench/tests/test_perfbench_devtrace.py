@@ -34,6 +34,9 @@ class _Event:
     def is_user_annotation(self):
         return self._v[4]
 
+    def correlation_id(self):
+        return 0
+
 
 def _profile(events):
     results = types.SimpleNamespace(events=lambda: events)
@@ -88,7 +91,8 @@ def test_flash_roofline_reads_each_recorded_launch():
     least = work.least_seconds(work.flash_launch_flops(model, 2, 64),
                                work.flash_launch_bytes(model, 2, 64), h100)
     trace = devtrace.read(_profile(EVENTS), PHASES)  # two launches, 200 us in all
-    run = types.SimpleNamespace(trace=trace, peaks=h100, traffic=traffic, model=model)
+    run = types.SimpleNamespace(trace=trace, peaks=h100, traffic=traffic, model=model,
+                                work=work)
     assert reader.read(run) == pytest.approx(100.0 * least * 2 / 200e-6)
     run.trace = None
     assert reader.read(run) is None

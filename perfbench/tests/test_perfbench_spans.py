@@ -140,6 +140,10 @@ def test_devtrace_reads_the_same_with_the_programs_spans():
     assert spanned.op_seconds == bare.op_seconds and spanned.op_counts == bare.op_counts
     assert spanned.idle_by_phase == bare.idle_by_phase
     assert (spanned.busy_s, spanned.window_s) == (bare.busy_s, bare.window_s)
+    # one walk over the profile, as the harness reads it, reads both the same
+    both = devtrace.events(_profile(HARNESS + PROGRAM + WORK), PHASES, spans.HOST_PREFIXES)
+    assert devtrace.trace(both) == spanned
+    assert spans.split(both) == spans.read(_profile(HARNESS + PROGRAM + WORK), PHASES)
 
 
 def test_no_program_span_reads_nothing():
@@ -212,3 +216,25 @@ def test_a_card_profile_charges_each_layer():
     assert t.op_seconds[spans.NONE] > 0
     assert graph.warmup_seconds > 0 and graph.capture_seconds > 0
     assert 0 <= graph.first_step_seconds - graph.warmup_seconds - graph.capture_seconds < 1e-3
+
+
+@pytest.mark.parametrize("name", ["prefill.attention_ms", "prefill.ffn_ms",
+                                  "decode.attention_ms", "decode.ffn_ms"])
+def test_span_readers_read_run_spans(name):
+    """The layer readers read ``Run.spans`` as the harness keeps it: a
+    hand-built ``SpanTrace`` of two prefills and two step 0s."""
+    reader = _reader(name)
+    t = spans.SpanTrace(
+        op_seconds={"model.prefill/model.attention": 0.30, "model.prefill/model.ffn": 0.50,
+                    "model.prefill": 0.02, spans.NONE: 1.0,
+                    "graph.warmup/model.decode_step/model.attention": 0.008,
+                    "graph.warmup/model.decode_step/model.attention/model.extra": 0.002,
+                    "graph.warmup/model.decode_step/model.ffn": 0.004},
+        op_counts={}, calls={"model.prefill": 2, "graph.warmup/model.decode_step": 2},
+        host_seconds={}, idle={})
+    want = {"prefill.attention_ms": 150.0, "prefill.ffn_ms": 250.0,
+            "decode.attention_ms": 5.0, "decode.ffn_ms": 2.0}
+    assert reader.read(types.SimpleNamespace(spans=t)) == pytest.approx(want[name])
+    assert reader.read(types.SimpleNamespace(spans=None)) is None  # an untraced run
+    empty = spans.SpanTrace({}, {}, {}, {}, {})  # a profile with no program span
+    assert reader.read(types.SimpleNamespace(spans=empty)) is None

@@ -9,6 +9,7 @@ import torch
 
 from conftest import ROOT
 from perfbench import weights
+from perfbench.reference import decoder
 from perfbench.work import serve as work
 
 CONFIGS = {p.stem: json.loads(p.read_text()) for p in (ROOT / "perfbench/configs").glob("*.json")}
@@ -62,18 +63,22 @@ def test_flash_launch_counts():
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_weights_layout_is_the_ports(name):
-    """The benchmark's own layout against the port's init on the meta device."""
+    """The benchmark's own layout, through the configuration's module (its
+    leaves and the paths it holds as None), against the port's init on the
+    meta device."""
     from perfbench.harness import port_config
+    from perfbench.spec import Spec
     from repro_torch.models.transformer import param_shapes
 
     model = CONFIGS[name]["model"]
+    reference = Spec(ROOT).reference(model)
     cfg = port_config(model)
     want = {}
 
     def walk(tree, path):
         if tree is None:
-            return
-        if isinstance(tree, dict):
+            want[path] = None
+        elif isinstance(tree, dict):
             for k, v in tree.items():
                 walk(v, path + (k,))
         elif isinstance(tree, (tuple, list)):
@@ -83,23 +88,24 @@ def test_weights_layout_is_the_ports(name):
             want[path] = (tuple(tree.shape), tree.dtype)
 
     walk(param_shapes(cfg), ())
-    got = {path: (shape, dt) for path, shape, dt, _ in weights.layout(model)}
+    got = {path: (shape, dt) for path, shape, dt, _ in reference.layout(model)}
+    got.update((path, None) for path in reference.absent(model))
     assert got == want
-    assert work.vocab_rows(model) == cfg.vocab_padded == weights.vocab_rows(model)
+    assert work.vocab_rows(model) == cfg.vocab_padded == decoder.vocab_rows(model)
     table = 0 if cfg.tie_embeddings else work.head_params(model)  # the untied input table
     assert work.token_matrix_params(model) + work.head_params(model) + table \
         == cfg.active_param_count()
 
 
 def test_weights_bytes_and_draw():
-    assert weights.nbytes(MIXTRAL) == pytest.approx(40.87e9, rel=0.001)
-    assert weights.nbytes(OLMO) == pytest.approx(2.35e9, rel=0.01)
+    assert weights.nbytes(decoder.layout(MIXTRAL)) == pytest.approx(40.87e9, rel=0.001)
+    assert weights.nbytes(decoder.layout(OLMO)) == pytest.approx(2.35e9, rel=0.01)
     from conftest import tiny_model
 
     model = tiny_model("tiny-moe")
-    a, b = (weights.draw(model, 2**31 + 5, "cpu") for _ in range(2))
+    a, b = (weights.draw(decoder, model, 2**31 + 5, "cpu") for _ in range(2))
     assert torch.equal(a["groups"][0][0]["moe"]["w_in"], b["groups"][0][0]["moe"]["w_in"])
-    c = weights.draw(model, 2**31 + 6, "cpu")
+    c = weights.draw(decoder, model, 2**31 + 6, "cpu")
     assert not torch.equal(a["embed"]["tok"], c["embed"]["tok"])
     w = a["groups"][0][0]["attn"]["wq"].float()
     assert w.std().item() == pytest.approx(64 ** -0.5, rel=0.1)

@@ -1,14 +1,15 @@
 """The benchmark's weights: drawn on the device from the seed, in the
 parameter layout the port takes and in the dtype it serves in.
 
-The layout (``layout``) is written out here from a configuration file's
-``model`` section, not read from the program: an ``embed`` dict (``tok``,
-and ``head`` unless tied), ``groups`` (one tuple a layer group, one dict a
-layer kind of its pattern, every leaf stacked over the group's count) and
-``final_norm``.  Matrices are normal with std 1/sqrt(fan-in), the port's
-own init; norm scales are 1; the router is float32.  Every leaf of one dtype
-is a view of one buffer filled by a few large ``normal_`` calls of a
-generator on the device, then scaled in place a leaf at a time.
+The layout is the model's, not the program's: the configuration's own
+module (``perfbench/reference/<name>.py``, found by ``Spec.reference``)
+writes it out from the configuration file's ``model`` section as its
+``layout(model)``, a list of leaves (``Leaf``), and names in
+``absent(model)`` the paths the port holds as None.  Nothing here depends
+on the model: a new configuration adds its layout to its own module.
+Every leaf of one dtype is a view of one buffer filled by a few large
+``normal_`` calls of a generator on the device, then scaled in place a leaf
+at a time: by its std, or set to 1 where the std is None (a norm's scale).
 """
 from __future__ import annotations
 
@@ -18,9 +19,6 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from perfbench.work.serve import head_dim, vocab_rows
-
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 DRAW_CHUNK = 1 << 30  # elements a normal_ call
 # one spec a leaf: (path, shape, dtype, std) with std None for a norm's ones
 Leaf = Tuple[Tuple, Tuple[int, ...], torch.dtype, object]
@@ -35,48 +33,9 @@ def sub_seed(seed: int, *tags) -> int:
     return int(np.random.SeedSequence(words).generate_state(1, dtype=np.uint64)[0] >> 1)
 
 
-def layout(model: dict) -> List[Leaf]:
-    """Every leaf of the port's parameter tree for this model."""
-    dt = DTYPES[model.get("dtype", "bfloat16")]
-    d, H, G, dh = model["d_model"], model["n_heads"], model["n_kv_heads"], head_dim(model)
-    ff, V = model["d_ff"], vocab_rows(model)
-    gated = model.get("gated", True)
-    leaves: List[Leaf] = [(("embed", "tok"), (V, d), dt, d ** -0.5)]
-    if not model.get("tie_embeddings"):
-        leaves.append((("embed", "head"), (d, V), dt, d ** -0.5))
-    norm = model["norm"] != "nonparam_ln"
-    if model["norm"] not in ("rmsnorm", "nonparam_ln"):
-        raise NotImplementedError(f"norm {model['norm']}")
-    for gi, g in enumerate(model["groups"]):
-        n = g["count"]
-        for ki, kind in enumerate(g["pattern"]):
-            if kind not in ("attn", "local"):
-                raise NotImplementedError(f"layer kind {kind}")
-            at = ("groups", gi, ki)
-            if norm:
-                leaves += [(at + ("ln1", "scale"), (n, d), dt, None),
-                           (at + ("ln2", "scale"), (n, d), dt, None)]
-            leaves += [(at + ("attn", "wq"), (n, d, H, dh), dt, d ** -0.5),
-                       (at + ("attn", "wk"), (n, d, G, dh), dt, d ** -0.5),
-                       (at + ("attn", "wv"), (n, d, G, dh), dt, d ** -0.5),
-                       (at + ("attn", "wo"), (n, H, dh, d), dt, (H * dh) ** -0.5)]
-            E = model.get("n_experts", 0)
-            cols = 2 * ff if gated else ff
-            if E:
-                leaves += [(at + ("moe", "router"), (n, d, E), torch.float32, d ** -0.5),
-                           (at + ("moe", "w_in"), (n, E, d, 2 * ff), dt, d ** -0.5),
-                           (at + ("moe", "w_out"), (n, E, ff, d), dt, ff ** -0.5)]
-            else:
-                leaves += [(at + ("mlp", "w_in"), (n, d, cols), dt, d ** -0.5),
-                           (at + ("mlp", "w_out"), (n, ff, d), dt, ff ** -0.5)]
-    if norm:
-        leaves.append((("final_norm", "scale"), (d,), dt, None))
-    return leaves
-
-
-def nbytes(model: dict) -> int:
+def nbytes(leaves: List[Leaf]) -> int:
     return sum(math.prod(shape) * torch.empty((), dtype=dt).element_size()
-               for _, shape, dt, _ in layout(model))
+               for _, shape, dt, _ in leaves)
 
 
 def _put(tree: dict, path: Tuple, value) -> None:
@@ -95,10 +54,11 @@ def _as_tuples(node):
     return node
 
 
-def draw(model: dict, seed: int, device) -> dict:
-    """The weights of ``model`` from ``seed`` on ``device``."""
+def draw(reference, model: dict, seed: int, device) -> dict:
+    """The weights of ``model`` from ``seed`` on ``device``, in the layout
+    of its module ``reference``."""
     device = torch.device(device)
-    leaves = layout(model)
+    leaves = reference.layout(model)
     by_dtype: Dict[torch.dtype, List[Leaf]] = {}
     for leaf in leaves:
         by_dtype.setdefault(leaf[2], []).append(leaf)
@@ -119,10 +79,6 @@ def draw(model: dict, seed: int, device) -> dict:
             else:
                 leaf.mul_(std)
             _put(tree, path, leaf)
-    if model["norm"] == "nonparam_ln":
-        for gi, g in enumerate(model["groups"]):
-            for ki, _ in enumerate(g["pattern"]):
-                _put(tree, ("groups", gi, ki, "ln1"), None)
-                _put(tree, ("groups", gi, ki, "ln2"), None)
-        tree["final_norm"] = None
+    for path in reference.absent(model):
+        _put(tree, path, None)
     return _as_tuples(tree)
